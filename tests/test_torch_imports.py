@@ -1,0 +1,105 @@
+"""The port's boundaries: no jax import, no silent fallback, and explicit
+NotImplementedError for what the slice does not cover."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from vslam_tpu_torch.io import config as tconfig
+from vslam_tpu_torch.io import from_jax
+from vslam_tpu_torch.ops import camera as tcam
+from vslam_tpu_torch.system.engine import SlamEngine
+from vslam_tpu_torch.tracking.tracker import FusedPoseTracker
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CAM = tcam.make_camera(fx=300, fy=300, cx=256, cy=96, baseline_m=0.4, rows=192, cols=512)
+
+
+def _open_loop():
+    cfg = tconfig.ParameterCollection()
+    cfg.command_line.option_disable_relocalization = True
+    return cfg
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = (
+        "import sys\n"
+        "import vslam_tpu_torch.system.engine, vslam_tpu_torch.io.from_jax\n"
+        "import vslam_tpu_torch.io.synthetic, vslam_tpu_torch.eval.trajectory\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'vslam_tpu.'))\n"
+        "       or m == 'vslam_tpu']\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env,
+                   timeout=120)
+
+
+def test_cuda_device_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SlamEngine(CAM, _open_loop(), landmark_capacity=1024, device="cuda")
+
+
+@pytest.mark.parametrize("group,key,value", [
+    ("command_line", "option_disable_relocalization", False),
+    ("graph_optimization", "enable_full_bundle_adjustment", True),
+    ("tracking", "use_fused_tracker", False),
+    ("visualization", "enable_image_dump", True),
+])
+def test_unported_engine_configurations_raise(group, key, value):
+    cfg = _open_loop()
+    setattr(getattr(cfg, group), key, value)
+    with pytest.raises(NotImplementedError):
+        SlamEngine(CAM, cfg, landmark_capacity=1024)
+
+
+@pytest.mark.parametrize("group,key,value", [
+    ("command_line", "tracker_mode", "RGB_DEPTH"),
+    ("tracking", "batch_frontend", True),
+])
+def test_unported_tracker_modes_raise(group, key, value):
+    cfg = _open_loop()
+    setattr(getattr(cfg, group), key, value)
+    with pytest.raises(NotImplementedError):
+        FusedPoseTracker(CAM, cfg, landmark_capacity=1024)
+
+
+def test_reference_configurations_load():
+    for name in sorted(os.listdir(os.path.join(REPO, "configurations"))):
+        cfg = tconfig.load_config(os.path.join(REPO, "configurations", name))
+        assert cfg.framepoint_generation.capacity > 0
+
+
+def test_cpu_kernel_wrapper_runs_plain_version_and_counts_no_launch():
+    from vslam_tpu_torch.frontend import fast_brief as fb
+
+    before = fb.K1.launches
+    imgs = torch.zeros((2, 48, 64))
+    planes, score, rowmax, rowarg = fb.fast_brief_frontend_pair(imgs, torch.tensor(10.0))
+    assert planes.shape == (2, 8, 48, 64) and planes.dtype == torch.int32
+    assert score.shape == (2, 48, 64) and rowmax.shape == (2, 3, 128)
+    assert rowarg.dtype == torch.int32
+    assert fb.K1.launches == before
+
+
+def test_state_converters_round_trip():
+    rng = np.random.default_rng(0)
+    frame = {
+        "uv4": rng.normal(size=(8, 4)).astype(np.float32),
+        "desc": rng.integers(0, 2**32, (8, 8), dtype=np.uint32),
+        "p_cam": rng.normal(size=(8, 3)).astype(np.float32),
+        "valid": rng.uniform(size=8) < 0.5,
+        "track_len": rng.integers(0, 5, 8).astype(np.int32),
+        "landmark_slot": rng.integers(-1, 9, 8).astype(np.int32),
+        "reliable": rng.uniform(size=8) < 0.5,
+    }
+    back = from_jax.frame_state_to_numpy(from_jax.frame_state_from_numpy(frame))
+    for k, v in frame.items():
+        assert back[k].dtype == v.dtype
+        np.testing.assert_array_equal(back[k], v)

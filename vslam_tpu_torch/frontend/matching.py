@@ -1,0 +1,56 @@
+"""Stereo epipolar and projective descriptor matching (port of
+vslam_tpu/frontend/matching.py): a full Hamming distance matrix masked by
+the geometric gates, resolved one-to-one by mutual-best cross-check."""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from vslam_tpu_torch.ops import hamming
+
+
+class StereoMatches(NamedTuple):
+    right_idx: torch.Tensor  # (L,) int32 index into right keypoints
+    distance: torch.Tensor  # (L,) int32 Hamming distance
+    valid: torch.Tensor  # (L,) bool
+
+
+class ProjectiveMatches(NamedTuple):
+    cur_idx: torch.Tensor  # (P,) int32 index into current keypoints
+    distance: torch.Tensor  # (P,) int32
+    valid: torch.Tensor  # (P,) bool
+
+
+def match_stereo(uv_l, desc_l, mask_l, uv_r, desc_r, mask_r, max_hamming,
+                 epipolar_tol, min_disparity, max_disparity) -> StereoMatches:
+    """One-to-one stereo correspondence under epipolar + disparity gates."""
+    dist = hamming.hamming_matrix(desc_l, desc_r)
+    dv = torch.abs(uv_l[:, None, 1] - uv_r[None, :, 1])
+    disp = uv_l[:, None, 0] - uv_r[None, :, 0]
+    mask = (
+        mask_l[:, None]
+        & mask_r[None, :]
+        & (dv <= epipolar_tol)
+        & (disp >= min_disparity)
+        & (disp <= max_disparity)
+    )
+    idx, valid, best = hamming.mutual_best_match(dist, mask, max_hamming)
+    return StereoMatches(right_idx=idx, distance=best, valid=valid)
+
+
+def match_projective(proj_uv, desc_prev, mask_prev, uv_cur, desc_cur, mask_cur,
+                     radius_px, max_hamming) -> ProjectiveMatches:
+    """Track prior points into the current frame by windowed Hamming match."""
+    dist = hamming.hamming_matrix(desc_prev, desc_cur)
+    du = torch.abs(proj_uv[:, None, 0] - uv_cur[None, :, 0])
+    dv = torch.abs(proj_uv[:, None, 1] - uv_cur[None, :, 1])
+    mask = (
+        mask_prev[:, None]
+        & mask_cur[None, :]
+        & (du <= radius_px)
+        & (dv <= radius_px)
+    )
+    idx, valid, best = hamming.mutual_best_match(dist, mask, max_hamming)
+    return ProjectiveMatches(cur_idx=idx, distance=best, valid=valid)

@@ -1,0 +1,75 @@
+"""Packed binary-descriptor algebra (port of vslam_tpu/ops/hamming.py).
+
+Descriptors are 256-bit strings packed as 8 int32 words (the same bits as
+the JAX package's uint32 words).  torch has no popcount, so distances use
+a SWAR popcount on int32: every mask clears the bits an arithmetic right
+shift smears in, so the signed shifts give the unsigned result.
+"""
+
+from __future__ import annotations
+
+import torch
+
+DESC_BITS = 256
+DESC_WORDS = DESC_BITS // 32
+BIG = 1 << 20  # sentinel distance for masked-out pairs
+_SENT = 512  # > any Hamming distance: the value of a masked-out pair
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Per-element population count of int32 words (SWAR)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    x = x + (x >> 8)
+    x = x + (x >> 16)
+    return x & 0x3F
+
+
+def hamming_pairwise(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Distance between aligned rows: (N, 8), (N, 8) -> (N,) int32."""
+    return popcount32(a ^ b).sum(dim=-1, dtype=torch.int32)
+
+
+def hamming_matrix(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
+    """Full distance matrix (Q, 8) x (D, 8) -> (Q, D) int32."""
+    return popcount32(q[:, None, :] ^ db[None, :, :]).sum(dim=-1, dtype=torch.int32)
+
+
+def _min_first(d: torch.Tensor, dim: int):
+    """(min, index of its first occurrence) along `dim`."""
+    best = d.amin(dim=dim, keepdim=True)
+    n = d.shape[dim]
+    shape = [1] * d.dim()
+    shape[dim] = n
+    iota = torch.arange(n, dtype=torch.int32, device=d.device).view(shape)
+    idx = torch.where(d == best, iota, n).amin(dim=dim)
+    return best.squeeze(dim), idx
+
+
+def _masked(dist: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return torch.where(mask, torch.clamp(dist.to(torch.int32), max=_SENT), _SENT)
+
+
+def masked_argmin(dist: torch.Tensor, mask: torch.Tensor, max_distance):
+    """Per-row best match under a pair mask and a distance gate.
+
+    Returns (best_idx (Q,), best_dist (Q,), valid (Q,)); invalid rows get
+    idx 0 and dist BIG.  Ties resolve to the smallest index."""
+    best, best_idx = _min_first(_masked(dist, mask), 1)
+    valid = best <= max_distance
+    return (torch.where(valid, best_idx, 0), torch.where(valid, best, BIG),
+            valid)
+
+
+def mutual_best_match(dist: torch.Tensor, mask: torch.Tensor, max_distance):
+    """One-to-one assignment by mutual-best cross-check: q matches d iff
+    each is the other's (first) argmin and the distance passes the gate.
+    Returns (match_idx (Q,), valid (Q,), best_dist (Q,))."""
+    d = _masked(dist, mask)
+    best, best_j = _min_first(d, 1)
+    _, best_i = _min_first(d, 0)
+    q_ids = torch.arange(d.shape[0], dtype=torch.int32, device=d.device)
+    mutual = best_i[best_j.long()] == q_ids
+    valid = mutual & (best <= max_distance)
+    return best_j, valid, best

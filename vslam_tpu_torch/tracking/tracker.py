@@ -1,0 +1,290 @@
+"""Per-frame stereo odometry (port of FusedPoseTracker,
+vslam_tpu/tracking/tracker.py): owns the device TrackerState, steps it
+once per frame, and harvests poses, statistics and keyframe snapshots
+from the device rings in batched readbacks."""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from vslam_tpu_torch.io.config import ParameterCollection
+from vslam_tpu_torch.ops import camera as cam_ops
+from vslam_tpu_torch.solve import gn
+from vslam_tpu_torch.tracking import fused
+
+LOCALIZING = "Localizing"
+TRACKING = "Tracking"
+
+
+def resolve_device(device) -> torch.device:
+    """The torch device to run on; asking for CUDA without a card raises
+    (the port never falls back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} requested but CUDA is not available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+@dataclass
+class KeyframeSnapshot:
+    """One harvested keyframe event from the device snapshot ring; host
+    numpy arrays truncated to the n valid rows."""
+
+    map_id: int  # local-map index (device kf_count order)
+    frame_idx: int
+    T_world_kf: np.ndarray  # (4, 4)
+    slots: np.ndarray  # (n,) int32 landmark table slots
+    xyz_w: np.ndarray  # (n, 3) landmark world positions at snapshot
+    desc: np.ndarray | None  # descriptors stay in the device ring (None)
+    uv4: np.ndarray  # (n, 4) keyframe stereo observations
+    ring_row: int = -1  # device snapshot-ring row
+
+
+@dataclass
+class TrackerStats:
+    n_frames: int = 0
+    n_tracked_points: int = 0
+    n_inliers: int = 0
+    n_keypoints: int = 0
+    n_framepoints: int = 0
+    tracking_ratio: float = 0.0
+    n_breaks: int = 0
+    n_recovered: int = 0
+    n_spawned: int = 0
+    stage_seconds: dict = field(default_factory=dict)
+
+    def add_time(self, stage: str, dt: float):
+        self.stage_seconds[stage] = self.stage_seconds.get(stage, 0.0) + dt
+
+
+class _AllocatorView:
+    """Allocator facade over the device slot counter and free list."""
+
+    def __init__(self, owner):
+        self._owner = owner
+
+    @property
+    def num_allocated(self) -> int:
+        st = self._owner.state
+        return int(st.next_slot) - int(st.free_count)
+
+
+class _ControllerView:
+    def __init__(self, owner):
+        self._owner = owner
+
+    @property
+    def threshold(self) -> float:
+        return float(self._owner.state.threshold)
+
+    @threshold.setter
+    def threshold(self, v: float):
+        st = self._owner.state
+        self._owner.state = st._replace(threshold=torch.full_like(st.threshold, v))
+
+
+def params_from_config(cam: cam_ops.CameraParams, config: ParameterCollection,
+                       device: torch.device) -> fused.FusedParams:
+    """FusedParams from the configuration tree, as the JAX tracker builds
+    them; the keyframe ring is the full archive on CUDA and 32 rows on
+    the CPU (the JAX tracker's TPU / CPU split)."""
+    fp = config.framepoint_generation
+    tr = config.tracking
+    n_cells = (cam.rows // fp.bin_size_pixels) * (cam.cols // fp.bin_size_pixels)
+    return fused.FusedParams(
+        capacity=fp.capacity,
+        bin_size=fp.bin_size_pixels,
+        border=fp.border_pixels,
+        descriptor=fp.descriptor_type,
+        detector=fp.detector_type,
+        octaves=fp.detector_number_of_octaves,
+        max_hamming_stereo=fp.maximum_matching_distance_triangulation,
+        epipolar_tol=fp.maximum_epipolar_search_offset_pixels,
+        min_disparity=fp.minimum_disparity_pixels,
+        max_disparity=fp.maximum_disparity_pixels,
+        min_track_for_landmark=tr.minimum_track_length_for_landmark_creation,
+        min_inliers=tr.aligner_minimum_number_of_inliers,
+        min_inlier_ratio=tr.aligner_minimum_inlier_ratio,
+        enable_recovery=(config.command_line.option_recover_landmarks
+                         and tr.maximum_number_of_landmark_recoveries > 0),
+        radius_min=float(tr.minimum_threshold_distance_tracking_pixels),
+        radius_max=float(tr.maximum_distance_tracking_pixels),
+        radius_adaptive_max=float(max(tr.maximum_threshold_distance_tracking_pixels,
+                                      tr.minimum_threshold_distance_tracking_pixels)),
+        min_landmarks_to_track=tr.minimum_number_of_landmarks_to_track,
+        min_delta_ang=tr.minimum_delta_angular_for_movement,
+        min_delta_trans=tr.minimum_delta_translational_for_movement,
+        gate_min=float(fp.matching_distance_tracking_threshold),
+        good_tracking_ratio=tr.good_tracking_ratio,
+        target_keypoints=min(int(n_cells * 0.7), int(fp.capacity * 0.7)),
+        target_tolerance=fp.target_number_of_keypoints_tolerance,
+        lm_min_forced_updates=config.landmark.minimum_number_of_forced_updates,
+        lm_min_meas_for_opt=config.landmark.minimum_number_of_measurements_for_optimization,
+        lm_max_t_err_depth_ratio=config.landmark.maximum_translation_error_to_depth_ratio,
+        enable_eviction=config.command_line.option_drop_framepoints,
+        ring_size=max(64, 4 * int(config.parallelism.frames_per_chunk)),
+        kf_ring_size=(int(config.parallelism.kf_archive_size)
+                      if device.type == "cuda" else 32),
+        threshold_min=fp.detector_threshold_minimum,
+        threshold_max=fp.detector_threshold_maximum,
+        threshold_max_change=fp.detector_threshold_maximum_change,
+        kf_min_distance=config.world_map.minimum_distance_traveled_for_local_map,
+        kf_min_radians=float(np.deg2rad(config.world_map.minimum_degrees_rotated_for_local_map)),
+        kf_min_frames=config.world_map.minimum_number_of_frames_for_local_map,
+        kf_min_landmarks=config.local_map.minimum_number_of_landmarks,
+        kf_max_landmarks=min(config.local_map.maximum_number_of_landmarks, fp.capacity),
+        gn_config=gn.GNConfig(
+            max_iterations=tr.aligner_maximum_number_of_iterations,
+            kernel_max_error=tr.aligner_maximum_error_kernel,
+            damping=tr.aligner_damping,
+            min_num_inliers=tr.aligner_minimum_number_of_inliers,
+        ),
+    )
+
+
+class FusedPoseTracker:
+    """Per-frame stereo odometry over the device-resident tracker step.
+
+    Poses and statistics are written by the step into a device result
+    ring and read back every `harvest_every` frames: every frame on the
+    CPU, every `parallelism.frames_per_chunk` frames on CUDA."""
+
+    def __init__(self, cam: cam_ops.CameraParams, config: ParameterCollection,
+                 landmark_capacity: int = 65536, device="cpu"):
+        if config.command_line.tracker_mode != "RGB_STEREO":
+            raise NotImplementedError(
+                "RGB-D tracking is not ported yet (ROADMAP Queue 1 item 13)")
+        if config.tracking.batch_frontend:
+            raise NotImplementedError(
+                "the split (batched) front-end is not ported yet "
+                "(ROADMAP Queue 1 item 15)")
+        self.device = resolve_device(device)
+        self.cam = cam_ops.to_device(cam, self.device)
+        self.params = params_from_config(self.cam, config, self.device)
+        fp, tr = config.framepoint_generation, config.tracking
+        self.state = fused.init_state(self.cam, self.params, landmark_capacity,
+                                      fp.detector_threshold_starting_value)
+        self.motion_model_on = tr.motion_model == "CONSTANT_VELOCITY"
+        self.odometry_on = (tr.motion_model == "CAMERA_ODOMETRY"
+                            or config.command_line.option_use_odometry)
+        self.harvest_every = (max(int(config.parallelism.frames_per_chunk), 1)
+                              if self.device.type == "cuda" else 1)
+        self.trajectory: list[np.ndarray] = []
+        self.stats = TrackerStats()
+        self.allocator = _AllocatorView(self)
+        self.controller = _ControllerView(self)
+        self._dispatched = 0  # frames stepped on the device
+        self._harvested = 0  # frames read back from the ring
+        self._kf_harvested = 0  # device kf_count already harvested
+        self._pending_keyframes: list[KeyframeSnapshot] = []
+        self._last_pose = np.eye(4, dtype=np.float32)
+        self._last_status = LOCALIZING
+        # Frame indices where registration failed (track re-rooted).
+        self._break_frames: list[int] = []
+
+    @property
+    def status(self) -> str:
+        """Localizing / Tracking after the last harvested frame."""
+        return self._last_status
+
+    def compute(self, img_l: np.ndarray, img_r: np.ndarray,
+                odometry: np.ndarray | None = None) -> np.ndarray:
+        """Process one stereo frame; returns the last harvested pose
+        (exact per frame on the CPU, up to harvest_every frames behind on
+        CUDA — flush() first for exact state)."""
+        t0 = time.perf_counter()
+        # Frames cross to the device as uint8, like the JAX tracker's
+        # upload: FAST scores and ties are those of the integer image.
+        pair = torch.from_numpy(np.stack([img_l, img_r]).astype(np.uint8))
+        imgs = pair.to(self.device)
+        T_odom = None
+        if self.odometry_on:
+            T_odom = torch.as_tensor(
+                np.eye(4, dtype=np.float32) if odometry is None
+                else np.asarray(odometry, np.float32), device=self.device)
+        self.state = fused.step(self.cam, self.params, self.state, imgs,
+                                self.motion_model_on, T_odom)
+        self._dispatched += 1
+        if self._dispatched - self._harvested >= self.harvest_every:
+            self._drain()
+        self.stats.add_time("frame_step", time.perf_counter() - t0)
+        return self._last_pose
+
+    def _drain(self):
+        """One device->host copy of the result ring: per-frame poses and
+        statistics of every unharvested frame, then any new keyframes."""
+        upto = self._dispatched
+        if upto == self._harvested:
+            return
+        assert upto - self._harvested <= self.params.ring_size
+        ring = self.state.ring.cpu().numpy()
+        s = self.stats
+        kf_total = self._kf_harvested
+        for fi in range(self._harvested, upto):
+            row = ring[fi % self.params.ring_size]
+            T = row[:16].reshape(4, 4).astype(np.float32)
+            self.trajectory.append(T)
+            self._last_pose = T
+            n_fp = int(row[fused._R_NFP])
+            n_matches = int(row[fused._R_NMATCH])
+            s.n_frames += 1
+            s.n_keypoints += int(row[fused._R_NKP])
+            s.n_framepoints += n_fp
+            s.n_tracked_points += n_matches
+            s.n_inliers += int(row[fused._R_NINL])
+            s.n_recovered += int(row[fused._R_NRECOVER])
+            s.n_spawned += int(row[fused._R_NSPAWN])
+            s.tracking_ratio = n_matches / max(n_fp, 1)
+            if row[fused._R_OK] == 0.0:
+                s.n_breaks += 1
+                self._break_frames.append(fi)
+            self._last_status = TRACKING if row[fused._R_STATUS] > 0.0 else LOCALIZING
+            kf_total = int(row[fused._R_KFCOUNT])
+        if kf_total > self._kf_harvested:
+            self._harvest_keyframes(kf_total)
+        self._harvested = upto
+
+    def _harvest_keyframes(self, kf_total: int):
+        """Copy the new keyframe snapshots out of the device ring."""
+        start = self._kf_harvested
+        KR = self.params.kf_ring_size
+        if kf_total - start > KR:
+            raise RuntimeError(f"keyframe ring overflow: {kf_total - start} "
+                               f"keyframes since the last drain > ring size {KR}")
+        rows = torch.tensor([k % KR for k in range(start, kf_total)],
+                            dtype=torch.int64, device=self.device)
+        st = self.state
+        pose, fidx, ns, slots, xyz, uv4 = (
+            a[rows].cpu().numpy() for a in (st.kf_pose, st.kf_frame_idx, st.kf_n,
+                                            st.kf_slots, st.kf_xyz, st.kf_uv4)
+        )
+        for r, k in enumerate(range(start, kf_total)):
+            n = int(ns[r])
+            self._pending_keyframes.append(KeyframeSnapshot(
+                map_id=k,
+                frame_idx=int(fidx[r]),
+                T_world_kf=pose[r].astype(np.float32),
+                slots=slots[r][:n].copy(),
+                xyz_w=xyz[r][:n].copy(),
+                desc=None,
+                uv4=uv4[r][:n].copy(),
+                ring_row=k % KR,
+            ))
+        self._kf_harvested = kf_total
+
+    def pop_keyframes(self) -> list[KeyframeSnapshot]:
+        """Harvested-but-unconsumed keyframe events (engine API)."""
+        out = self._pending_keyframes
+        self._pending_keyframes = []
+        return out
+
+    def flush(self):
+        """Harvest every stepped frame (call before reading final state)."""
+        self._drain()
