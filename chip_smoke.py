@@ -5,20 +5,39 @@
 Phases (each raises on failure; the exit code is then non-zero):
   1. device  — require CUDA; print torch / CUDA versions and the card's
                name and power limit (nvidia-smi);
-  2. build   — compile kernel K1 (csrc/fast_brief_frontend.cu) with nvcc;
+  2. build   — compile K1 (csrc/fast_brief_frontend.cu) and the dense
+               BRIEF kernel behind K2/K3/K4 (csrc/dense_brief.cu) with
+               nvcc, both builds started together;
   3. K1      — kernel vs its plain-torch version on the card at 376x1241,
                B=2, on a rendered synthetic pair and a uniform-random pair
                (both uint8-valued), FAST thresholds {5, 18, 40, 100}, arc
                lengths 9 and 12: all four outputs bit-equal over the whole
                image; one case also against the plain version on the CPU;
                median kernel and plain times (CUDA events, 20 runs);
-  4. slice   — SlamEngine in open-loop mode on the card: 128 frames of a
-               13 m-radius circle at KITTI resolution with the bench's
-               settings; asserts 128 K1 launches, 0 tracking breaks,
-               ATE <= 0.05 m, 36-48 local maps, and that the first 8 frames
-               agree with the same engine on the CPU.
-The line before the last is a JSON object with the kernel record, the
-last line {"ok": true, "device": {...}}.
+  4. dense   — K2 at B=2 x 376x1241, K3 at 188x620 and K4 at 480x752 for
+               all 16 banks, each on a box-blurred rendered pair and a
+               uniform-random pair: bit-equal to the plain version over
+               the whole image; one case against the CPU; median times;
+  5. K2'     — the band-size / input-type probe: the same kernel at
+               (64, 376, 1241) with 8-, 16-, 32- and 64-row bands, f32 and
+               bf16 input, each bit-equal to its plain version; times;
+  6. slices  — SlamEngine in open-loop mode on the card, each run with
+               every launch count set to 0 just before it and read just
+               after:
+               a. K1 slice: 128 frames of a 13 m-radius circle at KITTI
+                  resolution with the bench's settings; 128 K1 launches,
+                  0 breaks, ATE <= 0.05 m, 36-48 local maps;
+               b. configuration_kitti.yaml (2 octaves, BRIEF256) on a
+                  64-frame 13 m circle; K2 64, K3 128, K1 and K4 0
+                  launches, 0 breaks, ATE <= 0.05 m, 14-18 local maps;
+               c. configuration_euroc.yaml (BRIEF256R) at EuRoC's 752x480
+                  and intrinsics on a 32-frame 4 m circle; K4 32 and K2 1
+                  launches per frame, K1 and K3 0, 0 breaks, ATE <= 0.05 m,
+                  13-17 local maps;
+               each slice's first frames (8, 8, 4) agree with the same
+               engine on the CPU within 1e-3 m.
+The script then prints the kernel record (one JSON line), the card's
+name and power limit (nvidia-smi), and last {"ok": true, "device": {...}}.
 """
 
 import json
@@ -39,6 +58,12 @@ ATE_LIMIT_M = 0.05
 LOCAL_MAPS = (36, 48)
 CPU_CHECK_FRAMES = 8
 CPU_CHECK_TOL_M = 1e-3
+KITTI_CAM = dict(fx=718.856, fy=718.856, cx=607.19, cy=185.22, baseline_m=0.5372,
+                 rows=376, cols=1241)
+# EuRoC MAV cam0 intrinsics and the cam0-cam1 baseline (the dataset's
+# sensor.yaml files).
+EUROC_CAM = dict(fx=458.654, fy=457.296, cx=367.215, cy=248.375, baseline_m=0.110,
+                 rows=480, cols=752)
 
 
 def card_line() -> str:
@@ -71,8 +96,7 @@ def bench_setup():
     from vslam_tpu_torch.io.config import ParameterCollection
     from vslam_tpu_torch.ops import camera as cam_ops
 
-    cam = cam_ops.make_camera(fx=718.856, fy=718.856, cx=607.19, cy=185.22,
-                              baseline_m=0.5372, rows=376, cols=1241)
+    cam = cam_ops.make_camera(**KITTI_CAM)
     cfg = ParameterCollection()
     cfg.framepoint_generation.capacity = 1024
     cfg.framepoint_generation.bin_size_pixels = 16
@@ -86,6 +110,23 @@ def bench_setup():
     world = synthetic.make_world(cam, n_points=7000, seed=0, poses=poses)
     frames = [synthetic.render_frame(world, t)[:2] for t in range(N_FRAMES)]
     return cam, cfg, world, frames
+
+
+def counters():
+    """The launch counter of each kernel wrapper, by kernel."""
+    from vslam_tpu_torch.frontend import dense_brief as db
+    from vslam_tpu_torch.frontend import fast_brief as fb
+
+    return {"K1": fb.K1, "K2": db.K2, "K3": db.K3, "K4": db.K4}
+
+
+def reset_counts():
+    for c in counters().values():
+        c.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: c.launches for k, c in counters().items()}
 
 
 def phase_k1(frames, card):
@@ -132,7 +173,111 @@ def phase_k1(frames, card):
     plain_ms = cuda_ms(lambda: fb.fast_brief_frontend_pair_reference(imgs, t))
     print(f"[k1] median over 20 runs at 2x376x1241: kernel {ms:.4f} ms, plain "
           f"version {plain_ms:.4f} ms ({card})")
-    return max_err, ms, plain_ms
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+
+
+def _require_equal(label, got, ref):
+    if got.shape != ref.shape or not torch.equal(got, ref):
+        n = int((got != ref).sum()) if got.shape == ref.shape else -1
+        raise AssertionError(f"{label}: kernel differs from its plain version "
+                             f"({n} words differ, shapes {tuple(got.shape)} / "
+                             f"{tuple(ref.shape)})")
+    return (got.double() - ref.double()).abs().max().item()
+
+
+def phase_dense(kitti_frame, card):
+    """K2, K3 and K4 against their plain version, whole image, bit-equal."""
+    from vslam_tpu_torch.frontend import dense_brief as db
+    from vslam_tpu_torch.frontend import detect, orb
+    from vslam_tpu_torch.io import synthetic
+    from vslam_tpu_torch.ops import camera as cam_ops
+
+    rng = np.random.default_rng(1)
+    ecam = cam_ops.make_camera(**EUROC_CAM)
+    eworld = synthetic.make_world(ecam, n_points=7000, seed=0,
+                                  poses=synthetic.circle_trajectory(32, radius=4.0))
+
+    def on_card(img):
+        return torch.from_numpy(np.asarray(img).astype(np.uint8).astype(np.float32)).cuda()
+
+    kitti = torch.stack([orb.box_blur(on_card(im), 2) for im in kitti_frame])
+    level1 = torch.stack([orb.box_blur(detect.downsample2(on_card(im)), 2)
+                          for im in kitti_frame])
+    euroc = torch.stack([orb.box_blur(on_card(im), 2)
+                         for im in synthetic.render_frame(eworld, 0)[:2]])
+    cases = {
+        "K2": [kitti, torch.from_numpy(rng.uniform(0, 256, (2, 376, 1241))
+                                       .astype(np.float32)).cuda()],
+        "K3": [level1, torch.from_numpy(rng.uniform(0, 256, (2, 188, 620))
+                                        .astype(np.float32)).cuda()],
+        "K4": [euroc, torch.from_numpy(rng.uniform(0, 256, (2, 480, 752))
+                                       .astype(np.float32)).cuda()],
+    }
+    out = {}
+    for name, stacks in cases.items():
+        err = 0.0
+        n_cases = 0
+        for sm in stacks:
+            if name == "K2":
+                err = max(err, _require_equal(name, db.dense_bit_planes_batch(sm),
+                                              db.dense_bit_planes_reference(sm)))
+                n_cases += 1
+                continue
+            for img in sm:
+                if name == "K3":
+                    got = db.dense_bit_planes(img)
+                    ref = db.dense_bit_planes_reference(img[None])[0]
+                    err = max(err, _require_equal(name, got, ref))
+                    n_cases += 1
+                    continue
+                for bank in range(db.N_ROT_BANKS):
+                    got = db.dense_bit_planes_pattern(img, bank)
+                    ref = db.dense_bit_planes_reference(img[None], 1 + bank)[0]
+                    err = max(err, _require_equal(f"K4 bank {bank}", got, ref))
+                    n_cases += 1
+        torch.cuda.synchronize()
+        out[name] = {"max_abs_err": err}
+        print(f"[dense] {name} bit-equal to the plain version over the whole image "
+              f"in {n_cases} cases (rendered + uniform-random, {tuple(stacks[0].shape)})")
+    # One case against the plain version on the CPU.
+    got = db.dense_bit_planes_batch(kitti).cpu()
+    if not torch.equal(got, db.dense_bit_planes_batch(kitti.cpu())):
+        raise AssertionError("K2 on the card differs from the plain version on the CPU")
+    print("[dense] K2 on the card equals the plain version on the CPU")
+
+    timed = {
+        "K2": (lambda: db.dense_bit_planes_batch(kitti),
+               lambda: db.dense_bit_planes_reference(kitti), "2x376x1241"),
+        "K3": (lambda: db.dense_bit_planes(level1[0]),
+               lambda: db.dense_bit_planes_reference(level1[:1]), "188x620"),
+        "K4": (lambda: db.dense_bit_planes_pattern(euroc[0], 5),
+               lambda: db.dense_bit_planes_reference(euroc[:1], 6), "480x752, one bank"),
+    }
+    for name, (kernel, plain, shape) in timed.items():
+        out[name]["ms"] = cuda_ms(kernel)
+        out[name]["plain_ms"] = cuda_ms(plain)
+        print(f"[dense] {name} median over 20 runs at {shape}: kernel "
+              f"{out[name]['ms']:.4f} ms, plain version {out[name]['plain_ms']:.4f} ms "
+              f"({card})")
+    return out
+
+
+def phase_k2_probe(card):
+    """K2's band-size / input-type probe at (64, 376, 1241)."""
+    from vslam_tpu_torch.frontend import dense_brief as db
+
+    x = torch.from_numpy(np.random.default_rng(2).uniform(0, 255, (64, 376, 1241))
+                         .astype(np.float32)).cuda()
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype).contiguous()
+        ref = db.dense_bit_planes_reference(xd)
+        for band in db.BANDS:
+            _require_equal(f"K2' band {band} {dtype}", db.KERNEL.launch(xd, 0, band), ref)
+            ms = cuda_ms(lambda: db.KERNEL.launch(xd, 0, band), runs=10)
+            print(f"[k2'] band {band:2d} {str(dtype)[6:]:8s} bit-equal; median over 10 "
+                  f"runs at 64x376x1241: {ms:.4f} ms ({ms / 32:.4f} ms per pair) ({card})")
+        del ref
+    torch.cuda.synchronize()
 
 
 def run_engine(cam, cfg, frames, device, n_frames):
@@ -151,42 +296,65 @@ def run_engine(cam, cfg, frames, device, n_frames):
     return engine, traj, time.perf_counter() - t0, times
 
 
-def phase_slice(cam, cfg, world, frames, card):
+def drive_slice(label, cam, cfg, world, frames, expect, local_maps, cpu_frames, card):
+    """One open-loop run on the card with the launch counts zeroed just
+    before it and read just after; checks and prints it, then compares its
+    first frames with the same engine on the CPU.  Returns the counts."""
     from vslam_tpu_torch.eval import trajectory as traj_eval
-    from vslam_tpu_torch.frontend import fast_brief as fb
 
+    n = len(frames)
     torch.cuda.reset_peak_memory_stats()
-    fb.K1.launches = 0
-    engine, traj, wall, times = run_engine(cam, cfg, frames, "cuda", N_FRAMES)
-    launches = fb.K1.launches
+    reset_counts()
+    engine, traj, wall, times = run_engine(cam, cfg, frames, "cuda", n)
+    counts = read_counts()
     rep = engine.report()
-    if traj.shape != (N_FRAMES, 4, 4) or not np.all(np.isfinite(traj)):
-        raise AssertionError(f"trajectory shape {traj.shape} or non-finite poses")
+    if traj.shape != (n, 4, 4) or not np.all(np.isfinite(traj)):
+        raise AssertionError(f"{label}: trajectory shape {traj.shape} or non-finite poses")
     rmse, _, _ = traj_eval.ate_rmse(traj, world.poses)
-    print(f"[slice] {N_FRAMES} frames: ATE {rmse:.4f} m over a "
-          f"{2 * np.pi * RADIUS_M:.1f} m loop, {rep['n_local_maps']} local maps, "
-          f"{rep['n_track_breaks']} breaks, {rep['n_landmarks']} landmarks, "
-          f"{rep['n_recovered_landmarks']} recovered, K1 launches {launches}")
-    ms_frame = 1e3 * wall / N_FRAMES
-    steady = 1e3 * statistics.median(times[8:])
-    print(f"[slice] {ms_frame:.2f} ms/frame over the run ({1e3 / ms_frame:.2f} fps), "
-          f"median {steady:.2f} ms/frame after frame 8, peak device memory "
+    loop = np.linalg.norm(np.diff(world.poses[:, :3, 3], axis=0), axis=1).sum()
+    print(f"[{label}] {n} frames: ATE {rmse:.4f} m over a {loop:.1f} m path, "
+          f"{rep['n_local_maps']} local maps, {rep['n_track_breaks']} breaks, "
+          f"{rep['n_landmarks']} landmarks, {rep['n_recovered_landmarks']} recovered, "
+          f"launches {counts}")
+    ms_frame = 1e3 * wall / n
+    steady = 1e3 * statistics.median(times[min(8, n // 4):])
+    print(f"[{label}] {ms_frame:.2f} ms/frame over the run ({1e3 / ms_frame:.2f} fps), "
+          f"median {steady:.2f} ms/frame after the first frames, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card})")
-    if launches != N_FRAMES:
-        raise AssertionError(f"K1 launched {launches} times for {N_FRAMES} frames")
+    if counts != expect:
+        raise AssertionError(f"{label}: launches {counts}, expected {expect}")
     if rep["n_track_breaks"] != 0:
-        raise AssertionError(f"{rep['n_track_breaks']} tracking breaks")
+        raise AssertionError(f"{label}: {rep['n_track_breaks']} tracking breaks")
     if not rmse <= ATE_LIMIT_M:
-        raise AssertionError(f"ATE {rmse:.4f} m > {ATE_LIMIT_M} m")
-    if not LOCAL_MAPS[0] <= rep["n_local_maps"] <= LOCAL_MAPS[1]:
-        raise AssertionError(f"{rep['n_local_maps']} local maps outside {LOCAL_MAPS}")
+        raise AssertionError(f"{label}: ATE {rmse:.4f} m > {ATE_LIMIT_M} m")
+    if not local_maps[0] <= rep["n_local_maps"] <= local_maps[1]:
+        raise AssertionError(f"{label}: {rep['n_local_maps']} local maps outside {local_maps}")
 
-    _, traj_cpu, _, _ = run_engine(cam, cfg, frames, "cpu", CPU_CHECK_FRAMES)
-    dev = np.abs(traj[:CPU_CHECK_FRAMES, :3, 3] - traj_cpu[:, :3, 3]).max()
-    print(f"[slice] first {CPU_CHECK_FRAMES} positions: card vs CPU max |diff| {dev:.2e} m")
+    _, traj_cpu, _, _ = run_engine(cam, cfg, frames, "cpu", cpu_frames)
+    dev = np.abs(traj[:cpu_frames, :3, 3] - traj_cpu[:, :3, 3]).max()
+    print(f"[{label}] first {cpu_frames} positions: card vs CPU max |diff| {dev:.2e} m")
     if not dev <= CPU_CHECK_TOL_M:
-        raise AssertionError(f"card and CPU trajectories differ by {dev} m")
-    return launches
+        raise AssertionError(f"{label}: card and CPU trajectories differ by {dev} m")
+    return counts
+
+
+def config_slice(label, name, cam_args, n_frames, radius, per_frame, local_maps,
+                 cpu_frames, card):
+    """A shipped configuration, open loop, on a synthetic circle."""
+    from vslam_tpu_torch.io import synthetic
+    from vslam_tpu_torch.io.config import load_config
+    from vslam_tpu_torch.ops import camera as cam_ops
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(here, "configurations", f"configuration_{name}.yaml"))
+    cfg.command_line.option_disable_relocalization = True
+    cam = cam_ops.make_camera(**cam_args)
+    world = synthetic.make_world(cam, n_points=7000, seed=0,
+                                 poses=synthetic.circle_trajectory(n_frames, radius=radius))
+    frames = [synthetic.render_frame(world, t)[:2] for t in range(n_frames)]
+    expect = {k: per_frame.get(k, 0) * n_frames for k in counters()}
+    return drive_slice(label, cam, cfg, world, frames, expect, local_maps, cpu_frames,
+                       card)
 
 
 def main():
@@ -194,32 +362,54 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(1)
     import vslam_tpu_torch  # noqa: F401  (the port, from this checkout)
+    from vslam_tpu_torch.frontend import dense_brief as db
     from vslam_tpu_torch.frontend import fast_brief as fb
 
     card = card_line()
     print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
 
+    libraries = {"K1": fb.K1.library, "K2/K3/K4": db.KERNEL.library}
+    for lib in libraries.values():
+        lib.start()  # one nvcc per source, all at once
     fb.K1.build()
-    print(f"[build] K1 built in {fb.K1.build_seconds:.2f} s")
-    for line in fb.K1.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"[build] {line.strip()}")
+    db.KERNEL.build()
+    for name, lib in libraries.items():
+        print(f"[build] {name} ({lib.src.name}) built in {lib.build_seconds:.2f} s")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"[build] {line.strip()}")
 
     cam, cfg, world, frames = bench_setup()
-    max_err, ms, plain_ms = phase_k1(frames, card)
-    launches = phase_slice(cam, cfg, world, frames, card)
+    stats = {"K1": phase_k1(frames, card)}
+    stats.update(phase_dense(frames[0], card))
+    phase_k2_probe(card)
 
+    launches = drive_slice("k1-slice", cam, cfg, world, frames,
+                           {"K1": N_FRAMES, "K2": 0, "K3": 0, "K4": 0}, LOCAL_MAPS,
+                           CPU_CHECK_FRAMES, card)
+    for counts in (
+        config_slice("kitti-config", "kitti", KITTI_CAM, 64, 13.0, {"K2": 1, "K3": 2},
+                     (14, 18), 8, card),
+        config_slice("euroc-config", "euroc", EUROC_CAM, 32, 4.0,
+                     {"K2": 1, "K4": 2 * db.N_ROT_BANKS}, (13, 17), 4, card),
+    ):
+        launches = {k: launches[k] + counts[k] for k in launches}
+
+    sources = {"K1": ("fast_brief_frontend_pair", "fast_brief_frontend.cu",
+                      "vslam_tpu/frontend/pallas_frontend.py:196")}
+    for name, entry in (("K2", db.K2), ("K3", db.K3), ("K4", db.K4)):
+        sources[name] = (entry.name, "dense_brief.cu", entry.replaces)
     print(json.dumps({"kernels": [{
-        "name": "fast_brief_frontend_pair",
+        "name": fn,
         "route": "cuda",
-        "source": "vslam_tpu_torch/csrc/fast_brief_frontend.cu",
-        "replaces": "vslam_tpu/frontend/pallas_frontend.py:196",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+        "source": f"vslam_tpu_torch/csrc/{src}",
+        "replaces": replaces,
+        "launches": launches[k],
+        "max_abs_err": stats[k]["max_abs_err"],
+        "ms": stats[k]["ms"],
+        "plain_ms": stats[k]["plain_ms"],
+    } for k, (fn, src, replaces) in sources.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,0 +1,91 @@
+"""The port's CUDA kernels and its shipped configurations on the card.
+
+Every test here needs an NVIDIA GPU and skips without one.  The file
+imports neither jax nor vslam_tpu, so it also runs where only the port
+is installed:
+
+    PYTHONPATH=. python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(--noconftest: tests/conftest.py configures jax for the parity tests.)
+Tolerance: none — each kernel is compared with its plain-torch version
+for equality over the whole image; the engine runs on the card are held
+to the port's CPU run within 1e-3 m on their first frames.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from vslam_tpu_torch.frontend import dense_brief as db
+from vslam_tpu_torch.frontend import fast_brief as fb
+from vslam_tpu_torch.io import synthetic
+from vslam_tpu_torch.io.config import load_config
+from vslam_tpu_torch.ops import camera as cam_ops
+from vslam_tpu_torch.system.engine import SlamEngine
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels have no CPU mode")
+
+
+def _uint8_valued(shape, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.round(rng.uniform(0, 255, shape)).astype(np.float32))
+
+
+@pytest.mark.cuda
+def test_k1_kernel_matches_plain_version_on_the_card():
+    _need_card()
+    for arc_len in (9, 12):
+        imgs = _uint8_valued((2, 200, 333), arc_len).cuda()
+        thr = torch.tensor(12.0, device="cuda")
+        got = fb.fast_brief_frontend_pair(imgs, thr, arc_len=arc_len)
+        ref = fb.fast_brief_frontend_pair_reference(imgs, thr, arc_len=arc_len)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 120, 333), (1, 376, 1241)])
+def test_dense_brief_kernel_matches_plain_version_on_the_card(shape):
+    _need_card()
+    sm = _uint8_valued(shape, 2).cuda()
+    launches = (db.K2.launches, db.K3.launches, db.K4.launches)
+    assert torch.equal(db.dense_bit_planes_batch(sm), db.dense_bit_planes_reference(sm))
+    assert torch.equal(db.dense_bit_planes(sm[0]), db.dense_bit_planes_reference(sm[:1])[0])
+    for bank in (0, 7, 15):
+        assert torch.equal(db.dense_bit_planes_pattern(sm[0], bank),
+                           db.dense_bit_planes_reference(sm[:1], 1 + bank)[0])
+    assert (db.K2.launches, db.K3.launches, db.K4.launches) == (
+        launches[0] + 1, launches[1] + 1, launches[2] + 3)
+    for band in db.BANDS:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = sm.to(dtype).contiguous()
+            assert torch.equal(db.KERNEL.launch(x, 3, band),
+                               db.dense_bit_planes_reference(x, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["kitti", "euroc", "kitti_fast"])
+def test_shipped_configurations_run_on_the_card(name):
+    """Each shipped stereo configuration runs open loop on CUDA and agrees
+    with the port's CPU run on the first frames."""
+    _need_card()
+    cam = cam_ops.make_camera(fx=300.0, fy=300.0, cx=256.0, cy=96.0, baseline_m=0.4,
+                              rows=192, cols=512)
+    world = synthetic.make_world(cam, n_frames=6, n_points=1500, seed=42, step=0.45)
+    trajs = []
+    for device in ("cuda", "cpu"):
+        cfg = load_config(os.path.join(REPO, "configurations", f"configuration_{name}.yaml"))
+        cfg.command_line.option_disable_relocalization = True
+        engine = SlamEngine(cam, cfg, landmark_capacity=4096, device=device)
+        for t in range(6):
+            engine.process(*synthetic.render_frame(world, t)[:2])
+        trajs.append(engine.trajectory)
+        assert engine.report()["n_track_breaks"] == 0
+    assert np.abs(trajs[0][:, :3, 3] - trajs[1][:, :3, 3]).max() <= 1e-3

@@ -8,6 +8,8 @@ results differ in the last bits (orthonormalize also uses a different
 but equivalent algorithm: Newton's polar iteration against an SVD).
 """
 
+import os
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -20,6 +22,11 @@ from vslam_tpu.ops import lie as jlie
 from vslam_tpu_torch.ops import camera as tcam
 from vslam_tpu_torch.ops import hamming as tham
 from vslam_tpu_torch.ops import lie as tlie
+
+# Under pytest-xdist each core runs a worker process; torch's own intra-op
+# threads on top of that oversubscribe the CPU and slow these tests ~30x.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 ATOL = 1e-5
 RNG = np.random.default_rng(0)

@@ -12,6 +12,8 @@ Tolerances:
       breaks), ATE <= 0.05 m each, and positions within 5 cm per frame.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +36,11 @@ from vslam_tpu_torch.ops import camera as tcam
 from vslam_tpu_torch.system.engine import SlamEngine as TEngine
 from vslam_tpu_torch.tracking import fused as tfused
 from vslam_tpu_torch.tracking import tracker as ttracker
+
+# Under pytest-xdist each core runs a worker process; torch's own intra-op
+# threads on top of that oversubscribe the CPU and slow these tests ~30x.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 CAM_ARGS = dict(fx=300.0, fy=300.0, cx=256.0, cy=96.0, baseline_m=0.4,
                 rows=192, cols=512)

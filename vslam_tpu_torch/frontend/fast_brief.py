@@ -24,21 +24,16 @@ the two.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-PATTERN_RADIUS = 13  # BRIEF pattern extent (orb.PATTERN_RADIUS)
-BAND = 16  # output rows per band (= the only supported bin size)
+from vslam_tpu_torch.frontend.cuda_build import CudaLibrary
+from vslam_tpu_torch.frontend.orb import N_BITS, PATTERN_RADIUS, _fma, _make_pattern
+
+BAND = 16  # output rows per band (= the band tail's bin size)
 LANE = 128  # column tile; the band reduction is Wo = round_up(W, 128) wide
-_N_BITS = 256
 
 # Bresenham circle of radius 3, clockwise from 12 o'clock: (row, col).
 CIRCLE = np.array(
@@ -48,16 +43,6 @@ CIRCLE = np.array(
     ],
     dtype=np.int32,
 )
-
-
-def _make_pattern(seed: int = 7) -> np.ndarray:
-    """(256, 2, 2) [pair, point, (dr, dc)] Gaussian BRIEF pattern, clipped
-    (the JAX package's orb._make_pattern)."""
-    rng = np.random.default_rng(seed)
-    sigma = (2 * PATTERN_RADIUS + 1) / 5.0
-    pts = rng.normal(0.0, sigma, size=(_N_BITS, 2, 2))
-    return np.clip(pts, -PATTERN_RADIUS, PATTERN_RADIUS).astype(np.float32)
-
 
 # Integer BRIEF offsets (brief._PAT): (256, 2, 2) [bit, point, (dr, dc)].
 PATTERN = np.round(_make_pattern()).astype(np.int32)
@@ -72,26 +57,24 @@ def _round_up(x: int, m: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded f32 fused multiply-add a * b + c (CUDA's
-    __fmaf_rn), computed in f64: the product of two f32 values is exact in
-    f64, TwoSum gives the exact error of the f64 sum, and the one case
-    where rounding that sum to f32 differs from rounding the exact value —
-    the sum sits on an f32 midpoint while the error is nonzero — is
-    resolved toward the error's side."""
-    p = a.double() * b.double()
-    cd = c.double()
-    s = p + cd
-    bv = s - p
-    err = (p - (s - bv)) + (cd - bv)
-    r = s.float()
-    rd = r.double()
-    inf = torch.full_like(r, float("inf"))
-    o = torch.nextafter(r, torch.where(s > rd, inf, -inf))  # neighbour toward s
-    od = o.double()
-    tie = (s != rd) & (2.0 * s == rd + od)
-    wrong = tie & (err != 0) & ((err > 0) == (od > rd))
-    return torch.where(wrong, o, r)
+def pack_brief_words(padded: torch.Tensor, pattern: np.ndarray, H: int,
+                     W: int) -> torch.Tensor:
+    """(B, 8, H, W) int32 BRIEF words of a smoothed stack: bit j of word w
+    is [S(x + o1) < S(x + o2)] for pair 32 w + j of `pattern` (256, 2, 2).
+    `padded` (B, H + 26, W + 26) holds S with a 13-px margin on each side
+    (padded[:, 13 + r, 13 + c] = S(r, c))."""
+    R = PATTERN_RADIUS
+    B = padded.shape[0]
+    words = []
+    for w in range(8):
+        word = torch.zeros((B, H, W), dtype=torch.int64, device=padded.device)
+        for j in range(32):
+            (dr1, dc1), (dr2, dc2) = pattern[w * 32 + j]
+            a = padded[:, R + dr1:R + dr1 + H, R + dc1:R + dc1 + W]
+            c = padded[:, R + dr2:R + dr2 + H, R + dc2:R + dc2 + W]
+            word = word | ((a < c).to(torch.int64) << j)
+        words.append(torch.where(word >= 1 << 31, word - (1 << 32), word))
+    return torch.stack(words, dim=1).to(torch.int32)
 
 
 def _arc(m: torch.Tensor, arc_len: int) -> torch.Tensor:
@@ -139,16 +122,7 @@ def fast_brief_frontend_pair_reference(
         s = _fma(acc[:, :, d:d + Ws], fifth, s)
     smooth = s * fifth  # (B, Hs, Ws): rows -13.., cols -13..
 
-    words = []
-    for w in range(8):
-        word = torch.zeros((B, H, W), dtype=torch.int64, device=dev)
-        for j in range(32):
-            (dr1, dc1), (dr2, dc2) = PATTERN[w * 32 + j]
-            a = smooth[:, 13 + dr1:13 + dr1 + H, 13 + dc1:13 + dc1 + W]
-            c = smooth[:, 13 + dr2:13 + dr2 + H, 13 + dc2:13 + dc2 + W]
-            word = word | ((a < c).to(torch.int64) << j)
-        words.append(torch.where(word >= 1 << 31, word - (1 << 32), word))
-    planes = torch.stack(words, dim=1).to(torch.int32)
+    planes = pack_brief_words(smooth, PATTERN, H, W)
 
     # FAST on the raw image over rows -1..H, cols -1..W (the NMS halo).
     def ring(dr, dc):
@@ -199,68 +173,30 @@ def fast_brief_frontend_pair_reference(
 # CUDA kernel: build at first use, bind through ctypes
 # ---------------------------------------------------------------------------
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "fast_brief_frontend.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vslam_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
-    return path
-
-
 class FastBriefKernel:
     """The built K1 library plus its launch count.
 
     `launches` goes up by one each time the CUDA kernel is launched, and
-    nowhere else; `build_log` and `build_seconds` describe the build."""
+    nowhere else; `library` holds the build (log, seconds)."""
 
     def __init__(self):
         self.launches = 0
-        self.build_log = ""
-        self.build_seconds = 0.0
-        self._lib = None
+        self.library = CudaLibrary("fast_brief_frontend.cu")
         self._pattern = {}  # device -> (256, 4) int32 pattern tensor
 
     def build(self):
         """Compile the kernel with nvcc (once per source version) and load it."""
-        if self._lib is not None:
-            return self._lib
-        src = _SRC.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        so = _BUILD_DIR / f"libfast_brief_frontend_{tag}.so"
-        t0 = time.perf_counter()
-        if not so.exists():
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                capture_output=True, text=True,
-            )
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {_SRC}:\n{self.build_log}")
-            os.replace(tmp, so)
-        self.build_seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(so))
+        lib = self.library.load()
         fn = lib.fast_brief_frontend_launch
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p] * 5 + [ctypes.c_int])
-        self._lib = lib
         return lib
 
     def _pattern_on(self, device: torch.device) -> torch.Tensor:
         if device not in self._pattern:
             self._pattern[device] = torch.from_numpy(
-                PATTERN.reshape(_N_BITS, 4).copy()
+                PATTERN.reshape(N_BITS, 4).copy()
             ).to(device)
         return self._pattern[device]
 
@@ -330,9 +266,10 @@ def fast_brief_frontend_pair(
 class Keypoints(NamedTuple):
     """Fixed-capacity keypoint set of one image (SoA, masked)."""
 
-    uv: torch.Tensor  # (K, 2) f32 [u=col, v=row]
+    uv: torch.Tensor  # (K, 2) f32 [u=col, v=row], level-0 coordinates
     score: torch.Tensor  # (K,) f32 detector response
     valid: torch.Tensor  # (K,) bool
+    octave: torch.Tensor = None  # (K,) int32 pyramid level (0 = full res)
 
 
 def keypoints_from_band_reduction(rowmax: torch.Tensor, rowarg: torch.Tensor,

@@ -17,12 +17,12 @@ from typing import NamedTuple
 
 import torch
 
-from vslam_tpu_torch.frontend import fast_brief, matching
+from vslam_tpu_torch.frontend import brief, detect, fast_brief, matching
 from vslam_tpu_torch.ops import camera as cam_ops
 from vslam_tpu_torch.ops import hamming, lie
 from vslam_tpu_torch.solve import aligners, gn
 
-_K1_DETECTORS = ("FAST", "FAST9", "AGAST", "FAST12")
+_FAST_DETECTORS = ("FAST", "FAST9", "AGAST", "FAST12")
 
 
 class FrameState(NamedTuple):
@@ -93,6 +93,34 @@ def _add_delta(arr: torch.Tensor, tgt: torch.Tensor, use: torch.Tensor, val):
     return arr.index_add(0, tgt, delta)
 
 
+def _pyramid_descriptors(img_l, img_r, kl, kr, capacity, octaves):
+    """Per-octave dense-BRIEF description: each octave's static slice of
+    the keypoints gathers from the planes of its own pyramid level (K2
+    for level 0 of both images, K3 for each image at each level >= 1); at
+    one octave this is the plain level-0 lookup.
+    Returns (dl (K, 8), dr (K, 8), level-0 planes (2, 8, H, W))."""
+    planes0 = brief.dense_planes_pair(img_l, img_r)
+    dl_parts, dr_parts = [], []
+    lvl_l, lvl_r = img_l, img_r
+    start = 0
+    for o, cap_o in enumerate(detect.octave_capacities(capacity, octaves)):
+        if o == 0:
+            pl_l, pl_r = planes0[0], planes0[1]
+        else:
+            lvl_l = detect.downsample2(lvl_l)
+            lvl_r = detect.downsample2(lvl_r)
+            pl_l = brief.dense_planes(lvl_l)
+            pl_r = brief.dense_planes(lvl_r)
+        s = float(1 << o)
+        sl = slice(start, start + cap_o)
+        dl_parts.append(brief.gather_descriptors(
+            pl_l, lvl_l.shape, (kl.uv[sl] - (s - 1.0) / 2.0) / s))
+        dr_parts.append(brief.gather_descriptors(
+            pl_r, lvl_r.shape, (kr.uv[sl] - (s - 1.0) / 2.0) / s))
+        start += cap_o
+    return torch.cat(dl_parts), torch.cat(dr_parts), planes0
+
+
 def stereo_frontend_core(
     cam: cam_ops.CameraParams,
     img_l: torch.Tensor,
@@ -110,41 +138,57 @@ def stereo_frontend_core(
     want_planes: bool = False,
     octaves: int = 1,
 ):
-    """Stereo front-end: K1 on both images, binning tail, descriptor
-    lookup, epipolar match, triangulation, compaction.
+    """Stereo front-end: detection and description of both images,
+    epipolar match, triangulation, compaction.
 
-    Only the fused (K1) configuration is ported; the staged front-end it
-    falls back to in the JAX package raises NotImplementedError here.
+    BRIEF256 at one octave with border >= 16 runs the fused kernel K1
+    (exact only >= 16 px from the edge); everything else runs the staged
+    front-end: FAST over the pyramid, then dense BRIEF planes (K2, K3) or
+    rotated-bank planes (K4).  With want_planes the level-0 planes of both
+    images (2, 8, H, W) are returned too, for landmark recovery.
     Returns (FrameState, n_keypoints_left, n_framepoints[, planes])."""
     d_up = detector.upper()
-    if d_up not in _K1_DETECTORS:
+    if d_up not in _FAST_DETECTORS:
         raise NotImplementedError(
-            f"detector {detector!r}: only the FAST family runs on K1 "
-            "(other detectors: ROADMAP Queue 1 item 14)")
-    if descriptor != "BRIEF256" or octaves != 1:
+            f"detector {detector!r} is not ported yet (ROADMAP Queue 1 item 14)")
+    if descriptor == "ORB256":
         raise NotImplementedError(
-            f"descriptor {descriptor!r} with {octaves} octave(s): only "
-            "BRIEF256 at one octave is ported (ROADMAP Queue 1 item 14)")
-    if bin_size != fast_brief.BAND:
-        raise NotImplementedError(
-            f"bin_size {bin_size}: K1's band tail needs {fast_brief.BAND}; the "
-            "image-sized tail keypoints_from_score is ROADMAP Queue 1 item 4")
-    if border < 16:
-        raise NotImplementedError(
-            f"border {border} < 16: K1 is exact only >= 16 px from the edge "
-            "(ROADMAP Queue 3, border gate)")
+            "descriptor 'ORB256' (rotation-aware gather BRIEF) is not ported yet "
+            "(ROADMAP Queue 1 item 14)")
     H, W = img_l.shape
-    planes, _, rowmax, rowarg = fast_brief.fast_brief_frontend_pair(
-        torch.stack([img_l, img_r]).to(torch.float32), threshold,
-        arc_len=12 if d_up == "FAST12" else 9, border=border, bin_size=bin_size,
-    )
-    uv, score, valid = fast_brief.keypoints_from_band_reduction(
-        rowmax, rowarg, H, W, bin_size, capacity
-    )
-    kl = fast_brief.Keypoints(uv[0], score[0], valid[0])
-    kr = fast_brief.Keypoints(uv[1], score[1], valid[1])
-    dl = fast_brief.gather_descriptors(planes[0], (H, W), kl.uv)
-    dr = fast_brief.gather_descriptors(planes[1], (H, W), kr.uv)
+    if descriptor == "BRIEF256" and octaves == 1 and border >= 16:
+        planes, score, rowmax, rowarg = fast_brief.fast_brief_frontend_pair(
+            torch.stack([img_l, img_r]).to(torch.float32), threshold,
+            arc_len=12 if d_up == "FAST12" else 9, border=border, bin_size=bin_size,
+        )
+        if bin_size == fast_brief.BAND:
+            uv, sc, va = fast_brief.keypoints_from_band_reduction(
+                rowmax, rowarg, H, W, bin_size, capacity)
+            kl = fast_brief.Keypoints(uv[0], sc[0], va[0])
+            kr = fast_brief.Keypoints(uv[1], sc[1], va[1])
+        else:
+            kl = fast_brief.Keypoints(*detect.keypoints_from_score(
+                score[0], bin_size, capacity, border))
+            kr = fast_brief.Keypoints(*detect.keypoints_from_score(
+                score[1], bin_size, capacity, border))
+        dl = brief.gather_descriptors(planes[0], (H, W), kl.uv)
+        dr = brief.gather_descriptors(planes[1], (H, W), kr.uv)
+    else:
+        kl = detect.detect_keypoints(img_l, threshold, bin_size, capacity, border,
+                                     detector, octaves=octaves)
+        kr = detect.detect_keypoints(img_r, threshold, bin_size, capacity, border,
+                                     detector, octaves=octaves)
+        planes = None
+        if descriptor == "BRIEF256R":
+            # Rotated-bank descriptors; landmark recovery re-describes from
+            # the upright level-0 planes, as the JAX package does.
+            dl = brief.describe_dense_rotated(img_l, kl.uv)
+            dr = brief.describe_dense_rotated(img_r, kr.uv)
+            if want_planes:
+                planes = brief.dense_planes_pair(img_l, img_r)
+        else:
+            dl, dr, planes = _pyramid_descriptors(img_l, img_r, kl, kr, capacity,
+                                                  octaves)
     return _stereo_frontend_tail(
         cam, kl, kr, dl, dr, planes if want_planes else None,
         max_hamming_stereo, epipolar_tol, min_disparity, max_disparity,
@@ -262,8 +306,8 @@ def recover_lost_landmarks(
     uv_l, uv_r, z = cam_ops.project_stereo(cam, p_pred)
     vis = (cam_ops.in_field_of_view(cam, uv_l, z, border)
            & cam_ops.in_field_of_view(cam, uv_r, z, border))
-    dl = fast_brief.gather_descriptors(planes[0], img_shape, uv_l)
-    dr = fast_brief.gather_descriptors(planes[1], img_shape, uv_r)
+    dl = brief.gather_descriptors(planes[0], img_shape, uv_l)
+    dr = brief.gather_descriptors(planes[1], img_shape, uv_r)
     gate = torch.as_tensor(desc_gate).to(torch.int32)
     p_cam_rec, tri_ok = cam_ops.triangulate_disparity(cam, uv_l, uv_r, 1.0)
     disp = uv_l[:, 0] - uv_r[:, 0]

@@ -1,12 +1,13 @@
 """The per-frame tracker step (port of vslam_tpu/tracking/fused.py).
 
 One call of `step` runs the whole per-frame pipeline of the reference's
-PoseTracker3D::compute on a device-resident TrackerState: the K1 stereo
-front-end, the detector-threshold controller, the registration retry
-ladder, track propagation, temporary-point promotion, landmark recovery,
-landmark spawn + refinement, the local-map trigger with its keyframe
-snapshot, the landmark eviction sweep, the adaptive search window, and
-one row of the per-frame result ring.
+PoseTracker3D::compute on a device-resident TrackerState: the stereo
+front-end (fused kernel K1, or the staged front-end on K2/K3/K4), the
+detector-threshold controller, the registration retry ladder, track
+propagation, temporary-point promotion, landmark recovery, landmark
+spawn + refinement, the local-map trigger with its keyframe snapshot,
+the landmark eviction sweep, the adaptive search window, and one row of
+the per-frame result ring.
 
 Host syncs: three decisions the JAX package takes with lax.cond are
 Python `if`s on a device scalar here — the retry ladder (one read per
