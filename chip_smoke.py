@@ -35,7 +35,17 @@ Phases (each raises on failure; the exit code is then non-zero):
                   launches per frame, K1 and K3 0, 0 breaks, ATE <= 0.05 m,
                   13-17 local maps;
                each slice's first frames (8, 8, 4) agree with the same
-               engine on the CPU within 1e-3 m.
+               engine on the CPU within 1e-3 m;
+  7. closed  — SlamEngine in closed-loop mode (relocalization, closure
+               ICP, pose graph, landmark merging; BA off), the workload
+               bench.py times for the JAX engine: the K1 slice's 128
+               frames through tracker.prestage + process_prestaged, launch
+               counts zeroed just before and read just after; 128 K1 and
+               no K2/K3/K4 launches, 0 breaks, ATE <= 0.05 m, 36-48 local
+               maps, >= 1 closure, >= 1 optimization, > 0 merged
+               landmarks; prints the JAX engine's counts on a CPU for the
+               same workload beside the card's, ms/frame, peak device
+               memory, database rows and the closure stages' timings.
 The script then prints the kernel record (one JSON line), the card's
 name and power limit (nvidia-smi), and last {"ok": true, "device": {...}}.
 """
@@ -88,6 +98,15 @@ def cuda_ms(fn, runs: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# The JAX engine (vslam_tpu) on a CPU for the closed-loop workload of
+# phase 7; it drains every frame, the port on the card every 32.
+JAX_CPU_CLOSED_LOOP = {"n_local_maps": 42, "n_closures": 3, "n_optimizations": 1,
+                       "n_merged_landmarks": 82, "n_track_breaks": 0, "ate_m": 0.0351,
+                       "db_rows": 7242, "closures": [(39, 0), (40, 0), (41, 0)]}
+CLOSURE_STAGES = ("relocalization", "reloc_vote_icp", "pose_graph_optimization",
+                  "pg_solve", "pg_propagate", "landmark_merging")
 
 
 def bench_setup():
@@ -357,6 +376,82 @@ def config_slice(label, name, cam_args, n_frames, radius, per_frame, local_maps,
                        card)
 
 
+def closed_loop_config(cfg_open):
+    """bench.py's closed-loop settings on top of the K1 slice's."""
+    import copy
+
+    cfg = copy.deepcopy(cfg_open)
+    cfg.command_line.option_disable_relocalization = False
+    cfg.relocalization.preliminary_minimum_interspace_queries = 8
+    cfg.relocalization.preliminary_minimum_matching_ratio = 0.08
+    cfg.relocalization.icp_minimum_number_of_inliers = 10
+    cfg.relocalization.icp_minimum_inlier_ratio = 0.3
+    cfg.graph_optimization.minimum_closure_residual_for_optimization_meters = 0.10
+    cfg.graph_optimization.minimum_closure_residual_for_optimization_degrees = 0.5
+    return cfg
+
+
+def phase_closed_loop(cam, cfg_open, world, frames, card):
+    """The closed-loop engine on the card; returns its launch counts."""
+    from vslam_tpu_torch.eval import trajectory as traj_eval
+    from vslam_tpu_torch.system.engine import SlamEngine
+    from vslam_tpu_torch.utils import log
+
+    n = len(frames)
+    cfg = closed_loop_config(cfg_open)
+    engine = SlamEngine(cam, cfg, landmark_capacity=65536, device="cuda")
+    handles = engine.tracker.prestage(frames)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log.chronometers.clear()
+    reset_counts()
+    times = []
+    t0 = time.perf_counter()
+    for h in handles:
+        t1 = time.perf_counter()
+        engine.process_prestaged(h)
+        times.append((time.perf_counter() - t1) / len(h))
+    traj = engine.trajectory  # flushes the tracker and the closure pipeline
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    rep = engine.report()
+    if traj.shape != (n, 4, 4) or not np.all(np.isfinite(traj)):
+        raise AssertionError(f"closed-loop: trajectory shape {traj.shape} or non-finite poses")
+    rmse, _, _ = traj_eval.ate_rmse(traj, world.poses)
+    got = {k: rep[k] for k in JAX_CPU_CLOSED_LOOP if k in rep}
+    got.update(ate_m=round(float(rmse), 4), db_rows=engine.relocalizer.n_rows,
+               closures=[(c.query_id, c.reference_id) for c in engine.world_map.closures])
+    print(f"[closed] {n} frames, card: {got}")
+    print(f"[closed] {n} frames, the JAX engine on a CPU: {JAX_CPU_CLOSED_LOOP}")
+    print(f"[closed] launches {counts}, {rep['n_landmarks']} landmarks, "
+          f"{rep['n_recovered_landmarks']} recovered")
+    ms_frame = 1e3 * wall / n
+    print(f"[closed] {ms_frame:.2f} ms/frame over the run incl. the final flush "
+          f"({1e3 / ms_frame:.2f} fps), median {1e3 * statistics.median(times[1:]):.2f} "
+          f"ms/frame over the {len(handles) - 1} handles after the first, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card})")
+    table = rep["stage_table"]
+    for stage in CLOSURE_STAGES:
+        row = table.get(stage, {"seconds": 0.0, "calls": 0})
+        print(f"[closed] stage {stage:24s} {row['seconds']:8.4f} s in {row['calls']} calls")
+    if counts != {"K1": n, "K2": 0, "K3": 0, "K4": 0}:
+        raise AssertionError(f"closed-loop: launches {counts}, expected {n} K1 only")
+    if rep["n_track_breaks"] != 0:
+        raise AssertionError(f"closed-loop: {rep['n_track_breaks']} tracking breaks")
+    if not rmse <= ATE_LIMIT_M:
+        raise AssertionError(f"closed-loop: ATE {rmse:.4f} m > {ATE_LIMIT_M} m")
+    if not LOCAL_MAPS[0] <= rep["n_local_maps"] <= LOCAL_MAPS[1]:
+        raise AssertionError(f"closed-loop: {rep['n_local_maps']} local maps outside "
+                             f"{LOCAL_MAPS}")
+    if not (rep["n_closures"] >= 1 and rep["n_optimizations"] >= 1
+            and rep["n_merged_landmarks"] > 0):
+        raise AssertionError(f"closed-loop: {rep['n_closures']} closures, "
+                             f"{rep['n_optimizations']} optimizations, "
+                             f"{rep['n_merged_landmarks']} merged landmarks")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -395,6 +490,8 @@ def main():
                      {"K2": 1, "K4": 2 * db.N_ROT_BANKS}, (13, 17), 4, card),
     ):
         launches = {k: launches[k] + counts[k] for k in launches}
+    counts = phase_closed_loop(cam, cfg, world, frames, card)
+    launches = {k: launches[k] + counts[k] for k in launches}
 
     sources = {"K1": ("fast_brief_frontend_pair", "fast_brief_frontend.cu",
                       "vslam_tpu/frontend/pallas_frontend.py:196")}

@@ -8,8 +8,10 @@ is installed:
 
 (--noconftest: tests/conftest.py configures jax for the parity tests.)
 Tolerance: none — each kernel is compared with its plain-torch version
-for equality over the whole image; the engine runs on the card are held
-to the port's CPU run within 1e-3 m on their first frames.
+for equality over the whole image; the open-loop engine runs on the card
+are held to the port's CPU run within 1e-3 m on their first frames; the
+closed loop to the same local-map count, >= 1 closure and ATE <= 0.10 m
+on both devices.
 """
 
 import os
@@ -20,8 +22,9 @@ import torch
 
 from vslam_tpu_torch.frontend import dense_brief as db
 from vslam_tpu_torch.frontend import fast_brief as fb
+from vslam_tpu_torch.eval import trajectory as traj_eval
 from vslam_tpu_torch.io import synthetic
-from vslam_tpu_torch.io.config import load_config
+from vslam_tpu_torch.io.config import ParameterCollection, load_config
 from vslam_tpu_torch.ops import camera as cam_ops
 from vslam_tpu_torch.system.engine import SlamEngine
 
@@ -89,3 +92,42 @@ def test_shipped_configurations_run_on_the_card(name):
         trajs.append(engine.trajectory)
         assert engine.report()["n_track_breaks"] == 0
     assert np.abs(trajs[0][:, :3, 3] - trajs[1][:, :3, 3]).max() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_closed_loop_runs_on_the_card():
+    """The 48-frame closed circle of tests/test_torch_closed_loop.py on
+    the card and on the CPU.  The card harvests the tracker every
+    parallelism.frames_per_chunk frames and the CPU every frame, and
+    closure work resolves at drains, so the closures may come at other
+    frames (and correct the trajectory from there): the runs are held to
+    the same local maps, >= 1 closure each and ATE <= 0.10 m each, not to
+    each other's poses."""
+    _need_card()
+    cam = cam_ops.make_camera(fx=300.0, fy=300.0, cx=256.0, cy=96.0, baseline_m=0.4,
+                              rows=192, cols=512)
+    n = 48
+    world = synthetic.make_world(cam, n_points=1500, seed=21,
+                                 poses=synthetic.circle_trajectory(n, radius=7.0))
+    frames = [synthetic.render_frame(world, t)[:2] for t in range(n)]
+    reps = []
+    for device in ("cuda", "cpu"):
+        cfg = ParameterCollection()
+        cfg.framepoint_generation.capacity = 256
+        cfg.framepoint_generation.border_pixels = 12
+        cfg.world_map.minimum_distance_traveled_for_local_map = 0.8
+        cfg.world_map.minimum_number_of_frames_for_local_map = 2
+        cfg.relocalization.preliminary_minimum_interspace_queries = 6
+        cfg.relocalization.preliminary_minimum_matching_ratio = 0.08
+        cfg.relocalization.icp_minimum_number_of_inliers = 8
+        cfg.relocalization.icp_minimum_inlier_ratio = 0.3
+        engine = SlamEngine(cam, cfg, landmark_capacity=8192, device=device)
+        for h in engine.tracker.prestage(frames):
+            engine.process_prestaged(h)
+        traj = engine.trajectory
+        rep = engine.report()
+        assert traj.shape == (n, 4, 4) and np.all(np.isfinite(traj))
+        assert rep["n_closures"] >= 1 and rep["n_track_breaks"] == 0, (device, rep)
+        assert traj_eval.ate_rmse(traj, world.poses)[0] <= 0.10, device
+        reps.append(rep)
+    assert reps[0]["n_local_maps"] == reps[1]["n_local_maps"]

@@ -29,6 +29,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys\n"
         "import vslam_tpu_torch.system.engine, vslam_tpu_torch.io.from_jax\n"
+        "import vslam_tpu_torch.loop.relocalizer, vslam_tpu_torch.backend.pose_graph\n"
+        "import vslam_tpu_torch.mapping.merging, vslam_tpu_torch.utils.log\n"
         "import vslam_tpu_torch.io.synthetic, vslam_tpu_torch.eval.trajectory\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'vslam_tpu.'))\n"
         "       or m == 'vslam_tpu']\n"
@@ -46,17 +48,28 @@ def test_cuda_device_without_a_card_raises():
         SlamEngine(CAM, _open_loop(), landmark_capacity=1024, device="cuda")
 
 
+# The ROADMAP item each refusal names.
+_ITEM = {"aligner_type": "item 16", "enable_full_bundle_adjustment": "item 12",
+         "use_fused_tracker": "not to port", "enable_image_dump": "item 18"}
+
+
 @pytest.mark.parametrize("group,key,value", [
-    ("command_line", "option_disable_relocalization", False),
+    ("relocalization", "aligner_type", "FAST-ICP"),
     ("graph_optimization", "enable_full_bundle_adjustment", True),
     ("tracking", "use_fused_tracker", False),
     ("visualization", "enable_image_dump", True),
 ])
 def test_unported_engine_configurations_raise(group, key, value):
-    cfg = _open_loop()
+    cfg = tconfig.ParameterCollection()  # closed loop: ported
     setattr(getattr(cfg, group), key, value)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match=_ITEM[key]):
         SlamEngine(CAM, cfg, landmark_capacity=1024)
+
+
+def test_closed_loop_engine_constructs():
+    eng = SlamEngine(CAM, tconfig.ParameterCollection(), landmark_capacity=1024)
+    assert not eng.open_loop
+    assert eng.relocalizer.QUERY_CAP == eng.tracker.state.kf_desc.shape[1]
 
 
 @pytest.mark.parametrize("group,key,value", [

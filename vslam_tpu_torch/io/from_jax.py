@@ -1,4 +1,5 @@
-"""Carry state across from the JAX package (numpy only, no jax import).
+"""Carry state across from the JAX package (numpy only, no jax import):
+tracker state, local maps, the relocalizer database and pose graphs.
 
 Each converter takes the JAX package's arrays after np.asarray — a dict
 of field name -> array, nested for the frame and the landmark table of a
@@ -76,3 +77,54 @@ def tracker_state_to_numpy(s: TrackerState) -> dict:
     out["prev"] = frame_state_to_numpy(s.prev)
     out["table"] = landmark_table_to_numpy(s.table)
     return out
+
+
+def local_map_from_numpy(d: dict):
+    """A JAX LocalMap's fields (numpy) -> the port's LocalMap (host
+    descriptors as int32 words; no device block)."""
+    from vslam_tpu_torch.mapping.local_maps import LocalMap
+
+    desc = d.get("desc")
+    return LocalMap(
+        map_id=int(d["map_id"]),
+        keyframe_index=int(d["keyframe_index"]),
+        T_world_kf=np.asarray(d["T_world_kf"], np.float32).copy(),
+        landmark_slots=np.asarray(d["landmark_slots"], np.int32).copy(),
+        xyz_kf=np.asarray(d["xyz_kf"], np.float32).copy(),
+        desc=None if desc is None else np.asarray(desc).view(np.int32).copy(),
+        uv4=None if d.get("uv4") is None else np.asarray(d["uv4"], np.float32).copy(),
+        ring_row=int(d.get("ring_row", -1)),
+    )
+
+
+def relocalizer_state_from_numpy(reloc, d: dict, maps: dict | None = None):
+    """Load a JAX Relocalizer's database into the port's `reloc` in place:
+    d holds db_desc (uint32 words, viewed as int32), db_map_id, row_slot,
+    n_rows, _slot_maps and _slot_in_db; maps: map id -> port LocalMap."""
+    db_desc = np.asarray(d["db_desc"])
+    reloc.capacity = db_desc.shape[0]
+    reloc.db_desc = _tensor(db_desc, reloc.device)
+    reloc.db_map_id = _tensor(np.asarray(d["db_map_id"], np.int32), reloc.device)
+    reloc.row_slot = np.asarray(d["row_slot"], np.int32).copy()
+    reloc.n_rows = int(d["n_rows"])
+    reloc._slot_maps = {int(k): [int(m) for m in v] for k, v in d["_slot_maps"].items()}
+    reloc._slot_in_db = {int(s) for s in d["_slot_in_db"]}
+    reloc._map_slot_row = {}
+    if maps is not None:
+        reloc.maps = dict(maps)
+    return reloc
+
+
+def pose_graph_edges_from_numpy(edges) -> list:
+    """A JAX engine's closure-edge list -> [(ref_id, query_id, T (4,4) f32)]."""
+    return [(int(i), int(j), np.asarray(T, np.float32).copy()) for i, j, T in edges]
+
+
+def pose_graph_from_numpy(d: dict, device="cpu"):
+    """A JAX PoseGraph's fields (numpy) -> the port's PoseGraph."""
+    from vslam_tpu_torch.backend.pose_graph import PoseGraph
+
+    return PoseGraph(**{
+        k: (torch.from_numpy(np.asarray(d[k]).astype(np.int64)).to(device)
+            if k in ("edge_i", "edge_j") else _tensor(d[k], device))
+        for k in PoseGraph._fields})

@@ -1,6 +1,6 @@
 """Device-resident landmark table (port of the slice's part of
 vslam_tpu/mapping/landmarks.py): fixed-capacity SoA columns with batched
-information-form GN updates."""
+information-form GN updates and the pose graph's rigid corrections."""
 
 from __future__ import annotations
 
@@ -49,6 +49,26 @@ def landmark_weights(table: LandmarkTable, slots: torch.Tensor) -> torch.Tensor:
     has_lm = slots >= 0
     n = table.n_updates[torch.where(has_lm, slots, 0).to(torch.int64)]
     return torch.where(has_lm, 1.0 + torch.log1p(n.to(torch.float32)), 1.0)
+
+
+def apply_kf_corrections(table: LandmarkTable, C: torch.Tensor) -> LandmarkTable:
+    """Rigidly move every valid landmark with the pose-graph correction of
+    its origin local map (reference back-propagation, graph_optimizer.cpp:
+    430-450 + local_map.cpp:129-142).
+
+    C: (n_kf, 4, 4) one correction per local map (the JAX package pads it
+    to a compile bucket with identity rows; here it is the true size).
+    origin_kf is clipped into [0, n_kf - 1].  H_acc is position
+    information in world coordinates, so it is conjugated by R."""
+    owner = torch.clamp(table.origin_kf, 0, max(C.shape[0] - 1, 0)).to(torch.int64)
+    Co = C[owner]
+    R = Co[:, :3, :3]
+    xyz = torch.einsum("nij,nj->ni", R, table.xyz_w) + Co[:, :3, 3]
+    H = torch.einsum("nij,njk,nlk->nil", R, table.H_acc, R)
+    return table._replace(
+        xyz_w=torch.where(table.valid[:, None], xyz, table.xyz_w),
+        H_acc=torch.where(table.valid[:, None, None], H, table.H_acc),
+    )
 
 
 def spawn_and_update_observed(

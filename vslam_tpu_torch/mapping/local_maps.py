@@ -23,7 +23,22 @@ class LocalMap:
     # ring (row `ring_row`).
     desc: np.ndarray | None  # (K, 8) int32, or None
     uv4: np.ndarray | None = None  # (K, 4) keyframe stereo observations
+    # (query_cap, 8) int32 device block gathered from the snapshot ring
+    # for the relocalizer (fused.gather_kf_desc), or None.
+    desc_dev: object = None
     ring_row: int = -1  # device snapshot-ring row (-1: not ring-backed)
+
+
+@dataclass
+class Closure:
+    """A verified loop closure (reference src/relocalization/closure.h)."""
+
+    query_id: int
+    reference_id: int
+    T_ref_query: np.ndarray  # (4, 4) aligning the query keyframe into the reference
+    n_correspondences: int
+    inlier_ratio: float
+    correspondences: np.ndarray  # (C, 2) [query_slot, reference_slot]
 
 
 class WorldMap:
@@ -32,10 +47,12 @@ class WorldMap:
     def __init__(self, min_distance: float = 0.5, min_degrees: float = 30.0,
                  min_frames: int = 4):
         self.local_maps: list[LocalMap] = []
-        self.closures: list = []
+        self.closures: list[Closure] = []
         self.min_distance = min_distance
         self.min_radians = np.deg2rad(min_degrees)
         self.min_frames = min_frames
+        # Pose at the last trigger; the pose graph's corrections move it
+        # with the live pose (SlamEngine._propagate_corrections).
         self._last_T = None
         self._frames_since = 0
 
@@ -72,6 +89,9 @@ class WorldMap:
         self.local_maps.append(lm)
         self.note_trigger(T_world_cam)
         return lm
+
+    def add_closure(self, closure: Closure):
+        self.closures.append(closure)
 
     def __len__(self):
         return len(self.local_maps)

@@ -36,6 +36,31 @@ def hamming_matrix(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     return popcount32(q[:, None, :] ^ db[None, :, :]).sum(dim=-1, dtype=torch.int32)
 
 
+def unpack_bits(desc: torch.Tensor) -> torch.Tensor:
+    """(N, 8) int32 words -> (N, 256) uint8 in {0, 1}, little-endian bit
+    order per word."""
+    shifts = torch.arange(32, dtype=torch.int32, device=desc.device)
+    bits = (desc[:, :, None] >> shifts) & 1
+    return bits.reshape(desc.shape[0], DESC_BITS).to(torch.uint8)
+
+
+def hamming_matrix_bits(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
+    """Distance matrix (Q, 8) x (D, 8) -> (Q, D) int32 as a matmul of bit
+    matrices: d = popcount(a) + popcount(b) - 2 <bits_a, bits_b> (the
+    JAX package's hamming_matrix_mxu).
+
+    The product runs in f32, which is exact here: the operands are 0/1
+    and every sum is at most 256 (TF32 is pinned off by the package).
+    Memory is O(Q + D) bit rows plus the (Q, D) result, where
+    hamming_matrix's broadcast holds (Q, D, 8) words."""
+    qb = unpack_bits(q).to(torch.float32)
+    dbb = unpack_bits(db).to(torch.float32)
+    inner = (qb @ dbb.T).to(torch.int32)
+    rq = qb.sum(dim=1).to(torch.int32)
+    rdb = dbb.sum(dim=1).to(torch.int32)
+    return rq[:, None] + rdb[None, :] - 2 * inner
+
+
 def _min_first(d: torch.Tensor, dim: int):
     """(min, index of its first occurrence) along `dim`."""
     best = d.amin(dim=dim, keepdim=True)

@@ -27,6 +27,11 @@ def hat(w: torch.Tensor) -> torch.Tensor:
     )
 
 
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of hat: (..., 3, 3) -> (..., 3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
 def _sinc_coeffs(theta_sq: torch.Tensor):
     """A = sin(t)/t, B = (1-cos(t))/t^2, C = (t-sin(t))/t^3 with the same
     f32 Taylor switch as the JAX package (t^2 < 1e-4)."""
@@ -175,6 +180,65 @@ def orthonormalize(R: torch.Tensor, iterations: int = 3) -> torch.Tensor:
 
 def orthonormalize_transform(T: torch.Tensor) -> torch.Tensor:
     return make_transform(orthonormalize(T[..., :3, :3]), T[..., :3, 3])
+
+
+def adjoint_se3(T: torch.Tensor) -> torch.Tensor:
+    """SE(3) adjoint on [v, w] twists: (..., 4, 4) -> (..., 6, 6) =
+    [[R, hat(t) R], [0, R]], so T exp(xi) T^-1 = exp(Ad_T xi)."""
+    R = T[..., :3, :3]
+    top = torch.cat([R, hat(T[..., :3, 3]) @ R], dim=-1)
+    bot = torch.cat([torch.zeros_like(R), R], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def _jl_so3_coeffs(theta_sq: torch.Tensor) -> torch.Tensor:
+    """e of the SO(3) left-Jacobian inverse Jl(w)^-1 = I - W/2 + e W^2,
+    e = 1/t^2 - (1 + cos t) / (2 t sin t)."""
+    small = theta_sq < 1e-4
+    ts = torch.where(small, torch.ones_like(theta_sq), theta_sq)
+    t = torch.sqrt(ts)
+    return torch.where(small, 1.0 / 12.0 + theta_sq / 720.0,
+                       1.0 / ts - (1.0 + torch.cos(t)) / (2.0 * t * torch.sin(t)))
+
+
+def jl_inv_so3(w: torch.Tensor) -> torch.Tensor:
+    """Inverse left Jacobian of SO(3): (..., 3) -> (..., 3, 3)."""
+    e = _jl_so3_coeffs(torch.sum(w * w, dim=-1))
+    W = hat(w)
+    return _eye3_like(W) - 0.5 * W + e[..., None, None] * (W @ W)
+
+
+def _se3_Q(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Barfoot's Q(v, w): the off-diagonal block of the SE(3) left
+    Jacobian [[Jl(w), Q], [0, Jl(w)]] (translation-first twists)."""
+    theta_sq = torch.sum(w * w, dim=-1)
+    small = theta_sq < 1e-4
+    ts = torch.where(small, torch.ones_like(theta_sq), theta_sq)
+    t = torch.sqrt(ts)
+    st, ct = torch.sin(t), torch.cos(t)
+    c2 = torch.where(small, 1.0 / 6.0 - theta_sq / 120.0, (t - st) / (ts * t))
+    c3 = torch.where(small, 1.0 / 24.0 - theta_sq / 720.0,
+                     (ts + 2.0 * ct - 2.0) / (2.0 * ts * ts))
+    c4 = torch.where(small, -1.0 / 120.0 + theta_sq / 5040.0,
+                     (t - st - t * ts / 6.0) / (ts * ts * t))
+    coef4 = 0.5 * (c3 + 3.0 * c4)
+    V, W = hat(v), hat(w)
+    WV, VW = W @ V, V @ W
+    WVW = WV @ W
+    return (0.5 * V
+            + c2[..., None, None] * (WV + VW + W @ VW)
+            + c3[..., None, None] * (W @ WV + VW @ W - 3.0 * WVW)
+            + coef4[..., None, None] * (WVW @ W + W @ WVW))
+
+
+def jl_inv_se3(xi: torch.Tensor) -> torch.Tensor:
+    """Inverse left Jacobian of SE(3): (..., 6) -> (..., 6, 6), with
+    log(exp(delta) exp(xi)) ~= xi + Jl(xi)^-1 delta."""
+    v, w = xi[..., :3], xi[..., 3:]
+    Jli = jl_inv_so3(w)
+    top = torch.cat([Jli, -Jli @ _se3_Q(v, w) @ Jli], dim=-1)
+    bot = torch.cat([torch.zeros_like(Jli), Jli], dim=-1)
+    return torch.cat([top, bot], dim=-2)
 
 
 def rotation_angle(R: torch.Tensor) -> torch.Tensor:

@@ -144,6 +144,97 @@ def stereo_uv_align_fast(
     )
 
 
+class ICPData(NamedTuple):
+    """Point-to-point closure verification data, leading dims (B, N)."""
+
+    p_moving: torch.Tensor  # (B, N, 3) points in the query keyframe frame
+    p_fixed: torch.Tensor  # (B, N, 3) corresponding reference-frame points
+    weight: torch.Tensor  # (B, N) per-correspondence information
+
+
+def icp_align(data: ICPData, mask: torch.Tensor, T0: torch.Tensor,
+              config: gn.GNConfig = gn.GNConfig()) -> gn.GNResult:
+    """Estimate T_ref_query aligning moving onto fixed points, for B
+    candidates at once: the JAX package's icp_align (the generic robust
+    two-phase gauss_newton) with the analytic Jacobian of R p + t - q wrt
+    the left tangent, [I, -hat(R p + t)].
+
+    mask: (B, N) valid correspondences; T0: (B, 4, 4).  Every field of
+    the result has the leading dim B.  As in the JAX engine, num_inliers
+    counts the inlier set carried out of the refinement phase."""
+    p_mov, p_fix, weight = data
+    kernel = config.kernel_max_error
+    B, dev = T0.shape[0], T0.device
+    eye3 = torch.eye(3, dtype=T0.dtype, device=dev)
+
+    def linearize(T, extra_mask):
+        p = lie.transform_points(T[:, None], p_mov)  # (B, N, 3)
+        r = p - p_fix
+        J = torch.cat([eye3.expand(p.shape + (3,)), -lie.hat(p)], dim=-1)  # (B,N,3,6)
+        chi2 = weight * torch.sum(r * r, dim=-1)
+        w = torch.where(chi2 > kernel, kernel / torch.clamp(chi2, min=1e-12), 1.0)
+        w_eff = w * (mask & extra_mask).to(T.dtype)
+        ow = weight * w_eff
+        H = torch.einsum("bnri,bn,bnrj->bij", J, ow, J)
+        b = torch.einsum("bnri,bnr->bi", J, ow[..., None] * r)
+        inliers = (chi2 <= kernel) & mask & extra_mask
+        return H, b, torch.sum(chi2 * w_eff, dim=-1), inliers
+
+    def one_round(T, extra_mask):
+        H, b, total, inliers = linearize(T, extra_mask)
+        dx = gn.solve_normal_equations(H, b, config.damping)
+        norm = torch.linalg.vector_norm(dx, dim=-1)
+        dx = dx * torch.clamp(config.max_step_norm / torch.clamp(norm, min=1e-12),
+                              max=1.0)[:, None]
+        ok = torch.all(torch.isfinite(dx), dim=-1)
+        T_new = torch.where(ok[:, None, None], gn.se3_retract(T, dx), T)
+        return T_new, total, inliers, torch.where(ok, norm, 0.0)
+
+    inf = torch.full((B,), float("inf"), device=dev)
+    all_true = torch.ones_like(mask)
+
+    # Phase 1: robust GN over all correspondences.
+    T, prev, chi2 = T0, inf, torch.full((B,), 1e30, device=dev)
+    it = torch.zeros(B, dtype=torch.int32, device=dev)
+    inl, step = mask, inf
+    for _ in range(config.max_iterations):
+        active = _keep_going(prev, chi2, step, it, 2, config)
+        T2, new_chi2, inl2, step2 = one_round(T, all_true)
+        T = torch.where(active[:, None, None], T2, T)
+        prev = torch.where(active, chi2, prev)
+        chi2 = torch.where(active, new_chi2, chi2)
+        inl = torch.where(active[:, None], inl2, inl)
+        step = torch.where(active, step2, step)
+        it = it + active.to(torch.int32)
+    iters = it
+
+    # Phase 2: inlier-only refinement with collapse rejection.
+    prev, step = inf, inf
+    it = torch.zeros(B, dtype=torch.int32, device=dev)
+    for _ in range(config.refine_iterations):
+        active = _keep_going(prev, chi2, step, it, 1, config)
+        T2, new_chi2, inl2, step2 = one_round(T, inl)
+        keep = torch.sum(inl2, dim=-1) >= config.min_num_inliers
+        upd = active & keep
+        T = torch.where(upd[:, None, None], T2, T)
+        prev = torch.where(active, chi2, prev)
+        chi2 = torch.where(upd, new_chi2, chi2)
+        inl = torch.where(upd[:, None], inl2, inl)
+        step = torch.where(active, torch.where(keep, step2, 0.0), step)
+        it = it + active.to(torch.int32)
+
+    num_inliers = torch.sum(inl, dim=-1).to(torch.int32)
+    _, _, final_chi2, _ = linearize(T, inl)
+    return gn.GNResult(
+        x=T,
+        chi2=final_chi2 / torch.clamp(num_inliers.to(torch.float32), min=1.0),
+        num_inliers=num_inliers,
+        num_iterations=iters,
+        inlier_mask=inl,
+        converged=num_inliers >= config.min_num_inliers,
+    )
+
+
 def update_landmarks(
     cam: cam_ops.CameraParams,
     xyz_world: torch.Tensor,  # (M, 3)

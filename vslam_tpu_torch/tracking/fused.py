@@ -155,6 +155,36 @@ def init_state(cam: cam_ops.CameraParams, params: FusedParams,
     )
 
 
+def gather_kf_desc(kf_desc: torch.Tensor, rows: torch.Tensor,
+                   out_cap: int) -> torch.Tensor:
+    """Device-side descriptor gather for the relocalizer: ring rows ->
+    (R, out_cap, 8) int32, zero-padded past the snapshot width K.
+
+    out_cap is the relocalizer's query width, min(local-map landmark
+    cap, front-end capacity) = K.  The JAX package fixes it at 1024,
+    which drops every row past 1024 of a wider snapshot."""
+    if out_cap < kf_desc.shape[1]:
+        raise ValueError(f"query width {out_cap} < snapshot width {kf_desc.shape[1]}")
+    out = torch.zeros((rows.shape[0], out_cap, 8), dtype=kf_desc.dtype,
+                      device=kf_desc.device)
+    out[:, :kf_desc.shape[1]] = kf_desc[rows]
+    return out
+
+
+def push_free_slots(free_list: torch.Tensor, free_count: torch.Tensor,
+                    slots: torch.Tensor):
+    """Push released slot ids (-1 = skip) onto the device free stack (the
+    slots landmark merges absorb); returns (free_list, free_count)."""
+    F = free_list.shape[0]
+    ok = slots >= 0
+    dest = free_count + torch.cumsum(ok.to(torch.int32), 0, dtype=torch.int32) - 1
+    push = ok & (dest < F)
+    tgt = torch.where(push, dest, 0).to(torch.int64)
+    delta = torch.where(push, slots - free_list[tgt], 0).to(free_list.dtype)
+    return (free_list.index_add(0, tgt, delta),
+            free_count + push.sum(dtype=torch.int32))
+
+
 def _front_end(cam, params: FusedParams, state: TrackerState, img_l, img_r):
     """Returns (frame, n_kp, n_fp, planes); planes (the dense BRIEF maps
     kept for landmark recovery) is None when recovery is off."""

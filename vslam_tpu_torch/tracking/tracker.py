@@ -1,7 +1,9 @@
 """Per-frame stereo odometry (port of FusedPoseTracker,
 vslam_tpu/tracking/tracker.py): owns the device TrackerState, steps it
 once per frame, and harvests poses, statistics and keyframe snapshots
-from the device rings in batched readbacks."""
+from the device rings in batched readbacks.  World-frame corrections from
+the pose graph that land while frames are in flight are applied to those
+frames' poses and snapshots at harvest."""
 
 from __future__ import annotations
 
@@ -74,6 +76,18 @@ class _AllocatorView:
     def num_allocated(self) -> int:
         st = self._owner.state
         return int(st.next_slot) - int(st.free_count)
+
+    def release(self, slots):
+        """Push merge-freed slots onto the device free stack, so spawn
+        recycles them (no device read)."""
+        slots = [int(s) for s in np.asarray(slots) if s >= 0]
+        if not slots:
+            return
+        st = self._owner.state
+        fl, fc = fused.push_free_slots(
+            st.free_list, st.free_count,
+            torch.tensor(slots, dtype=torch.int32, device=st.free_list.device))
+        self._owner.state = st._replace(free_list=fl, free_count=fc)
 
 
 class _ControllerView:
@@ -184,6 +198,11 @@ class FusedPoseTracker:
         self._harvested = 0  # frames read back from the ring
         self._kf_harvested = 0  # device kf_count already harvested
         self._pending_keyframes: list[KeyframeSnapshot] = []
+        # World-frame corrections applied while frames were in flight:
+        # (cutoff, C) — results of frames < cutoff were computed in the
+        # old world frame and get C at harvest.
+        self._pending_corrections: list[tuple[int, np.ndarray]] = []
+        self._drained = False  # a drain ran since take_drained()
         self._last_pose = np.eye(4, dtype=np.float32)
         self._last_status = LOCALIZING
         # Frame indices where registration failed (track re-rooted).
@@ -203,7 +222,28 @@ class FusedPoseTracker:
         # Frames cross to the device as uint8, like the JAX tracker's
         # upload: FAST scores and ties are those of the integer image.
         pair = torch.from_numpy(np.stack([img_l, img_r]).astype(np.uint8))
-        imgs = pair.to(self.device)
+        self._step(pair.to(self.device), odometry)
+        self.stats.add_time("frame_step", time.perf_counter() - t0)
+        return self._last_pose
+
+    def prestage(self, frame_pairs) -> list:
+        """Upload every frame ahead of the loop (dataset playback), as
+        uint8 in one transfer; returns one handle per harvest_every frames
+        for compute_prestaged()."""
+        frames = torch.from_numpy(np.stack(
+            [np.stack([l, r]) for l, r in frame_pairs]).astype(np.uint8)).to(self.device)
+        C = self.harvest_every
+        return [frames[i:i + C] for i in range(0, len(frames), C)]
+
+    def compute_prestaged(self, staged: torch.Tensor) -> np.ndarray:
+        """Step the frames of one prestaged handle (see prestage())."""
+        t0 = time.perf_counter()
+        for pair in staged:
+            self._step(pair, None)
+        self.stats.add_time("frame_step", time.perf_counter() - t0)
+        return self._last_pose
+
+    def _step(self, imgs: torch.Tensor, odometry):
         T_odom = None
         if self.odometry_on:
             T_odom = torch.as_tensor(
@@ -214,12 +254,24 @@ class FusedPoseTracker:
         self._dispatched += 1
         if self._dispatched - self._harvested >= self.harvest_every:
             self._drain()
-        self.stats.add_time("frame_step", time.perf_counter() - t0)
-        return self._last_pose
+
+    def take_drained(self) -> bool:
+        """Whether a drain ran since the last call (the engine resolves its
+        in-flight closure work at drains only)."""
+        out, self._drained = self._drained, False
+        return out
+
+    def _corrected(self, T: np.ndarray, fidx: int) -> np.ndarray:
+        """Apply the corrections that landed while frame fidx was in flight."""
+        for cutoff, C in self._pending_corrections:
+            if fidx < cutoff:
+                T = C @ T
+        return T.astype(np.float32)
 
     def _drain(self):
         """One device->host copy of the result ring: per-frame poses and
         statistics of every unharvested frame, then any new keyframes."""
+        self._drained = True
         upto = self._dispatched
         if upto == self._harvested:
             return
@@ -229,7 +281,7 @@ class FusedPoseTracker:
         kf_total = self._kf_harvested
         for fi in range(self._harvested, upto):
             row = ring[fi % self.params.ring_size]
-            T = row[:16].reshape(4, 4).astype(np.float32)
+            T = self._corrected(row[:16].reshape(4, 4), fi)
             self.trajectory.append(T)
             self._last_pose = T
             n_fp = int(row[fused._R_NFP])
@@ -250,6 +302,9 @@ class FusedPoseTracker:
         if kf_total > self._kf_harvested:
             self._harvest_keyframes(kf_total)
         self._harvested = upto
+        # Corrections older than everything still unharvested are spent.
+        self._pending_corrections = [(c, C) for c, C in self._pending_corrections
+                                     if c > self._harvested]
 
     def _harvest_keyframes(self, kf_total: int):
         """Copy the new keyframe snapshots out of the device ring."""
@@ -267,12 +322,13 @@ class FusedPoseTracker:
         )
         for r, k in enumerate(range(start, kf_total)):
             n = int(ns[r])
+            C = self._corrected(np.eye(4, dtype=np.float32), int(fidx[r]))
             self._pending_keyframes.append(KeyframeSnapshot(
                 map_id=k,
                 frame_idx=int(fidx[r]),
-                T_world_kf=pose[r].astype(np.float32),
+                T_world_kf=(C @ pose[r]).astype(np.float32),
                 slots=slots[r][:n].copy(),
-                xyz_w=xyz[r][:n].copy(),
+                xyz_w=(xyz[r][:n] @ C[:3, :3].T + C[:3, 3]).astype(np.float32),
                 desc=None,
                 uv4=uv4[r][:n].copy(),
                 ring_row=k % KR,
@@ -284,6 +340,17 @@ class FusedPoseTracker:
         out = self._pending_keyframes
         self._pending_keyframes = []
         return out
+
+    def apply_world_correction(self, C: np.ndarray):
+        """Left-multiply a rigid world-frame correction onto the live pose
+        state (the pose graph's most recent segment); frames already
+        dispatched get it at harvest.  Landmarks are corrected separately
+        by origin local map (landmarks.apply_kf_corrections)."""
+        C = np.asarray(C, np.float32)
+        Cd = torch.from_numpy(C).to(self.device)
+        self.state = self.state._replace(T_world_cam=Cd @ self.state.T_world_cam,
+                                         T_last_kf=Cd @ self.state.T_last_kf)
+        self._pending_corrections.append((self._dispatched, C))
 
     def flush(self):
         """Harvest every stepped frame (call before reading final state)."""
