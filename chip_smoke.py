@@ -7,17 +7,22 @@ Phases (each raises on failure; the exit code is then non-zero):
                name and power limit (nvidia-smi);
   2. build   — compile K1 (csrc/fast_brief_frontend.cu) and the dense
                BRIEF kernel behind K2/K3/K4 (csrc/dense_brief.cu) with
-               nvcc, both builds started together;
+               nvcc, both builds started together (their wall time);
+               registers and spills (ptxas), resident blocks per SM
+               (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the
+               shared loads of one pixel (cuobjdump -sass, null with the
+               reason where the toolkit has no cuobjdump);
   3. K1      — kernel vs its plain-torch version on the card at 376x1241,
                B=2, on a rendered synthetic pair and a uniform-random pair
                (both uint8-valued), FAST thresholds {5, 18, 40, 100}, arc
                lengths 9 and 12: all four outputs bit-equal over the whole
                image; one case also against the plain version on the CPU;
-               median kernel and plain times (CUDA events, 20 runs);
+               median kernel times warm and with L2 flushed, the plain
+               version's, the roofline bound and the shared-load floor;
   4. dense   — K2 at B=2 x 376x1241, K3 at 188x620 and K4 at 480x752 for
                all 16 banks, each on a box-blurred rendered pair and a
                uniform-random pair: bit-equal to the plain version over
-               the whole image; one case against the CPU; median times;
+               the whole image; one case against the CPU; times as for K1;
   5. K2'     — the band-size / input-type probe: the same kernel at
                (64, 376, 1241) with 8-, 16-, 32- and 64-row bands, f32 and
                bf16 input, each bit-equal to its plain version; times;
@@ -46,8 +51,12 @@ Phases (each raises on failure; the exit code is then non-zero):
                landmarks; prints the JAX engine's counts on a CPU for the
                same workload beside the card's, ms/frame, peak device
                memory, database rows and the closure stages' timings.
-The script then prints the kernel record (one JSON line), the card's
-name and power limit (nvidia-smi), and last {"ok": true, "device": {...}}.
+The script then prints the kernel record (one JSON line: launches in
+the runs of phases 6-7, bit-equality, times, bound, share of the bound,
+shared-load floor, blocks per SM, loads a pixel), the card's name and
+power limit (nvidia-smi), and last {"ok": true, "device": {...}}.
+Kernel times are CUDA-event medians of the kernel alone (the card is kept
+busy while the host enqueues it; vslam_tpu_torch/frontend/kernel_timing.py).
 """
 
 import json
@@ -84,20 +93,21 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, runs: int = 20) -> float:
-    """Median device time of fn() in ms (CUDA events), after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def timed(kernel, plain, work, pixels, taps, card, label):
+    """The kernel's warm and L2-cold medians, the plain version's, and
+    the bound and floor they are held to, printed and returned."""
+    from vslam_tpu_torch.frontend import kernel_timing as kt
+
+    rec = {"ms": kt.cuda_ms(kernel), "ms_l2_cold": kt.cuda_ms(kernel, setup=kt.l2_flush("cuda")),
+           "plain_ms": kt.cuda_ms(plain)}
+    rec["bound_ms"], rec["bound_by"] = kt.bound(*work)
+    rec["roofline_share"] = rec["bound_ms"] / rec["ms_l2_cold"]
+    rec["smem_floor_ms"] = kt.smem_floor_ms(pixels, taps)
+    print(f"{label}: kernel {rec['ms']:.4f} ms warm, {rec['ms_l2_cold']:.4f} ms with L2 "
+          f"flushed; plain version {rec['plain_ms']:.4f} ms; bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']}), {100 * rec['roofline_share']:.1f}% of it; shared-load "
+          f"floor {rec['smem_floor_ms']:.4f} ms at {taps} taps a pixel ({card})")
+    return rec
 
 
 # The JAX engine (vslam_tpu) on a CPU for the closed-loop workload of
@@ -150,6 +160,7 @@ def read_counts() -> dict:
 
 def phase_k1(frames, card):
     from vslam_tpu_torch.frontend import fast_brief as fb
+    from vslam_tpu_torch.frontend import kernel_timing as kt
 
     rng = np.random.default_rng(0)
     pairs = {
@@ -188,11 +199,11 @@ def phase_k1(frames, card):
 
     imgs = torch.from_numpy(pairs["synthetic"]).cuda()
     t = torch.tensor(18.0, device="cuda")
-    ms = cuda_ms(lambda: fb.fast_brief_frontend_pair(imgs, t))
-    plain_ms = cuda_ms(lambda: fb.fast_brief_frontend_pair_reference(imgs, t))
-    print(f"[k1] median over 20 runs at 2x376x1241: kernel {ms:.4f} ms, plain "
-          f"version {plain_ms:.4f} ms ({card})")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    rec = timed(lambda: fb.fast_brief_frontend_pair(imgs, t),
+                lambda: fb.fast_brief_frontend_pair_reference(imgs, t),
+                kt.k1_work(*imgs.shape), imgs.numel(), kt.distinct_taps(fb.PATTERN), card,
+                "[k1] median over 20 runs at 2x376x1241")
+    return {"max_abs_err": max_err, **rec}
 
 
 def _require_equal(label, got, ref):
@@ -208,6 +219,7 @@ def phase_dense(kitti_frame, card):
     """K2, K3 and K4 against their plain version, whole image, bit-equal."""
     from vslam_tpu_torch.frontend import dense_brief as db
     from vslam_tpu_torch.frontend import detect, orb
+    from vslam_tpu_torch.frontend import kernel_timing as kt
     from vslam_tpu_torch.io import synthetic
     from vslam_tpu_torch.ops import camera as cam_ops
 
@@ -264,26 +276,24 @@ def phase_dense(kitti_frame, card):
         raise AssertionError("K2 on the card differs from the plain version on the CPU")
     print("[dense] K2 on the card equals the plain version on the CPU")
 
-    timed = {
-        "K2": (lambda: db.dense_bit_planes_batch(kitti),
-               lambda: db.dense_bit_planes_reference(kitti), "2x376x1241"),
-        "K3": (lambda: db.dense_bit_planes(level1[0]),
-               lambda: db.dense_bit_planes_reference(level1[:1]), "188x620"),
-        "K4": (lambda: db.dense_bit_planes_pattern(euroc[0], 5),
-               lambda: db.dense_bit_planes_reference(euroc[:1], 6), "480x752, one bank"),
+    runs = {  # stack, wrapper, table
+        "K2": (kitti, db.dense_bit_planes_batch, 0),
+        "K3": (level1[:1], lambda x: db.dense_bit_planes(x[0]), 0),
+        "K4": (euroc[:1], lambda x: db.dense_bit_planes_pattern(x[0], 5), 6),
     }
-    for name, (kernel, plain, shape) in timed.items():
-        out[name]["ms"] = cuda_ms(kernel)
-        out[name]["plain_ms"] = cuda_ms(plain)
-        print(f"[dense] {name} median over 20 runs at {shape}: kernel "
-              f"{out[name]['ms']:.4f} ms, plain version {out[name]['plain_ms']:.4f} ms "
-              f"({card})")
+    for name, (x, wrapper, table) in runs.items():
+        out[name].update(timed(
+            lambda: wrapper(x), lambda: db.dense_bit_planes_reference(x, table),
+            kt.dense_work(*x.shape), x.numel(), kt.distinct_taps(db.TABLES[table]), card,
+            f"[dense] {name} median over 20 runs at {'x'.join(map(str, x.shape))}"
+            f"{', bank 5' if name == 'K4' else ''}"))
     return out
 
 
 def phase_k2_probe(card):
     """K2's band-size / input-type probe at (64, 376, 1241)."""
     from vslam_tpu_torch.frontend import dense_brief as db
+    from vslam_tpu_torch.frontend import kernel_timing as kt
 
     x = torch.from_numpy(np.random.default_rng(2).uniform(0, 255, (64, 376, 1241))
                          .astype(np.float32)).cuda()
@@ -292,7 +302,7 @@ def phase_k2_probe(card):
         ref = db.dense_bit_planes_reference(xd)
         for band in db.BANDS:
             _require_equal(f"K2' band {band} {dtype}", db.KERNEL.launch(xd, 0, band), ref)
-            ms = cuda_ms(lambda: db.KERNEL.launch(xd, 0, band), runs=10)
+            ms = kt.cuda_ms(lambda: db.KERNEL.launch(xd, 0, band), runs=10)
             print(f"[k2'] band {band:2d} {str(dtype)[6:]:8s} bit-equal; median over 10 "
                   f"runs at 64x376x1241: {ms:.4f} ms ({ms / 32:.4f} ms per pair) ({card})")
         del ref
@@ -452,28 +462,57 @@ def phase_closed_loop(cam, cfg_open, world, frames, card):
     return counts
 
 
+def phase_build(card) -> dict:
+    """Both nvcc builds at once; per kernel: blocks per SM and the shared
+    loads of one pixel (the loads in its pixel loop, from the SASS)."""
+    from vslam_tpu_torch.frontend import dense_brief as db
+    from vslam_tpu_torch.frontend import fast_brief as fb
+    from vslam_tpu_torch.frontend.cuda_build import loop_shared_loads
+
+    t0 = time.perf_counter()
+    libraries = {"K1": fb.K1.library, "K2/K3/K4": db.KERNEL.library}
+    for lib in libraries.values():
+        lib.start()  # one nvcc per source, all at once
+    fb.K1.build()
+    db.KERNEL.build()
+    print(f"[build] both libraries built in {time.perf_counter() - t0:.2f} s of wall time")
+    for name, lib in libraries.items():
+        print(f"[build] {name} ({lib.src.name}) built in {lib.build_seconds:.2f} s")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"[build] {line.strip()}")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    kernels = {"K1": (fb.K1.library, fb.K1.sass_name, fb.K1.blocks_per_sm(dev))}
+    for name, table in (("K2", 0), ("K3", 0), ("K4", 6)):
+        kernels[name] = (db.KERNEL.library, db.KERNEL.sass_name(table),
+                         db.KERNEL.blocks_per_sm(dev, table))
+    facts, sass = {}, {}
+    for name, (lib, fn, blocks) in kernels.items():
+        try:
+            if lib not in sass:
+                sass[lib] = lib.sass()
+            loads = loop_shared_loads(sass[lib], fn) or None
+            why = "" if loads else "no pixel loop found in the SASS"
+        except (RuntimeError, OSError, subprocess.SubprocessError) as e:
+            loads, why = None, str(e)
+        facts[name] = {"blocks_per_sm": blocks, "lds_per_pixel": loads}
+        print(f"[build] {name}: {blocks} blocks of 256 threads per SM, "
+              f"{loads if loads else 'null (' + why + ')'} shared loads a pixel ({card})")
+    return facts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(1)
     import vslam_tpu_torch  # noqa: F401  (the port, from this checkout)
     from vslam_tpu_torch.frontend import dense_brief as db
-    from vslam_tpu_torch.frontend import fast_brief as fb
 
     card = card_line()
     print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
 
-    libraries = {"K1": fb.K1.library, "K2/K3/K4": db.KERNEL.library}
-    for lib in libraries.values():
-        lib.start()  # one nvcc per source, all at once
-    fb.K1.build()
-    db.KERNEL.build()
-    for name, lib in libraries.items():
-        print(f"[build] {name} ({lib.src.name}) built in {lib.build_seconds:.2f} s")
-        for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"[build] {line.strip()}")
+    facts = phase_build(card)
 
     cam, cfg, world, frames = bench_setup()
     stats = {"K1": phase_k1(frames, card)}
@@ -503,9 +542,11 @@ def main():
         "source": f"vslam_tpu_torch/csrc/{src}",
         "replaces": replaces,
         "launches": launches[k],
-        "max_abs_err": stats[k]["max_abs_err"],
-        "ms": stats[k]["ms"],
-        "plain_ms": stats[k]["plain_ms"],
+        # No single PyTorch call computes either function (256 packed
+        # compares of shifted taps; blur + FAST + NMS + band argmax).
+        "library_ms": None,
+        **stats[k],
+        **facts[k],
     } for k, (fn, src, replaces) in sources.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -68,7 +68,7 @@ def closed_loop_config(cls, border):
 @pytest.fixture(scope="module")
 def world():
     poses = tsyn.circle_trajectory(N_FRAMES, radius=7.0)
-    w = tsyn.make_world(tcam.make_camera(**CAM_ARGS), n_points=1500, seed=21, poses=poses)
+    w = tsyn.make_world(tcam.make_camera(**CAM_ARGS, device="cpu"), n_points=1500, seed=21, poses=poses)
     frames = [tsyn.render_frame(w, t)[:2] for t in range(N_FRAMES)]
     return w, frames
 
@@ -95,7 +95,7 @@ def runs(world):
         jcfg.parallelism.shard_landmarks = False
         jeng = JEngine(jc, jcfg, landmark_capacity=8192)
         log.chronometers.clear()
-        teng = TEngine(tcam.make_camera(**CAM_ARGS), closed_loop_config(TConfig, border),
+        teng = TEngine(tcam.make_camera(**CAM_ARGS, device="cpu"), closed_loop_config(TConfig, border),
                        landmark_capacity=8192, device="cpu")
         for left, right in frames:
             jeng.process(left, right)
@@ -144,7 +144,7 @@ def test_card_drain_cadence_on_the_cpu(world, runs):
     """Harvest every 8 frames, as on the card (every frames_per_chunk):
     the pose graph's corrections then land while frames are in flight."""
     w, frames = world
-    eng = TEngine(tcam.make_camera(**CAM_ARGS), closed_loop_config(TConfig, 12),
+    eng = TEngine(tcam.make_camera(**CAM_ARGS, device="cpu"), closed_loop_config(TConfig, 12),
                   landmark_capacity=8192, device="cpu")
     eng.tracker.harvest_every = 8
     handles = eng.tracker.prestage(frames)

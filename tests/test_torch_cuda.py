@@ -66,11 +66,49 @@ def test_dense_brief_kernel_matches_plain_version_on_the_card(shape):
                            db.dense_bit_planes_reference(sm[:1], 1 + bank)[0])
     assert (db.K2.launches, db.K3.launches, db.K4.launches) == (
         launches[0] + 1, launches[1] + 1, launches[2] + 3)
+    for band in db.BANDS:  # the probe's bands and bf16 are built for table 0
+        for dtype in (torch.float32, torch.bfloat16):
+            x = sm.to(dtype).contiguous()
+            assert torch.equal(db.KERNEL.launch(x, 0, band),
+                               db.dense_bit_planes_reference(x, 0))
+
+
+# Shapes that are not multiples of the tiles (K1: 32 x 64 outputs a block;
+# the dense kernel: BAND x 128 a tile), and one smaller than the halo.
+EDGE_SHAPES = [(2, 37, 53), (1, 200, 333), (3, 200, 333), (1, 12, 20), (3, 12, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+@pytest.mark.parametrize("border", [16, 20, 31])
+def test_k1_tiling_edges_match_plain_version(shape, border):
+    _need_card()
+    imgs = _uint8_valued(shape, border).cuda()
+    for arc_len in (9, 12):
+        for thr in (5.0, 100.0):
+            t = torch.tensor(thr, device="cuda")
+            got = fb.fast_brief_frontend_pair(imgs, t, arc_len=arc_len, border=border)
+            ref = fb.fast_brief_frontend_pair_reference(imgs, t, arc_len=arc_len,
+                                                        border=border)
+            for name, a, b in zip(("planes", "score", "rowmax", "rowarg"), got, ref):
+                assert torch.equal(a, b), (name, arc_len, thr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_dense_kernel_tiling_edges_match_plain_version(shape):
+    """Every table at the main band in f32; every probe band in f32 and
+    bf16 at table 0."""
+    _need_card()
+    sm = _uint8_valued(shape, 7).cuda()
+    for table in range(len(db.TABLES)):
+        assert torch.equal(db.KERNEL.launch(sm, table),
+                           db.dense_bit_planes_reference(sm, table)), table
     for band in db.BANDS:
         for dtype in (torch.float32, torch.bfloat16):
             x = sm.to(dtype).contiguous()
-            assert torch.equal(db.KERNEL.launch(x, 3, band),
-                               db.dense_bit_planes_reference(x, 3))
+            assert torch.equal(db.KERNEL.launch(x, 0, band),
+                               db.dense_bit_planes_reference(x, 0)), (band, dtype)
 
 
 @pytest.mark.cuda

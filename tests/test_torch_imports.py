@@ -16,7 +16,8 @@ from vslam_tpu_torch.system.engine import SlamEngine
 from vslam_tpu_torch.tracking.tracker import FusedPoseTracker
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CAM = tcam.make_camera(fx=300, fy=300, cx=256, cy=96, baseline_m=0.4, rows=192, cols=512)
+CAM = tcam.make_camera(fx=300, fy=300, cx=256, cy=96, baseline_m=0.4, rows=192, cols=512,
+                       device="cpu")
 
 
 def _open_loop():
@@ -48,6 +49,41 @@ def test_cuda_device_without_a_card_raises():
         SlamEngine(CAM, _open_loop(), landmark_capacity=1024, device="cuda")
 
 
+def _default_device_calls():
+    from vslam_tpu_torch.backend import pose_graph
+    from vslam_tpu_torch.loop.relocalizer import Relocalizer
+    from vslam_tpu_torch.mapping import frame, landmarks
+
+    eye = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))
+    return {
+        "SlamEngine": lambda: SlamEngine(CAM, _open_loop(), landmark_capacity=1024).device,
+        "FusedPoseTracker": lambda: FusedPoseTracker(CAM, _open_loop(), 1024).device,
+        "Relocalizer": lambda: Relocalizer(tconfig.ParameterCollection().relocalization,
+                                           capacity=256).device,
+        "make_camera": lambda: tcam.make_camera(fx=300, fy=300, cx=256, cy=96,
+                                                baseline_m=0.4, rows=192, cols=512).device,
+        "empty_table": lambda: landmarks.empty_table(16).xyz_w.device,
+        "empty_frame": lambda: frame.empty_frame(16).uv4.device,
+        "optimize_pose_graph_hierarchical": lambda: pose_graph.optimize_pose_graph_hierarchical(
+            eye, eye[:2], np.ones(2, np.float32), [])[0].shape,
+    }
+
+
+@pytest.mark.parametrize("name", ["SlamEngine", "FusedPoseTracker", "Relocalizer",
+                                  "make_camera", "empty_table", "empty_frame",
+                                  "optimize_pose_graph_hierarchical"])
+def test_entry_points_run_on_the_card_by_default(name):
+    """Called without `device`, each entry point builds on the card; on a
+    machine without one it raises RuntimeError naming CUDA (no fallback)."""
+    call = _default_device_calls()[name]
+    if torch.cuda.is_available():
+        got = call()  # the pose graph returns host arrays: it only has to run
+        assert not isinstance(got, torch.device) or got.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
 # The ROADMAP item each refusal names.
 _ITEM = {"aligner_type": "item 16", "enable_full_bundle_adjustment": "item 12",
          "use_fused_tracker": "not to port", "enable_image_dump": "item 18"}
@@ -63,11 +99,12 @@ def test_unported_engine_configurations_raise(group, key, value):
     cfg = tconfig.ParameterCollection()  # closed loop: ported
     setattr(getattr(cfg, group), key, value)
     with pytest.raises(NotImplementedError, match=_ITEM[key]):
-        SlamEngine(CAM, cfg, landmark_capacity=1024)
+        SlamEngine(CAM, cfg, landmark_capacity=1024, device="cpu")
 
 
 def test_closed_loop_engine_constructs():
-    eng = SlamEngine(CAM, tconfig.ParameterCollection(), landmark_capacity=1024)
+    eng = SlamEngine(CAM, tconfig.ParameterCollection(), landmark_capacity=1024,
+                     device="cpu")
     assert not eng.open_loop
     assert eng.relocalizer.QUERY_CAP == eng.tracker.state.kf_desc.shape[1]
 
@@ -80,7 +117,7 @@ def test_unported_tracker_modes_raise(group, key, value):
     cfg = _open_loop()
     setattr(getattr(cfg, group), key, value)
     with pytest.raises(NotImplementedError):
-        FusedPoseTracker(CAM, cfg, landmark_capacity=1024)
+        FusedPoseTracker(CAM, cfg, landmark_capacity=1024, device="cpu")
 
 
 def test_reference_configurations_load():

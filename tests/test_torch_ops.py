@@ -94,7 +94,7 @@ def test_orthonormalize_matches_jax():
 CAM_ARGS = dict(fx=718.856, fy=718.856, cx=607.19, cy=185.22,
                 baseline_m=0.5372, rows=376, cols=1241)
 JCAM = jcam.make_camera(**CAM_ARGS)
-TCAM = tcam.make_camera(**CAM_ARGS)
+TCAM = tcam.make_camera(**CAM_ARGS, device="cpu")
 
 
 def _points(n, zmin=2.0, zmax=50.0):

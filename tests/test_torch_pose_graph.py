@@ -209,7 +209,8 @@ def test_hierarchical_matches_jax(levenberg):
     want, want_chi2 = jpg.optimize_pose_graph_hierarchical(est, odo, w, clo,
                                                            levenberg=levenberg)
     got, got_chi2 = tpg.optimize_pose_graph_hierarchical(
-        est, odo, w, from_jax.pose_graph_edges_from_numpy(clo), levenberg=levenberg)
+        est, odo, w, from_jax.pose_graph_edges_from_numpy(clo), levenberg=levenberg,
+        device="cpu")
     before = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=1).max()
     after = np.linalg.norm(got[:, :3, 3] - gt[:, :3, 3], axis=1).max()
     assert after < 0.5 * before  # the closures pulled the drift in
@@ -220,6 +221,6 @@ def test_hierarchical_matches_jax(levenberg):
 def test_hierarchical_noop_without_closures():
     _, est, odo, _ = _drifted_circle()
     got, chi2 = tpg.optimize_pose_graph_hierarchical(
-        est, odo, np.ones(len(est) - 1, np.float32), [])
+        est, odo, np.ones(len(est) - 1, np.float32), [], device="cpu")
     np.testing.assert_array_equal(got, est)
     assert chi2 == 0.0

@@ -178,7 +178,8 @@ def _run_both(maps, batch=3, **kw):
     resolving each batch's handles before the next; returns the two
     closure lists."""
     jr = jrel.Relocalizer(_params(JParams, **kw), capacity=4096)
-    tr = trel.Relocalizer(_params(TParams, **kw), query_cap=1024, capacity=4096)
+    tr = trel.Relocalizer(_params(TParams, **kw), query_cap=1024, capacity=4096,
+                            device="cpu")
     out = ([], [])
     for i in range(0, len(maps), batch):
         group = maps[i:i + batch]
@@ -219,7 +220,7 @@ def _loaded(maps, upto, **kw):
         {k: getattr(m, k) for k in ("map_id", "keyframe_index", "T_world_kf",
                                     "landmark_slots", "xyz_kf", "desc")})
         for m in jr.maps.values()}
-    tr = trel.Relocalizer(_params(TParams, **kw), capacity=4096)
+    tr = trel.Relocalizer(_params(TParams, **kw), capacity=4096, device="cpu")
     from_jax.relocalizer_state_from_numpy(tr, dict(
         db_desc=np.asarray(jr.db_desc).view(np.int32), db_map_id=np.asarray(jr.db_map_id),
         row_slot=jr.row_slot, n_rows=jr.n_rows, _slot_maps=jr._slot_maps,
@@ -257,7 +258,7 @@ def test_detect_and_verify_matches_jax(upto):
     """The synchronous query that leaves the database as it was."""
     maps = _scenario()
     jr = jrel.Relocalizer(_params(JParams), capacity=4096)
-    tr = trel.Relocalizer(_params(TParams), capacity=4096)
+    tr = trel.Relocalizer(_params(TParams), capacity=4096, device="cpu")
     for d in maps[:upto]:
         jr.add_local_map(_jmap(d))
         tr.add_local_map(from_jax.local_map_from_numpy(d))
@@ -362,7 +363,7 @@ def test_dispatch_icp_batch_matches_jax_icp_align(path):
     T0 = np.stack([np.linalg.inv(c.reference.T_world_kf) @ c.query.T_world_kf
                    for c in cands]).astype(np.float32)
     want = _jax_icp(mov, fix, mask, T0, p)
-    reloc = trel.Relocalizer(p, capacity=1024)
+    reloc = trel.Relocalizer(p, capacity=1024, device="cpu")
     if path == "archive":
         reloc.ring_provider = lambda: (torch.from_numpy(kf_pose), torch.from_numpy(kf_xyz), -1)
     jobs = reloc.dispatch_icp_batch(cands)
@@ -420,7 +421,7 @@ def test_apply_remap_matches_jax(with_lut):
 def test_grow_matches_jax():
     maps = _scenario()
     jr = jrel.Relocalizer(_params(JParams), capacity=256)
-    tr = trel.Relocalizer(_params(TParams), capacity=256)
+    tr = trel.Relocalizer(_params(TParams), capacity=256, device="cpu")
     for d in maps[:5]:
         jr.add_local_map(_jmap(d))
         tr.add_local_map(from_jax.local_map_from_numpy(d))
@@ -457,7 +458,7 @@ def test_archive_horizon_counts_frames_in_flight():
         tracker.state = SimpleNamespace(kf_pose=torch.from_numpy(kf_pose),
                                         kf_xyz=torch.from_numpy(kf_xyz))
         eng = SimpleNamespace(tracker=tracker)
-        reloc = trel.Relocalizer(p, capacity=1024)
+        reloc = trel.Relocalizer(p, capacity=1024, device="cpu")
         reloc.ring_provider = lambda: SlamEngine._ring_provider(eng)
         assert reloc.ring_provider()[2] == 9
         return reloc.job_result(reloc.dispatch_icp_batch(cands)[0])
@@ -475,8 +476,9 @@ def test_descriptor_block_is_as_wide_as_the_snapshot():
     cfg = tconfig.ParameterCollection()
     cfg.framepoint_generation.capacity = 2048
     cfg.local_map.maximum_number_of_landmarks = 1536
-    cam = tcam.make_camera(fx=300, fy=300, cx=256, cy=96, baseline_m=0.4, rows=192, cols=512)
-    eng = SlamEngine(cam, cfg, landmark_capacity=4096)
+    cam = tcam.make_camera(fx=300, fy=300, cx=256, cy=96, baseline_m=0.4, rows=192, cols=512,
+                           device="cpu")
+    eng = SlamEngine(cam, cfg, landmark_capacity=4096, device="cpu")
     K = eng.tracker.state.kf_desc.shape[1]
     assert K == eng.relocalizer.QUERY_CAP == 1536
     rng = np.random.default_rng(8)
@@ -497,11 +499,13 @@ def test_closure_support_setting_warns_and_closes_nothing(capsys):
     """minimum_matches_per_correspondence >= 2 can never pass with top-1
     matching: the port says so once, at construction, and, like the JAX
     package, closes no loop."""
-    trel.Relocalizer(_params(TParams, minimum_matches_per_correspondence=2), capacity=1024)
+    trel.Relocalizer(_params(TParams, minimum_matches_per_correspondence=2), capacity=1024,
+                     device="cpu")
     err = capsys.readouterr().err
     assert err.count("minimum_matches_per_correspondence") == 1 and "no loop" in err
     _, _, (jc, tc) = _run_both(_scenario(), minimum_matches_per_correspondence=2)
     assert jc == [] and tc == []
     capsys.readouterr()
-    trel.Relocalizer(_params(TParams, minimum_matches_per_correspondence=1), capacity=1024)
+    trel.Relocalizer(_params(TParams, minimum_matches_per_correspondence=1), capacity=1024,
+                     device="cpu")
     assert "minimum_matches_per_correspondence" not in capsys.readouterr().err

@@ -139,7 +139,7 @@ def test_synthetic_sequence_and_ate_match_jax(sequence, tmp_path):
     """The port's own copies of the sequence generator and the evaluator
     reproduce the JAX package's exactly."""
     jc, _, world, frames = sequence
-    tworld = tsyn.make_world(tcam.make_camera(**CAM_ARGS), n_frames=N_FRAMES,
+    tworld = tsyn.make_world(tcam.make_camera(**CAM_ARGS, device="cpu"), n_frames=N_FRAMES,
                              n_points=1500, seed=42, step=0.45)
     np.testing.assert_array_equal(tworld.poses, world.poses)
     np.testing.assert_array_equal(tworld.points_w, world.points_w)

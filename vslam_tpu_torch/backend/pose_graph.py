@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from vslam_tpu_torch.ops import lie
+from vslam_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 class PoseGraph(NamedTuple):
@@ -147,7 +148,7 @@ def optimize_pose_graph_hierarchical(poses, odometry, odo_weight, closures,
                                      robust_kernel_chi2: float = 1.0,
                                      closure_weight: float = 10.0,
                                      closure_bucket: int = 4,
-                                     levenberg: bool = False, device="cpu"):
+                                     levenberg: bool = False, device=DEFAULT_DEVICE):
     """Hierarchical pose-graph optimization (the engine's back-end).
 
     poses: (P, 4, 4) np current keyframe poses; odometry: (P-1, 4, 4) np
@@ -155,6 +156,7 @@ def optimize_pose_graph_hierarchical(poses, odometry, odo_weight, closures,
     closures: list of (ref_id, query_id, T_ij) np closure edges.  The
     junction solve and the distribution run on `device`.
     Returns (optimized (P, 4, 4) np poses, final junction chi2)."""
+    device = resolve_device(device)
     P = len(poses)
     if P < 3 or not closures:
         return poses.copy(), 0.0

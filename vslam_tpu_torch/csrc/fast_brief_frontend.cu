@@ -10,14 +10,28 @@
 // vslam_tpu_torch/frontend/fast_brief.py::fast_brief_frontend_pair_reference;
 // the two agree bit for bit over the whole image.
 //
-// What bounds it on the card: per stereo pair ~2 x 376 x 1280 pixels x
-// (512 BRIEF taps + 16 FAST ring taps + 25 blur adds) ~ 0.5 G shared-memory
-// reads and ~20 MB of output — tiny against the card's rate, so the kernel
-// is bound by launch latency and by its own occupancy, not by bytes or
-// FLOPs.  The design therefore stages one band-plus-halo tile in shared
-// memory once and does every tap from there (a block per image x 16-row
-// band x 128-column tile); it does not yet pipeline loads or pack several
-// bands per block.
+// What bounds it on the card.  Per stereo pair at 376 x 1241 the kernel
+// must move 37.8 MB (3.7 MB in, 34.1 MB out: 11.3 us at 3.35 TB/s), but
+// its BRIEF core reads 281 distinct taps per pixel from shared memory:
+// 933,232 px x 281 loads at one 32-lane load per SM and clock is ~31 us,
+// so the shared-load rate, not HBM, sets its floor.  The design works
+// toward that floor:
+//  * Taps as immediates: the 256 compares come from brief_core.cuh with
+//    the pattern as compile-time constants, each distinct tap loaded once
+//    per pixel; the FAST ring's offsets are constants too.
+//  * Occupancy: a block makes 32 x 64 output pixels (two 16-row bins) from
+//    a 64 x 96 raw tile.  The blurred tile aliases the raw tile (dead once
+//    FAST and the row sums are done) and the band scores alias the row
+//    sums, so a block holds 55.4 KB of shared memory, and 4 blocks of 256
+//    threads (32 warps) fit on an SM at <= 64 registers a thread.  The
+//    2 x 12 x 20 = 480 blocks of a pair then run in one wave on 132 SMs.
+//  * Staging by cp.async, 4-byte copies with src-size 0 for the zero halo
+//    (a TMA tensor map needs 16-byte row strides; a 1241-float row is
+//    4,964 bytes).  The blocks of the one wave all stage at once, so a
+//    persistent, double-buffered walk would hide only that first load
+//    (~2 us of a ~60 us kernel) at the cost of a second raw tile and a
+//    block per SM: it is not done.
+//  * A warp writes 32 consecutive columns of one word plane: coalesced.
 //
 // Bit-exactness: the file is built with -fmad=false, so the compiler
 // contracts nothing; the one fused multiply-add chain is explicit.  The
@@ -31,32 +45,52 @@
 
 #include <cuda_runtime.h>
 
+#include <utility>
+
+#include "brief_core.cuh"
+
 namespace {
 
-constexpr int BAND = 16;                // output rows per block (= bin size)
-constexpr int TILE = 128;               // output columns per block
+constexpr int BAND = 16;                // rows of one bin band
+constexpr int ROWS = 2 * BAND;          // output rows per block
+constexpr int TILE = 64;                // output columns per block
 constexpr int R = 13;                   // BRIEF pattern radius
 constexpr int PAD = 16;                 // halo: R + blur radius + 1 (NMS)
-constexpr int RAW_H = BAND + 2 * PAD;   // raw rows [-16, 32) of the band
-constexpr int RAW_W = TILE + 2 * PAD;   // raw cols [-16, 144) of the tile
-constexpr int SM_H = BAND + 2 * R;      // blurred rows [-13, 29)
-constexpr int SM_W = TILE + 2 * R;      // blurred cols [-13, 141)
-constexpr int RS_W = SM_W + 4;          // row-summed cols [-15, 143)
-constexpr int SC_H = BAND + 2;          // FAST score rows [-1, 17)
-constexpr int SC_W = TILE + 2;          // FAST score cols [-1, 129)
-constexpr int PAT_INTS = 256 * 4;       // [bit][dr1, dc1, dr2, dc2]
+constexpr int RAW_H = ROWS + 2 * PAD;   // raw rows [-16, 48) of the block
+constexpr int RAW_W = TILE + 2 * PAD;   // raw cols [-16, 80)
+constexpr int SM_H = ROWS + 2 * R;      // blurred rows [-13, 45)
+constexpr int SM_W = TILE + 2 * R;      // blurred cols [-13, 77)
+constexpr int RS_W = SM_W + 4;          // row-summed cols [-15, 79)
+constexpr int SC_H = ROWS + 2;          // FAST score rows [-1, 33)
+constexpr int SC_W = TILE + 2;          // FAST score cols [-1, 65)
 constexpr int THREADS = 256;
-constexpr size_t SMEM_BYTES =
-    sizeof(int) * PAT_INTS +
-    sizeof(float) * (RAW_H * RAW_W + SM_H * RS_W + SM_H * SM_W + SC_H * SC_W);
+constexpr int MIN_BLOCKS = 4;           // per SM: 32 warps
+constexpr size_t SMEM_BYTES = sizeof(float) * (RAW_H * RAW_W + SM_H * RS_W + SC_H * SC_W);
 
-static_assert(BAND * TILE <= SM_H * RS_W, "band buffer aliases the row sums");
+static_assert(SM_H * SM_W <= RAW_H * RAW_W, "the blurred tile aliases the raw tile");
+static_assert(ROWS * TILE <= SM_H * RS_W, "the band scores alias the row sums");
+static_assert(ROWS * TILE % THREADS == 0 && TILE % 32 == 0, "whole warps per row");
 
 // Bresenham circle of radius 3, clockwise from 12 o'clock (detect.CIRCLE).
-__constant__ int kCircleR[16] = {-3, -3, -2, -1, 0, 1, 2, 3,
-                                 3, 3, 2, 1, 0, -1, -2, -3};
-__constant__ int kCircleC[16] = {0, 1, 2, 3, 3, 3, 2, 1,
-                                 0, -1, -2, -3, -3, -3, -2, -1};
+constexpr int kRing[16][2] = {{-3, 0}, {-3, 1}, {-2, 2}, {-1, 3}, {0, 3}, {1, 3},
+                              {2, 2}, {3, 1}, {3, 0}, {3, -1}, {2, -2}, {1, -3},
+                              {0, -3}, {-1, -3}, {-2, -2}, {-3, -1}};
+
+__host__ __device__ constexpr int ring_offset(int k) {
+  return kRing[k][0] * RAW_W + kRing[k][1];
+}
+
+template <int K>
+__device__ __forceinline__ float ring_tap(const float* p) {
+  constexpr int o = ring_offset(K);
+  return p[o];
+}
+
+template <int... K>
+__device__ __forceinline__ void load_ring(const float* p, float (&v)[16],
+                                          std::integer_sequence<int, K...>) {
+  ((v[K] = ring_tap<K>(p)), ...);
+}
 
 // A cyclic run of >= arc_len set bits in the 16-bit ring mask m.
 __device__ __forceinline__ bool has_arc(unsigned m, int arc_len) {
@@ -74,43 +108,54 @@ __device__ __forceinline__ bool has_arc(unsigned m, int arc_len) {
   return (a & 0xFFFFu) != 0u;
 }
 
-__global__ void __launch_bounds__(THREADS)
-fast_brief_band_kernel(const float* __restrict__ img,   // (B, H, W)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+fast_brief_tile_kernel(const float* __restrict__ img,   // (B, H, W)
                        const float* __restrict__ thr,   // scalar
-                       const int* __restrict__ pat,     // (256, 4)
-                       int H, int W, int Wo, int arc_len, int border,
-                       int bin_size,
+                       int H, int W, int Wo, int n_bands, int arc_len,
+                       int border, int bin_size,
                        int* __restrict__ planes,        // (B, 8, H, W)
                        float* __restrict__ score,       // (B, H, W)
                        float* __restrict__ rowmax,      // (B, n_bands, Wo)
                        int* __restrict__ rowarg) {      // (B, n_bands, Wo)
-  extern __shared__ float smem[];
-  int* s_pat = reinterpret_cast<int*>(smem);
-  float* raw = smem + PAT_INTS;
-  float* rs = raw + RAW_H * RAW_W;
-  float* sm = rs + SM_H * RS_W;
-  float* sc = sm + SM_H * SM_W;
-  float* band_nms = rs;  // reused once the blur no longer needs it
+  extern __shared__ __align__(16) float smem[];
+  float* raw = smem;                     // (RAW_H, RAW_W) raw tile, then
+  float* sm = smem;                      // (SM_H, SM_W) the blurred tile
+  float* rs = smem + RAW_H * RAW_W;      // (SM_H, RS_W) row sums, then
+  float* band_nms = rs;                  // (ROWS, TILE) masked NMS scores
+  float* sc = rs + SM_H * RS_W;          // (SC_H, SC_W) FAST scores
 
   const int b = blockIdx.z;
-  const int band = blockIdx.y;
-  const int n_bands = gridDim.y;
-  const int r0 = band * BAND;
+  const int r0 = blockIdx.y * ROWS;
   const int c0 = blockIdx.x * TILE;
   const float* im = img + static_cast<size_t>(b) * H * W;
-  const float t = *thr;
   const int tid = threadIdx.x;
 
-  for (int k = tid; k < PAT_INTS; k += THREADS) s_pat[k] = pat[k];
-  // Raw tile with its halo; zero outside the image.
-  for (int k = tid; k < RAW_H * RAW_W; k += THREADS) {
-    const int i = k / RAW_W, j = k - i * RAW_W;
-    const int r = r0 - PAD + i, c = c0 - PAD + j;
-    raw[k] = (r >= 0 && r < H && c >= 0 && c < W)
-                 ? im[static_cast<size_t>(r) * W + c] : 0.0f;
-  }
+  brief::stage_tile<RAW_H, RAW_W, THREADS>(raw, im, H, W, r0 - PAD, c0 - PAD);
+  const float t = *thr;
+  __pipeline_wait_prior(0);
   __syncthreads();
 
+  // FAST segment test + score on the raw image, rows -1..32, cols -1..64.
+  for (int k = tid; k < SC_H * SC_W; k += THREADS) {
+    const int i = k / SC_W, j = k - i * SC_W;
+    const float* p = raw + (i + PAD - 1) * RAW_W + (j + PAD - 1);
+    float v[16];
+    load_ring(p, v, std::make_integer_sequence<int, 16>{});
+    const float center = p[0];
+    const float hi = __fadd_rn(center, t);
+    const float lo = __fsub_rn(center, t);
+    unsigned mb = 0u, md = 0u;
+    float be = 0.0f, de = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk) {
+      mb |= static_cast<unsigned>(v[kk] > hi) << kk;
+      md |= static_cast<unsigned>(v[kk] < lo) << kk;
+      be = __fadd_rn(be, fmaxf(__fsub_rn(v[kk], hi), 0.0f));
+      de = __fadd_rn(de, fmaxf(__fsub_rn(lo, v[kk]), 0.0f));
+    }
+    const bool corner = has_arc(mb, arc_len) || has_arc(md, arc_len);
+    sc[k] = corner ? fmaxf(be, de) : 0.0f;
+  }
   // Box blur, rows: rs[i][j] = sum_{d=0..4} raw(r-2+d, c), ascending.
   for (int k = tid; k < SM_H * RS_W; k += THREADS) {
     const int i = k / RS_W, j = k - i * RS_W;
@@ -120,31 +165,12 @@ fast_brief_band_kernel(const float* __restrict__ img,   // (B, H, W)
     for (int d = 1; d < 5; ++d) a = __fadd_rn(a, p[d * RAW_W]);
     rs[k] = a;
   }
-  // FAST segment test + score on the raw image, rows -1..16, cols -1..128.
-  for (int k = tid; k < SC_H * SC_W; k += THREADS) {
-    const int i = k / SC_W, j = k - i * SC_W;
-    const float* p = raw + (i + PAD - 1) * RAW_W + (j + PAD - 1);
-    const float center = p[0];
-    const float hi = __fadd_rn(center, t);
-    const float lo = __fsub_rn(center, t);
-    unsigned mb = 0u, md = 0u;
-    float be = 0.0f, de = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < 16; ++kk) {
-      const float v = p[kCircleR[kk] * RAW_W + kCircleC[kk]];
-      mb |= static_cast<unsigned>(v > hi) << kk;
-      md |= static_cast<unsigned>(v < lo) << kk;
-      be = __fadd_rn(be, fmaxf(__fsub_rn(v, hi), 0.0f));
-      de = __fadd_rn(de, fmaxf(__fsub_rn(lo, v), 0.0f));
-    }
-    const bool corner = has_arc(mb, arc_len) || has_arc(md, arc_len);
-    sc[k] = corner ? fmaxf(be, de) : 0.0f;
-  }
   __syncthreads();
 
   // Box blur, columns: 0.2f * sum_{d=0..4} (0.2f * rs[i][j+d]), ascending,
   // in the contracted form the JAX reference computes:
   // s = fma(A0, .2f, A1 * .2f), then s = fma(Ad, .2f, s) for d = 2..4.
+  // Written over the raw tile, which nothing reads any more.
   for (int k = tid; k < SM_H * SM_W; k += THREADS) {
     const int i = k / SM_W, j = k - i * SM_W;
     const float* p = rs + i * RS_W + j;
@@ -159,7 +185,8 @@ fast_brief_band_kernel(const float* __restrict__ img,   // (B, H, W)
   const int Wc = (W / bin_size) * bin_size;
   const int r_end = min(H - border, Hc);
   const int c_end = min(W - border, Wc);
-  for (int p = tid; p < BAND * TILE; p += THREADS) {
+#pragma unroll 1  // one pixel's loads per iteration (counted from SASS)
+  for (int p = tid; p < ROWS * TILE; p += THREADS) {
     const int i = p / TILE, j = p - i * TILE;
     const int r = r0 + i, c = c0 + j;
     // 3x3 NMS: keep the score where it is >= its neighbourhood max.
@@ -175,38 +202,55 @@ fast_brief_band_kernel(const float* __restrict__ img,   // (B, H, W)
     band_nms[p] = inside ? nms : 0.0f;
     if (r < H && c < W) {
       score[(static_cast<size_t>(b) * H + r) * W + c] = nms;
-      const float* q = sm + (i + R) * SM_W + (j + R);
-      for (int w = 0; w < 8; ++w) {
-        unsigned acc = 0u;
+      unsigned w[8];
+      brief::brief_words<0, SM_W>(sm + (i + R) * SM_W + (j + R), w);
 #pragma unroll
-        for (int jj = 0; jj < 32; ++jj) {
-          const int* o = s_pat + 4 * (w * 32 + jj);
-          const float a = q[o[0] * SM_W + o[1]];
-          const float cmp = q[o[2] * SM_W + o[3]];
-          acc |= static_cast<unsigned>(a < cmp) << jj;
-        }
-        planes[((static_cast<size_t>(b) * 8 + w) * H + r) * W + c] =
-            static_cast<int>(acc);
-      }
+      for (int k = 0; k < 8; ++k)
+        planes[((static_cast<size_t>(b) * 8 + k) * H + r) * W + c] = static_cast<int>(w[k]);
     }
   }
   __syncthreads();
 
-  // Per-column (max, first row reaching it) over the band.
-  if (tid < TILE) {
-    float m = band_nms[tid];
-    for (int i = 1; i < BAND; ++i) m = fmaxf(m, band_nms[i * TILE + tid]);
-    int arg = BAND;
-    for (int i = 0; i < BAND; ++i) {
-      if (band_nms[i * TILE + tid] >= m) {
-        arg = i;
-        break;
+  // Per-column (max, first row reaching it) over each of the two bands.
+  if (tid < (ROWS / BAND) * TILE) {
+    const int half = tid / TILE, j = tid - half * TILE;
+    const int band = blockIdx.y * (ROWS / BAND) + half;
+    if (band < n_bands) {
+      const float* col = band_nms + half * BAND * TILE + j;
+      float m = col[0];
+      for (int i = 1; i < BAND; ++i) m = fmaxf(m, col[i * TILE]);
+      int arg = BAND;
+      for (int i = 0; i < BAND; ++i) {
+        if (col[i * TILE] >= m) {
+          arg = i;
+          break;
+        }
       }
+      const size_t o = (static_cast<size_t>(b) * n_bands + band) * Wo + c0 + j;
+      rowmax[o] = m;
+      rowarg[o] = arg;
     }
-    const size_t o = (static_cast<size_t>(b) * n_bands + band) * Wo + c0 + tid;
-    rowmax[o] = m;
-    rowarg[o] = arg;
   }
+}
+
+constexpr int MAX_DEVICES = 64;
+
+// Selects `device` and sets the kernel's shared-memory attributes, once
+// per device.
+cudaError_t configure(int device) {
+  static bool done[MAX_DEVICES] = {};
+  if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess || done[device]) return err;
+  err = cudaFuncSetAttribute(fast_brief_tile_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(SMEM_BYTES));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fast_brief_tile_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  done[device] = err == cudaSuccess;
+  return err;
 }
 
 }  // namespace
@@ -214,21 +258,26 @@ fast_brief_band_kernel(const float* __restrict__ img,   // (B, H, W)
 // Launches K1 on `stream`; returns the cudaError_t of the launch (0 = ok).
 // All pointers are device pointers; the kernel allocates nothing.
 extern "C" int fast_brief_frontend_launch(
-    const float* img, const float* thr, const int* pat, int B, int H, int W,
-    int arc_len, int border, int bin_size, int* planes, float* score,
-    float* rowmax, int* rowarg, void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
+    const float* img, const float* thr, int B, int H, int W, int arc_len,
+    int border, int bin_size, int* planes, float* score, float* rowmax,
+    int* rowarg, void* stream, int device) {
+  cudaError_t err = configure(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(fast_brief_band_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(SMEM_BYTES));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int Wo = (W + TILE - 1) / TILE * TILE;
+  const int Wo = (W + 127) / 128 * 128;  // the band reduction's width
   const int n_bands = (H + BAND - 1) / BAND;
-  const dim3 grid(Wo / TILE, n_bands, B);
-  fast_brief_band_kernel<<<grid, THREADS, SMEM_BYTES,
+  const dim3 grid(Wo / TILE, (H + ROWS - 1) / ROWS, B);
+  fast_brief_tile_kernel<<<grid, THREADS, SMEM_BYTES,
                            static_cast<cudaStream_t>(stream)>>>(
-      img, thr, pat, H, W, Wo, arc_len, border, bin_size, planes, score,
+      img, thr, H, W, Wo, n_bands, arc_len, border, bin_size, planes, score,
       rowmax, rowarg);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of K1 resident on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+// into *blocks; returns the cudaError_t (0 = ok).
+extern "C" int fast_brief_frontend_occupancy(int* blocks, int device) {
+  cudaError_t err = configure(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, fast_brief_tile_kernel, THREADS, SMEM_BYTES));
 }

@@ -3,9 +3,10 @@ with ctypes.
 
 Each `csrc/*.cu` file has a plain C interface; it is compiled for sm_90a
 into `build/vslam_tpu_torch/lib<stem>_<hash>.so` (the hash covers the
-source and the flags, so an edited source rebuilds) and loaded with
-ctypes.  `CudaLibrary.start` begins the nvcc run in the background, so
-several sources compile at once; `load` waits for it.
+source, every `csrc/*.cuh` header it may include, and the flags, so an
+edited source or header rebuilds) and loaded with ctypes.
+`CudaLibrary.start` begins the nvcc run in the background, so several
+sources compile at once; `load` waits for it.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,15 +26,44 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-def nvcc() -> str:
-    found = shutil.which("nvcc")
+def _cuda_tool(name: str) -> str | None:
+    found = shutil.which(name)
     if found:
         return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
+    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", name)
+    return path if os.path.exists(path) else None
+
+
+def nvcc() -> str:
+    path = _cuda_tool("nvcc")
+    if path is None:
         raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
     return path
+
+
+def loop_shared_loads(sass: str, kernel: str) -> int:
+    """Shared-memory loads (LDS*) in the largest loop of `kernel` in a
+    `cuobjdump -sass` listing: the pixel loop, so the loads of one pixel
+    when that loop is not unrolled.  `kernel` is a substring of the
+    mangled name; raises KeyError if no function matches."""
+    body = None
+    for block in sass.split("Function : ")[1:]:
+        if kernel in block.split("\n", 1)[0]:
+            body = block
+            break
+    if body is None:
+        raise KeyError(kernel)
+    ins = [(int(m.group(1), 16), m.group(2)) for m in
+           re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    best = 0
+    for addr, text in ins:
+        br = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text)
+        if br and int(br.group(1), 16) < addr:  # a backward branch closes a loop
+            start = int(br.group(1), 16)
+            n = sum(1 for a, t in ins if start <= a <= addr
+                    and re.match(r"(@!?U?P\w+\s+)?LDS\b", t))
+            best = max(best, n)
+    return best
 
 
 class CudaLibrary:
@@ -50,9 +81,11 @@ class CudaLibrary:
         self._t0 = None
 
     def _target(self) -> Path:
-        tag = hashlib.sha256(self.src.read_bytes()
-                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        return BUILD_DIR / f"lib{self.src.stem}_{tag}.so"
+        digest = hashlib.sha256(self.src.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            digest.update(header.name.encode() + header.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"lib{self.src.stem}_{digest.hexdigest()[:16]}.so"
 
     def start(self) -> "CudaLibrary":
         """Begin the nvcc build unless it is built, loaded or under way."""
@@ -86,3 +119,13 @@ class CudaLibrary:
         self.build_seconds = time.perf_counter() - self._t0
         self._lib = ctypes.CDLL(str(so))
         return self._lib
+
+    def sass(self) -> str:
+        """`cuobjdump -sass` of the built library (raises RuntimeError if
+        the toolkit has no cuobjdump)."""
+        tool = _cuda_tool("cuobjdump")
+        if tool is None:
+            raise RuntimeError("cuobjdump not found (PATH, $CUDA_HOME/bin)")
+        self.load()
+        return subprocess.run([tool, "-sass", str(self._target())], capture_output=True,
+                              text=True, check=True, timeout=300).stdout

@@ -7,7 +7,9 @@ b = 32 w + j; the words are int32 (the bits of the JAX package's uint32
 words) in layout (B, 8, H, W).  The offset pairs come from one of 17
 pattern tables: TABLES[0] is the upright BRIEF pattern (brief._PAT),
 TABLES[1 + k] the pattern rotated into orientation bank k
-(brief._ROT_PATS[k]).
+(brief._ROT_PATS[k]).  The CUDA source reads the tables as compile-time
+constants from csrc/brief_patterns.cuh, which `write_pattern_header`
+generates from TABLES.
 
 Port of vslam_tpu/frontend/pallas_brief.py.  Three thin wrappers stand
 for its three TPU functions and count their own launches:
@@ -22,17 +24,18 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from vslam_tpu_torch.frontend.cuda_build import CudaLibrary
+from vslam_tpu_torch.frontend.cuda_build import CSRC, CudaLibrary
 from vslam_tpu_torch.frontend.fast_brief import PATTERN, pack_brief_words
 from vslam_tpu_torch.frontend.orb import PATTERN_RADIUS, _make_pattern
 
 N_ROT_BANKS = 16
-BAND = 8  # rows per block on the main path (the TPU kernels' band)
-BANDS = (8, 16, 32, 64)  # the row bands the CUDA source is built for
+BAND = 8  # rows per tile on the main path (the TPU kernels' band); all tables
+BANDS = (8, 16, 32, 64)  # the row bands the CUDA source is built for (table 0)
 
 
 def _rotated_int_patterns(n_banks: int = N_ROT_BANKS) -> np.ndarray:
@@ -55,6 +58,90 @@ def _rotated_int_patterns(n_banks: int = N_ROT_BANKS) -> np.ndarray:
 
 ROT_PATS = _rotated_int_patterns()
 TABLES = np.concatenate([PATTERN[None], ROT_PATS])  # (17, 256, 2, 2) int32
+HEADER = CSRC / "brief_patterns.cuh"
+
+
+def bit_order(pattern: np.ndarray) -> list[int]:
+    """An order of the 256 compares of `pattern` (256, 2, 2) in which
+    compares sharing a tap follow each other: greedily the next compare
+    is the one with most taps already loaded and still needed, then the
+    one whose taps have no other compare left.  A kernel that loads each
+    distinct tap at its first compare then holds few taps at once
+    (`live_taps`)."""
+    pairs = [tuple(map(tuple, p)) for p in pattern]
+    uses: dict = {}
+    for b, pq in enumerate(pairs):
+        for x in pq:
+            uses.setdefault(x, set()).add(b)
+    remaining, order, open_taps = set(range(len(pairs))), [], set()
+
+    def rank(b):
+        pq = set(pairs[b])
+        closing = sum(len(uses[x] & remaining) == 1 for x in pq)
+        return (sum(x in open_taps for x in pairs[b]), closing, -b)
+
+    while remaining:
+        b = max(remaining, key=rank)
+        order.append(b)
+        remaining.discard(b)
+        for x in pairs[b]:
+            (open_taps.add if uses[x] & remaining else open_taps.discard)(x)
+    return order
+
+
+def live_taps(pattern: np.ndarray, order) -> int:
+    """The most distinct taps held at once when the compares run in
+    `order` and each tap lives from its first compare to its last."""
+    first, last = {}, {}
+    for k, b in enumerate(order):
+        for x in map(tuple, pattern[b]):
+            first.setdefault(x, k)
+            last[x] = k
+    events = np.zeros(len(order) + 1, np.int64)
+    for x in first:
+        events[first[x]] += 1
+        events[last[x] + 1] -= 1
+    return int(np.cumsum(events).max())
+
+
+def pattern_header() -> str:
+    """The text of csrc/brief_patterns.cuh: TABLES and each table's
+    bit_order as compile-time constants."""
+    out = [
+        "// BRIEF-256 pattern tables of the port's CUDA kernels as compile-time",
+        "// constants.  Generated from vslam_tpu_torch/frontend/dense_brief.py",
+        "// (TABLES, bit_order) by dense_brief.write_pattern_header(); do not edit.",
+        "//   kBriefPattern[t][b] = {dr1, dc1, dr2, dc2}: bit b (bit b % 32 of word",
+        "//     b / 32) compares S(x + (dr1, dc1)) < S(x + (dr2, dc2)).  Table 0 is",
+        "//     the upright pattern (brief._PAT), table 1 + k the rotated bank k.",
+        "//   kBriefOrder[t][k]: the bit computed k-th, an order in which compares",
+        "//     that share a tap follow each other.",
+        "#pragma once",
+        "",
+        "namespace brief {",
+        "",
+        f"constexpr int kTables = {len(TABLES)};",
+        "",
+        f"constexpr signed char kBriefPattern[{len(TABLES)}][256][4] = {{",
+    ]
+    for t, table in enumerate(TABLES):
+        out.append(f"  {{  // table {t}")
+        quads = [("{%d, %d, %d, %d}" % tuple(q)) for q in table.reshape(256, 4)]
+        out += ["    " + ", ".join(quads[i:i + 6]) + "," for i in range(0, 256, 6)]
+        out.append("  },")
+    out += ["};", "", f"constexpr unsigned char kBriefOrder[{len(TABLES)}][256] = {{"]
+    for t, table in enumerate(TABLES):
+        order = [str(b) for b in bit_order(table)]
+        out.append(f"  {{  // table {t}")
+        out += ["    " + ", ".join(order[i:i + 16]) + "," for i in range(0, 256, 16)]
+        out.append("  },")
+    out += ["};", "", "}  // namespace brief", ""]
+    return "\n".join(out)
+
+
+def write_pattern_header(path=HEADER) -> None:
+    """Regenerate csrc/brief_patterns.cuh (after a change to the tables)."""
+    Path(path).write_text(pattern_header())
 
 
 def dense_bit_planes_reference(smooth: torch.Tensor, table: int = 0) -> torch.Tensor:
@@ -88,39 +175,59 @@ K4 = EntryPoint("dense_bit_planes_pattern", "vslam_tpu/frontend/pallas_brief.py:
 
 
 class DenseBriefKernel:
-    """The built dense-BRIEF library, shared by K2, K3 and K4."""
+    """The built dense-BRIEF library, shared by K2, K3 and K4.
+
+    Every table is built for the main band BAND in float32; the probe's
+    other bands and bfloat16 input are built for table 0 only."""
 
     def __init__(self):
         self.library = CudaLibrary("dense_brief.cu")
-        self._tables_on = set()  # device indices holding the pattern tables
+
+    @staticmethod
+    def sass_name(table: int = 0, band: int = BAND, dtype=torch.float32) -> str:
+        """A substring of the mangled name of one instantiation's kernel."""
+        t = "f" if dtype == torch.float32 else "13__nv_bfloat16"
+        return f"dense_brief_kernelILi{band}E{t}Li{table}EE"
 
     def build(self):
         """Compile the kernel with nvcc (once per source version) and load it."""
         lib = self.library.load()
-        lib.dense_brief_set_patterns.restype = ctypes.c_int
-        lib.dense_brief_set_patterns.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                                 ctypes.c_int]
         lib.dense_brief_launch.restype = ctypes.c_int
         lib.dense_brief_launch.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 6
                                            + [ctypes.c_void_p] * 2 + [ctypes.c_int])
+        lib.dense_brief_occupancy.restype = ctypes.c_int
+        lib.dense_brief_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p,
+                                                                   ctypes.c_int]
         return lib
+
+    @staticmethod
+    def _check(table: int, band: int, dtype) -> None:
+        if dtype not in (torch.float32, torch.bfloat16) or band not in BANDS \
+                or not 0 <= table < len(TABLES) \
+                or (table != 0 and (band != BAND or dtype != torch.float32)):
+            raise ValueError(f"dense BRIEF: no kernel for table {table}, band {band}, "
+                             f"{dtype} (every table at band {BAND} in float32; other "
+                             "bands and bfloat16 at table 0)")
+
+    def blocks_per_sm(self, device: torch.device, table: int = 0, band: int = BAND,
+                      dtype=torch.float32) -> int:
+        """Resident blocks of one instantiation on one SM of `device`."""
+        self._check(table, band, dtype)
+        n = ctypes.c_int(0)
+        err = self.build().dense_brief_occupancy(int(dtype == torch.bfloat16), band, table,
+                                                 ctypes.byref(n), device.index)
+        if err != 0:
+            raise RuntimeError(f"dense BRIEF occupancy query failed: cudaError {err}")
+        return n.value
 
     def launch(self, smooth: torch.Tensor, table: int, band: int = BAND) -> torch.Tensor:
         """(B, H, W) contiguous f32 (or bf16) CUDA stack -> (B, 8, H, W) int32."""
-        if smooth.dim() != 3 or smooth.dtype not in (torch.float32, torch.bfloat16) \
-                or not smooth.is_contiguous() or min(smooth.shape) == 0:
+        if smooth.dim() != 3 or not smooth.is_contiguous() or min(smooth.shape) == 0:
             raise ValueError("dense BRIEF: smooth must be a non-empty contiguous "
                              "(B, H, W) float32 or bfloat16 tensor")
-        if not 0 <= table < len(TABLES) or band not in BANDS:
-            raise ValueError(f"dense BRIEF: table {table}, band {band}")
+        self._check(table, band, smooth.dtype)
         lib = self.build()
         dev = smooth.device
-        if dev.index not in self._tables_on:
-            host = np.ascontiguousarray(TABLES.reshape(len(TABLES), 256, 4).astype(np.int8))
-            err = lib.dense_brief_set_patterns(host.ctypes.data, len(TABLES), dev.index)
-            if err != 0:
-                raise RuntimeError(f"dense BRIEF pattern upload failed: cudaError {err}")
-            self._tables_on.add(dev.index)
         B, H, W = smooth.shape
         planes = torch.empty((B, 8, H, W), dtype=torch.int32, device=dev)
         err = lib.dense_brief_launch(

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from vslam_tpu_torch.frontend.cuda_build import CudaLibrary
-from vslam_tpu_torch.frontend.orb import N_BITS, PATTERN_RADIUS, _fma, _make_pattern
+from vslam_tpu_torch.frontend.orb import PATTERN_RADIUS, _fma, _make_pattern
 
 BAND = 16  # output rows per band (= the band tail's bin size)
 LANE = 128  # column tile; the band reduction is Wo = round_up(W, 128) wide
@@ -179,26 +179,31 @@ class FastBriefKernel:
     `launches` goes up by one each time the CUDA kernel is launched, and
     nowhere else; `library` holds the build (log, seconds)."""
 
+    # The kernel's SASS function name (a substring of the mangled name).
+    sass_name = "fast_brief_tile_kernel"
+
     def __init__(self):
         self.launches = 0
         self.library = CudaLibrary("fast_brief_frontend.cu")
-        self._pattern = {}  # device -> (256, 4) int32 pattern tensor
 
     def build(self):
         """Compile the kernel with nvcc (once per source version) and load it."""
         lib = self.library.load()
         fn = lib.fast_brief_frontend_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p] * 5 + [ctypes.c_int])
+        lib.fast_brief_frontend_occupancy.restype = ctypes.c_int
+        lib.fast_brief_frontend_occupancy.argtypes = [ctypes.c_void_p, ctypes.c_int]
         return lib
 
-    def _pattern_on(self, device: torch.device) -> torch.Tensor:
-        if device not in self._pattern:
-            self._pattern[device] = torch.from_numpy(
-                PATTERN.reshape(N_BITS, 4).copy()
-            ).to(device)
-        return self._pattern[device]
+    def blocks_per_sm(self, device: torch.device) -> int:
+        """Resident blocks of the kernel on one SM of `device`."""
+        n = ctypes.c_int(0)
+        err = self.build().fast_brief_frontend_occupancy(ctypes.byref(n), device.index)
+        if err != 0:
+            raise RuntimeError(f"K1 occupancy query failed: cudaError {err}")
+        return n.value
 
     def launch(self, imgs: torch.Tensor, threshold: torch.Tensor, arc_len: int,
                border: int, bin_size: int):
@@ -218,9 +223,8 @@ class FastBriefKernel:
         rowmax = torch.empty((B, n_bands, Wo), dtype=torch.float32, device=dev)
         rowarg = torch.empty((B, n_bands, Wo), dtype=torch.int32, device=dev)
         thr = threshold.reshape(1).contiguous()
-        pat = self._pattern_on(dev)
         err = lib.fast_brief_frontend_launch(
-            imgs.data_ptr(), thr.data_ptr(), pat.data_ptr(), B, H, W, arc_len,
+            imgs.data_ptr(), thr.data_ptr(), B, H, W, arc_len,
             border, bin_size, planes.data_ptr(), score.data_ptr(),
             rowmax.data_ptr(), rowarg.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream, dev.index,

@@ -37,6 +37,7 @@ from vslam_tpu_torch.mapping.local_maps import Closure, LocalMap
 from vslam_tpu_torch.ops import hamming
 from vslam_tpu_torch.solve import aligners, gn
 from vslam_tpu_torch.utils import log
+from vslam_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 # Largest ICP batch: bigger drains verify in several batches.
 ICP_MAX_BATCH = 16
@@ -159,7 +160,7 @@ def _icp_config(p: RelocalizationParameters) -> gn.GNConfig:
 
 class Relocalizer:
     def __init__(self, params: RelocalizationParameters, query_cap: int = 1024,
-                 capacity: int = 131072, device="cpu"):
+                 capacity: int = 131072, device=DEFAULT_DEVICE):
         """query_cap: the query/insert block width — the snapshot width
         min(local_map.maximum_number_of_landmarks, capacity), so no
         landmark of a local map is dropped (the JAX package fixes 1024)."""
@@ -179,7 +180,7 @@ class Relocalizer:
         self.params = params
         self.QUERY_CAP = int(query_cap)
         self.capacity = capacity
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # () -> (kf_pose (KR,4,4), kf_xyz (KR,K,3), horizon map id): the
         # tracker's snapshot archive; maps above the horizon gather their
         # ICP point sets there on the device.

@@ -21,6 +21,7 @@ from vslam_tpu_torch.frontend import brief, detect, fast_brief, matching
 from vslam_tpu_torch.ops import camera as cam_ops
 from vslam_tpu_torch.ops import hamming, lie
 from vslam_tpu_torch.solve import aligners, gn
+from vslam_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 _FAST_DETECTORS = ("FAST", "FAST9", "AGAST", "FAST12")
 
@@ -43,7 +44,8 @@ class FrameState(NamedTuple):
         return self.uv4.shape[0]
 
 
-def empty_frame(capacity: int, device="cpu") -> FrameState:
+def empty_frame(capacity: int, device=DEFAULT_DEVICE) -> FrameState:
+    device = resolve_device(device)
     return FrameState(
         uv4=torch.zeros((capacity, 4), dtype=torch.float32, device=device),
         desc=torch.zeros((capacity, 8), dtype=torch.int32, device=device),

@@ -12,6 +12,7 @@ from vslam_tpu_torch.mapping.frame import _put_rows
 from vslam_tpu_torch.ops import camera as cam_ops
 from vslam_tpu_torch.ops import lie
 from vslam_tpu_torch.solve import aligners
+from vslam_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 class LandmarkTable(NamedTuple):
@@ -29,7 +30,8 @@ class LandmarkTable(NamedTuple):
         return self.xyz_w.shape[0]
 
 
-def empty_table(capacity: int, device="cpu") -> LandmarkTable:
+def empty_table(capacity: int, device=DEFAULT_DEVICE) -> LandmarkTable:
+    device = resolve_device(device)
     i32 = dict(dtype=torch.int32, device=device)
     return LandmarkTable(
         xyz_w=torch.zeros((capacity, 3), dtype=torch.float32, device=device),

@@ -9,6 +9,8 @@ from typing import NamedTuple
 
 import torch
 
+from vslam_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+
 
 class CameraParams(NamedTuple):
     """Per-run camera intrinsics + stereo geometry.
@@ -59,8 +61,9 @@ def make_camera(
     rows: int,
     cols: int,
     T_cam_robot=None,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> CameraParams:
+    device = resolve_device(device)
     K = torch.tensor(
         [[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]], dtype=torch.float32,
         device=device,

@@ -34,6 +34,7 @@ from vslam_tpu_torch.ops import camera as cam_ops
 from vslam_tpu_torch.tracking import fused
 from vslam_tpu_torch.tracking.tracker import FusedPoseTracker, KeyframeSnapshot
 from vslam_tpu_torch.utils import log
+from vslam_tpu_torch.utils.device import DEFAULT_DEVICE
 
 # Odometry edges spanning a tracking break carry ~no information: the pose
 # graph, not the dead-reckoned edge, reattaches the map after a closure.
@@ -55,7 +56,7 @@ def _check_supported(cfg: ParameterCollection) -> None:
 class SlamEngine:
     def __init__(self, cam: cam_ops.CameraParams,
                  config: ParameterCollection | None = None,
-                 landmark_capacity: int = 65536, device="cpu"):
+                 landmark_capacity: int = 65536, device=DEFAULT_DEVICE):
         self.cfg = config or ParameterCollection()
         self.cfg.validate()
         _check_supported(self.cfg)

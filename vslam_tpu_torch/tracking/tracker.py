@@ -17,21 +17,10 @@ from vslam_tpu_torch.io.config import ParameterCollection
 from vslam_tpu_torch.ops import camera as cam_ops
 from vslam_tpu_torch.solve import gn
 from vslam_tpu_torch.tracking import fused
+from vslam_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 LOCALIZING = "Localizing"
 TRACKING = "Tracking"
-
-
-def resolve_device(device) -> torch.device:
-    """The torch device to run on; asking for CUDA without a card raises
-    (the port never falls back to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device {device!r} requested but CUDA is not available")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 @dataclass
@@ -171,7 +160,7 @@ class FusedPoseTracker:
     CPU, every `parallelism.frames_per_chunk` frames on CUDA."""
 
     def __init__(self, cam: cam_ops.CameraParams, config: ParameterCollection,
-                 landmark_capacity: int = 65536, device="cpu"):
+                 landmark_capacity: int = 65536, device=DEFAULT_DEVICE):
         if config.command_line.tracker_mode != "RGB_STEREO":
             raise NotImplementedError(
                 "RGB-D tracking is not ported yet (ROADMAP Queue 1 item 13)")
