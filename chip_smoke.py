@@ -19,10 +19,12 @@ Phases (each raises on failure; the exit code is then non-zero):
                image; one case also against the plain version on the CPU;
                median kernel times warm and with L2 flushed, the plain
                version's, the roofline bound and the shared-load floor;
-  4. dense   — K2 at B=2 x 376x1241, K3 at 188x620 and K4 at 480x752 for
-               all 16 banks, each on a box-blurred rendered pair and a
+  4. dense   — K2 at B=2 x 376x1241, K3 at 188x620 and at RGB-D's 480x640
+               (f32 intensity, not uint8-valued) and K4 at 480x752 for all
+               16 banks, each on box-blurred rendered images and a
                uniform-random pair: bit-equal to the plain version over
-               the whole image; one case against the CPU; times as for K1;
+               the whole image; one case against the CPU; times as for K1
+               (K3 at both shapes);
   5. K2'     — the band-size / input-type probe: the same kernel at
                (64, 376, 1241) with 8-, 16-, 32- and 64-row bands, f32 and
                bf16 input, each bit-equal to its plain version; times;
@@ -50,11 +52,24 @@ Phases (each raises on failure; the exit code is then non-zero):
                maps, >= 1 closure, >= 1 optimization, > 0 merged
                landmarks; prints the JAX engine's counts on a CPU for the
                same workload beside the card's, ms/frame, peak device
-               memory, database rows and the closure stages' timings.
-The script then prints the kernel record (one JSON line: launches in
-the runs of phases 6-7, bit-equality, times, bound, share of the bound,
-shared-load floor, blocks per SM, loads a pixel), the card's name and
-power limit (nvidia-smi), and last {"ok": true, "device": {...}}.
+               memory, database rows and the closure stages' timings;
+  8. ba-closed — bench.py's BA-enabled run: phase 7 with windowed bundle
+               adjustment every 48 frames; the same checks plus >= 1 BA
+               run; prints each BA problem's (P, L) and the BA stage's
+               seconds and calls beside the JAX engine's counts;
+  9. tum-config — configurations/configuration_tum.yaml as shipped (RGB-D,
+               closed loop) at TUM fr1's 640x480 and intrinsics on a
+               64-frame circle rendered as (intensity, depth) with the
+               world scaled by 1/10; 64 K3 launches and no K1/K2/K4, 0
+               breaks, ATE <= 0.05 m, local maps within +-15% of the JAX
+               engine's on a CPU; the first 4 frames agree with the CPU
+               within 1e-3 m.
+The JAX counts printed beside phases 7-9 come from
+chip_smoke_jax_reference.py.  The script then prints the kernel record
+(one JSON line: launches summed over the runs of phases 6-9,
+bit-equality, times, bound, share of the bound, shared-load floor,
+blocks per SM, loads a pixel; K3's times at 480x640), the card's name
+and power limit (nvidia-smi), and last {"ok": true, "device": {...}}.
 Kernel times are CUDA-event medians of the kernel alone (the card is kept
 busy while the host enqueues it; vslam_tpu_torch/frontend/kernel_timing.py).
 """
@@ -76,6 +91,7 @@ RADIUS_M = 13.0
 ATE_LIMIT_M = 0.05
 LOCAL_MAPS = (36, 48)
 CPU_CHECK_FRAMES = 8
+TUM_CPU_FRAMES = 4
 CPU_CHECK_TOL_M = 1e-3
 KITTI_CAM = dict(fx=718.856, fy=718.856, cx=607.19, cy=185.22, baseline_m=0.5372,
                  rows=376, cols=1241)
@@ -110,23 +126,34 @@ def timed(kernel, plain, work, pixels, taps, card, label):
     return rec
 
 
-# The JAX engine (vslam_tpu) on a CPU for the closed-loop workload of
-# phase 7; it drains every frame, the port on the card every 32.
+# TUM RGB-D Freiburg 1 (the dataset's published fr1 calibration).
+TUM_CAM = dict(fx=517.3, fy=516.5, cx=318.6, cy=255.3, baseline_m=0.075, rows=480,
+               cols=640)
+TUM_FRAMES = 64
+TUM_RADIUS_M = 3.5  # of the scaled world (see tum_world)
+TUM_SCALE = 10.0  # the world is rendered at 10x and its depth divided back
+BA_EVERY_FRAMES = 48
+
+# The JAX engine (vslam_tpu) on a CPU for the closed-loop workloads of
+# phases 7-9 (chip_smoke_jax_reference.py); it drains every frame, the
+# port on the card every 32.
 JAX_CPU_CLOSED_LOOP = {"n_local_maps": 42, "n_closures": 3, "n_optimizations": 1,
                        "n_merged_landmarks": 82, "n_track_breaks": 0, "ate_m": 0.0351,
                        "db_rows": 7242, "closures": [(39, 0), (40, 0), (41, 0)]}
+JAX_CPU_BA_CLOSED = {"n_local_maps": 42, "n_closures": 3, "n_optimizations": 1,
+                     "n_merged_landmarks": 82, "n_track_breaks": 0, "n_ba_runs": 2,
+                     "ate_m": 0.0422, "db_rows": 7242, "closures": [(39, 0), (40, 0), (41, 0)]}
+JAX_CPU_TUM = {"n_local_maps": 21, "n_closures": 0, "n_optimizations": 0,
+               "n_merged_landmarks": 0, "n_track_breaks": 0, "ate_m": 0.0108, "db_rows": 5435}
 CLOSURE_STAGES = ("relocalization", "reloc_vote_icp", "pose_graph_optimization",
                   "pg_solve", "pg_propagate", "landmark_merging")
 
 
-def bench_setup():
-    """The bench's camera, configuration (open loop) and 128-frame circle."""
-    from vslam_tpu_torch.io import synthetic
-    from vslam_tpu_torch.io.config import ParameterCollection
-    from vslam_tpu_torch.ops import camera as cam_ops
-
-    cam = cam_ops.make_camera(**KITTI_CAM)
-    cfg = ParameterCollection()
+def bench_config(parameter_collection):
+    """The bench's configuration, open loop, as an instance of the given
+    ParameterCollection class (the port's, or the JAX package's for
+    chip_smoke_jax_reference.py)."""
+    cfg = parameter_collection()
     cfg.framepoint_generation.capacity = 1024
     cfg.framepoint_generation.bin_size_pixels = 16
     cfg.world_map.minimum_distance_traveled_for_local_map = 1.5
@@ -135,10 +162,52 @@ def bench_setup():
     cfg.parallelism.frames_per_chunk = 32
     cfg.graph_optimization.enable_full_bundle_adjustment = False
     cfg.command_line.option_disable_relocalization = True
+    return cfg
+
+
+def bench_world(cam):
+    """The bench's world (7000 points, seed 0) on the 128-frame circle and
+    its stereo frames."""
+    from vslam_tpu_torch.io import synthetic
+
     poses = synthetic.circle_trajectory(N_FRAMES, radius=RADIUS_M)
     world = synthetic.make_world(cam, n_points=7000, seed=0, poses=poses)
-    frames = [synthetic.render_frame(world, t)[:2] for t in range(N_FRAMES)]
-    return cam, cfg, world, frames
+    return world, [synthetic.render_frame(world, t)[:2] for t in range(N_FRAMES)]
+
+
+def bench_setup():
+    """The bench's camera, configuration (open loop) and 128-frame circle."""
+    from vslam_tpu_torch.io.config import ParameterCollection
+    from vslam_tpu_torch.ops import camera as cam_ops
+
+    cam = cam_ops.make_camera(**KITTI_CAM)
+    world, frames = bench_world(cam)
+    return cam, bench_config(ParameterCollection), world, frames
+
+
+def tum_world(cam):
+    """Phase 9's sequence: a 64-frame circle rendered as RGB-D frames
+    (intensity, depth in meters), with the world -- points and pose
+    translations -- scaled by 1/10 so that the depths fall in TUM's
+    indoor range (0.3-4.5 m for the world's 3-45 m offsets).  Scaling a
+    world leaves its images as they are, so each frame is rendered from
+    the unscaled world and its depth divided by 10.  The circle's radius
+    is 3.5 m: on circles of 1.3 m and 2.5 m the shipped configuration's
+    closure ICP (its default 1 m kernel, 25 inliers at ratio 0.4) accepts
+    a false closure across the circle from chance descriptor matches, in
+    the JAX engine as in the port (ATE 0.77 m at 1.3 m).  Returns
+    (ground-truth poses, frames)."""
+    from vslam_tpu_torch.io import synthetic
+
+    poses = synthetic.circle_trajectory(TUM_FRAMES, radius=TUM_RADIUS_M * TUM_SCALE)
+    world = synthetic.make_world(cam, n_points=7000, seed=0, poses=poses)
+    frames = []
+    for t in range(TUM_FRAMES):
+        img, depth = synthetic.render_depth_frame(world, t)
+        frames.append((img, depth / np.float32(TUM_SCALE)))
+    gt = poses.copy()
+    gt[:, :3, 3] /= TUM_SCALE
+    return gt, frames
 
 
 def counters():
@@ -203,7 +272,7 @@ def phase_k1(frames, card):
                 lambda: fb.fast_brief_frontend_pair_reference(imgs, t),
                 kt.k1_work(*imgs.shape), imgs.numel(), kt.distinct_taps(fb.PATTERN), card,
                 "[k1] median over 20 runs at 2x376x1241")
-    return {"max_abs_err": max_err, **rec}
+    return {"max_abs_err": max_err, "shape": "x".join(map(str, imgs.shape)), **rec}
 
 
 def _require_equal(label, got, ref):
@@ -236,11 +305,16 @@ def phase_dense(kitti_frame, card):
                           for im in kitti_frame])
     euroc = torch.stack([orb.box_blur(on_card(im), 2)
                          for im in synthetic.render_frame(eworld, 0)[:2]])
+    # RGB-D's intensity image stays f32 (no uint8 cast): phase 9's first frame.
+    tcam = cam_ops.make_camera(**TUM_CAM)
+    tworld = synthetic.make_world(tcam, n_points=7000, seed=0, poses=synthetic.circle_trajectory(
+        TUM_FRAMES, radius=TUM_RADIUS_M * TUM_SCALE))
+    tum = orb.box_blur(torch.from_numpy(synthetic.render_frame(tworld, 0)[0]).cuda(), 2)[None]
     cases = {
         "K2": [kitti, torch.from_numpy(rng.uniform(0, 256, (2, 376, 1241))
                                        .astype(np.float32)).cuda()],
-        "K3": [level1, torch.from_numpy(rng.uniform(0, 256, (2, 188, 620))
-                                        .astype(np.float32)).cuda()],
+        "K3": [level1, tum, torch.from_numpy(rng.uniform(0, 256, (2, 188, 620))
+                                             .astype(np.float32)).cuda()],
         "K4": [euroc, torch.from_numpy(rng.uniform(0, 256, (2, 480, 752))
                                        .astype(np.float32)).cuda()],
     }
@@ -269,7 +343,8 @@ def phase_dense(kitti_frame, card):
         torch.cuda.synchronize()
         out[name] = {"max_abs_err": err}
         print(f"[dense] {name} bit-equal to the plain version over the whole image "
-              f"in {n_cases} cases (rendered + uniform-random, {tuple(stacks[0].shape)})")
+              f"in {n_cases} cases (rendered + uniform-random, "
+              f"{', '.join(str(tuple(x.shape)) for x in stacks)})")
     # One case against the plain version on the CPU.
     got = db.dense_bit_planes_batch(kitti).cpu()
     if not torch.equal(got, db.dense_bit_planes_batch(kitti.cpu())):
@@ -278,14 +353,17 @@ def phase_dense(kitti_frame, card):
 
     runs = {  # stack, wrapper, table
         "K2": (kitti, db.dense_bit_planes_batch, 0),
-        "K3": (level1[:1], lambda x: db.dense_bit_planes(x[0]), 0),
+        "K3": (tum, lambda x: db.dense_bit_planes(x[0]), 0),
+        "K3 at 188x620": (level1[:1], lambda x: db.dense_bit_planes(x[0]), 0),
         "K4": (euroc[:1], lambda x: db.dense_bit_planes_pattern(x[0], 5), 6),
     }
+    out["K3 at 188x620"] = dict(out["K3"])
     for name, (x, wrapper, table) in runs.items():
+        out[name]["shape"] = "x".join(map(str, x.shape))
         out[name].update(timed(
             lambda: wrapper(x), lambda: db.dense_bit_planes_reference(x, table),
             kt.dense_work(*x.shape), x.numel(), kt.distinct_taps(db.TABLES[table]), card,
-            f"[dense] {name} median over 20 runs at {'x'.join(map(str, x.shape))}"
+            f"[dense] {name.split()[0]} median over 20 runs at {'x'.join(map(str, x.shape))}"
             f"{', bank 5' if name == 'K4' else ''}"))
     return out
 
@@ -325,10 +403,11 @@ def run_engine(cam, cfg, frames, device, n_frames):
     return engine, traj, time.perf_counter() - t0, times
 
 
-def drive_slice(label, cam, cfg, world, frames, expect, local_maps, cpu_frames, card):
-    """One open-loop run on the card with the launch counts zeroed just
-    before it and read just after; checks and prints it, then compares its
-    first frames with the same engine on the CPU.  Returns the counts."""
+def drive_slice(label, cam, cfg, gt_poses, frames, expect, local_maps, cpu_frames, card):
+    """One run on the card through engine.process, with the launch counts
+    zeroed just before it and read just after; checks and prints it, then
+    compares its first frames with the same engine on the CPU.  Returns
+    the counts."""
     from vslam_tpu_torch.eval import trajectory as traj_eval
 
     n = len(frames)
@@ -339,10 +418,11 @@ def drive_slice(label, cam, cfg, world, frames, expect, local_maps, cpu_frames, 
     rep = engine.report()
     if traj.shape != (n, 4, 4) or not np.all(np.isfinite(traj)):
         raise AssertionError(f"{label}: trajectory shape {traj.shape} or non-finite poses")
-    rmse, _, _ = traj_eval.ate_rmse(traj, world.poses)
-    loop = np.linalg.norm(np.diff(world.poses[:, :3, 3], axis=0), axis=1).sum()
+    rmse, _, _ = traj_eval.ate_rmse(traj, gt_poses)
+    loop = np.linalg.norm(np.diff(gt_poses[:, :3, 3], axis=0), axis=1).sum()
     print(f"[{label}] {n} frames: ATE {rmse:.4f} m over a {loop:.1f} m path, "
-          f"{rep['n_local_maps']} local maps, {rep['n_track_breaks']} breaks, "
+          f"{rep['n_local_maps']} local maps, {rep['n_closures']} closures, "
+          f"{rep['n_track_breaks']} breaks, "
           f"{rep['n_landmarks']} landmarks, {rep['n_recovered_landmarks']} recovered, "
           f"launches {counts}")
     ms_frame = 1e3 * wall / n
@@ -382,8 +462,8 @@ def config_slice(label, name, cam_args, n_frames, radius, per_frame, local_maps,
                                  poses=synthetic.circle_trajectory(n_frames, radius=radius))
     frames = [synthetic.render_frame(world, t)[:2] for t in range(n_frames)]
     expect = {k: per_frame.get(k, 0) * n_frames for k in counters()}
-    return drive_slice(label, cam, cfg, world, frames, expect, local_maps, cpu_frames,
-                       card)
+    return drive_slice(label, cam, cfg, world.poses, frames, expect, local_maps,
+                       cpu_frames, card)
 
 
 def closed_loop_config(cfg_open):
@@ -401,65 +481,115 @@ def closed_loop_config(cfg_open):
     return cfg
 
 
-def phase_closed_loop(cam, cfg_open, world, frames, card):
-    """The closed-loop engine on the card; returns its launch counts."""
+def ba_closed_config(cfg_open):
+    """bench.py's BA-enabled run: the closed loop with windowed bundle
+    adjustment every BA_EVERY_FRAMES frames (bench.py:98-100)."""
+    cfg = closed_loop_config(cfg_open)
+    cfg.graph_optimization.enable_full_bundle_adjustment = True
+    cfg.graph_optimization.number_of_frames_per_bundle_adjustment = BA_EVERY_FRAMES
+    return cfg
+
+
+def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card):
+    """A closed-loop engine run on the card through tracker.prestage +
+    process_prestaged, the launch counts zeroed just before it and read
+    just after; checked against phase 7's limits.  With BA on it also
+    requires >= 1 BA run and prints each BA problem's size and the BA
+    stage.  Returns the launch counts."""
     from vslam_tpu_torch.eval import trajectory as traj_eval
+    from vslam_tpu_torch.system import ba_runner
     from vslam_tpu_torch.system.engine import SlamEngine
     from vslam_tpu_torch.utils import log
 
     n = len(frames)
-    cfg = closed_loop_config(cfg_open)
+    ba_on = cfg.graph_optimization.enable_full_bundle_adjustment
     engine = SlamEngine(cam, cfg, landmark_capacity=65536, device="cuda")
     handles = engine.tracker.prestage(frames)
+    sizes = []  # (P, L) of each BA problem
+    build = ba_runner.build_window_problem
+
+    def build_and_record(*args, **kwargs):
+        built = build(*args, **kwargs)
+        if built is not None:
+            sizes.append((built[0].T_wc.shape[0], built[0].xyz.shape[0]))
+        return built
+
+    ba_runner.build_window_problem = build_and_record
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     log.chronometers.clear()
     reset_counts()
     times = []
     t0 = time.perf_counter()
-    for h in handles:
-        t1 = time.perf_counter()
-        engine.process_prestaged(h)
-        times.append((time.perf_counter() - t1) / len(h))
-    traj = engine.trajectory  # flushes the tracker and the closure pipeline
-    torch.cuda.synchronize()
+    try:
+        for h in handles:
+            t1 = time.perf_counter()
+            engine.process_prestaged(h)
+            times.append((time.perf_counter() - t1) / len(h))
+        traj = engine.trajectory  # flushes the tracker and the closure pipeline
+        torch.cuda.synchronize()
+    finally:
+        ba_runner.build_window_problem = build
     wall = time.perf_counter() - t0
     counts = read_counts()
     rep = engine.report()
     if traj.shape != (n, 4, 4) or not np.all(np.isfinite(traj)):
-        raise AssertionError(f"closed-loop: trajectory shape {traj.shape} or non-finite poses")
+        raise AssertionError(f"{label}: trajectory shape {traj.shape} or non-finite poses")
     rmse, _, _ = traj_eval.ate_rmse(traj, world.poses)
-    got = {k: rep[k] for k in JAX_CPU_CLOSED_LOOP if k in rep}
+    got = {k: rep[k] for k in jax_cpu if k in rep}
     got.update(ate_m=round(float(rmse), 4), db_rows=engine.relocalizer.n_rows,
                closures=[(c.query_id, c.reference_id) for c in engine.world_map.closures])
-    print(f"[closed] {n} frames, card: {got}")
-    print(f"[closed] {n} frames, the JAX engine on a CPU: {JAX_CPU_CLOSED_LOOP}")
-    print(f"[closed] launches {counts}, {rep['n_landmarks']} landmarks, "
+    print(f"[{label}] {n} frames, card: {got}")
+    print(f"[{label}] {n} frames, the JAX engine on a CPU: {jax_cpu}")
+    print(f"[{label}] launches {counts}, {rep['n_landmarks']} landmarks, "
           f"{rep['n_recovered_landmarks']} recovered")
     ms_frame = 1e3 * wall / n
-    print(f"[closed] {ms_frame:.2f} ms/frame over the run incl. the final flush "
+    print(f"[{label}] {ms_frame:.2f} ms/frame over the run incl. the final flush "
           f"({1e3 / ms_frame:.2f} fps), median {1e3 * statistics.median(times[1:]):.2f} "
           f"ms/frame over the {len(handles) - 1} handles after the first, peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card})")
     table = rep["stage_table"]
-    for stage in CLOSURE_STAGES:
+    for stage in CLOSURE_STAGES + (("bundle_adjustment",) if ba_on else ()):
         row = table.get(stage, {"seconds": 0.0, "calls": 0})
-        print(f"[closed] stage {stage:24s} {row['seconds']:8.4f} s in {row['calls']} calls")
+        print(f"[{label}] stage {stage:24s} {row['seconds']:8.4f} s in {row['calls']} calls")
+    if ba_on:
+        print(f"[{label}] {rep['n_ba_runs']} BA runs; (P cameras, L landmarks) of each "
+              f"problem: {sizes}")
     if counts != {"K1": n, "K2": 0, "K3": 0, "K4": 0}:
-        raise AssertionError(f"closed-loop: launches {counts}, expected {n} K1 only")
+        raise AssertionError(f"{label}: launches {counts}, expected {n} K1 only")
     if rep["n_track_breaks"] != 0:
-        raise AssertionError(f"closed-loop: {rep['n_track_breaks']} tracking breaks")
+        raise AssertionError(f"{label}: {rep['n_track_breaks']} tracking breaks")
     if not rmse <= ATE_LIMIT_M:
-        raise AssertionError(f"closed-loop: ATE {rmse:.4f} m > {ATE_LIMIT_M} m")
+        raise AssertionError(f"{label}: ATE {rmse:.4f} m > {ATE_LIMIT_M} m")
     if not LOCAL_MAPS[0] <= rep["n_local_maps"] <= LOCAL_MAPS[1]:
-        raise AssertionError(f"closed-loop: {rep['n_local_maps']} local maps outside "
+        raise AssertionError(f"{label}: {rep['n_local_maps']} local maps outside "
                              f"{LOCAL_MAPS}")
     if not (rep["n_closures"] >= 1 and rep["n_optimizations"] >= 1
             and rep["n_merged_landmarks"] > 0):
-        raise AssertionError(f"closed-loop: {rep['n_closures']} closures, "
+        raise AssertionError(f"{label}: {rep['n_closures']} closures, "
                              f"{rep['n_optimizations']} optimizations, "
                              f"{rep['n_merged_landmarks']} merged landmarks")
+    if ba_on and not rep["n_ba_runs"] >= 1:
+        raise AssertionError(f"{label}: bundle adjustment never ran")
     return counts
+
+
+def phase_tum(card):
+    """configuration_tum.yaml as shipped (RGB-D, closed loop) on phase 9's
+    sequence; local maps within +-15% of the JAX engine's on a CPU."""
+    from vslam_tpu_torch.io.config import load_config
+    from vslam_tpu_torch.ops import camera as cam_ops
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(here, "configurations", "configuration_tum.yaml"))
+    cam = cam_ops.make_camera(**TUM_CAM)
+    gt, frames = tum_world(cam)
+    ref = JAX_CPU_TUM["n_local_maps"]
+    local_maps = (int(np.ceil(0.85 * ref)), int(np.floor(1.15 * ref)))
+    print(f"[tum-config] the JAX engine on a CPU: {JAX_CPU_TUM}")
+    return drive_slice("tum-config", cam, cfg, gt, frames,
+                       {"K1": 0, "K2": 0, "K3": TUM_FRAMES, "K4": 0}, local_maps,
+                       TUM_CPU_FRAMES, card)
 
 
 def phase_build(card) -> dict:
@@ -519,7 +649,7 @@ def main():
     stats.update(phase_dense(frames[0], card))
     phase_k2_probe(card)
 
-    launches = drive_slice("k1-slice", cam, cfg, world, frames,
+    launches = drive_slice("k1-slice", cam, cfg, world.poses, frames,
                            {"K1": N_FRAMES, "K2": 0, "K3": 0, "K4": 0}, LOCAL_MAPS,
                            CPU_CHECK_FRAMES, card)
     for counts in (
@@ -529,8 +659,14 @@ def main():
                      {"K2": 1, "K4": 2 * db.N_ROT_BANKS}, (13, 17), 4, card),
     ):
         launches = {k: launches[k] + counts[k] for k in launches}
-    counts = phase_closed_loop(cam, cfg, world, frames, card)
-    launches = {k: launches[k] + counts[k] for k in launches}
+    for counts in (
+        phase_closed_loop("closed", cam, closed_loop_config(cfg), world, frames,
+                          JAX_CPU_CLOSED_LOOP, card),
+        phase_closed_loop("ba-closed", cam, ba_closed_config(cfg), world, frames,
+                          JAX_CPU_BA_CLOSED, card),
+        phase_tum(card),
+    ):
+        launches = {k: launches[k] + counts[k] for k in launches}
 
     sources = {"K1": ("fast_brief_frontend_pair", "fast_brief_frontend.cu",
                       "vslam_tpu/frontend/pallas_frontend.py:196")}

@@ -11,7 +11,8 @@ Tolerance: none — each kernel is compared with its plain-torch version
 for equality over the whole image; the open-loop engine runs on the card
 are held to the port's CPU run within 1e-3 m on their first frames; the
 closed loop to the same local-map count, >= 1 closure and ATE <= 0.10 m
-on both devices.
+on both devices; bundle adjustment and the RGB-D front-end to the CPU
+as their docstrings state.
 """
 
 import os
@@ -169,3 +170,87 @@ def test_closed_loop_runs_on_the_card():
         assert traj_eval.ate_rmse(traj, world.poses)[0] <= 0.10, device
         reps.append(rep)
     assert reps[0]["n_local_maps"] == reps[1]["n_local_maps"]
+
+
+def _ba_problem(device, seed=0, P=6, L=256, O=4):
+    """A random BA window (cameras 0.3 m apart, landmarks 5-15 m ahead,
+    0.5 px noise, a few 30 px outliers, masked slots, odometry factors)."""
+    from vslam_tpu_torch.backend import ba
+    from vslam_tpu_torch.ops import lie
+
+    rng = np.random.default_rng(seed)
+    T = lie.exp_se3(torch.tensor(np.c_[0.3 * np.arange(P), 0.02 * rng.normal(size=(P, 2)),
+                                       0.01 * rng.normal(size=(P, 3))], dtype=torch.float32))
+    X = torch.tensor(np.c_[rng.uniform(-4, 4, L), rng.uniform(-2, 2, L),
+                           rng.uniform(5, 15, L)], dtype=torch.float32)
+    obs_cam = torch.tensor(np.stack([rng.choice(P, O, replace=False) for _ in range(L)]))
+    cam = cam_ops.make_camera(fx=300.0, fy=300.0, cx=160.0, cy=80.0, baseline_m=0.3,
+                              rows=160, cols=320, device="cpu")
+    uv4, _, _ = ba.stereo_residual_jacobians(cam, T[obs_cam], X[:, None], torch.zeros(4))
+    uv4 = uv4 + torch.tensor(rng.normal(0, 0.5, uv4.shape), dtype=torch.float32)
+    uv4[::7, 0] += 30.0
+    mask = torch.tensor(rng.uniform(size=(L, O)) > 0.2)
+    mask[:, :2] = True
+    T0 = T.clone()
+    T0[1:] = lie.exp_se3(torch.tensor(rng.normal(0, [0.05] * 3 + [0.01] * 3, (P - 1, 6)),
+                                      dtype=torch.float32)) @ T[1:]
+    odo_T = torch.eye(4).repeat(P, 1, 1)
+    odo_T[:-1] = torch.linalg.inv(T0[:-1]) @ T0[1:]
+    prob = ba.BAProblem(
+        T_wc=T0, xyz=X + torch.tensor(rng.normal(0, 0.1, X.shape), dtype=torch.float32),
+        obs_cam=obs_cam, obs_uv4=uv4,
+        obs_weight=torch.tensor(rng.uniform(1, 3, (L, O)), dtype=torch.float32),
+        obs_mask=mask, lm_valid=torch.arange(L) % 11 != 0, cam_fixed=torch.arange(P) == 0,
+        odo_T=odo_T, odo_weight=torch.ones(P), odo_info=torch.tensor([10.0] * 3 + [1e4] * 3))
+    return cam_ops.to_device(cam, device), ba.BAProblem(
+        *(None if f is None else f.to(device) for f in prob))
+
+
+@pytest.mark.cuda
+def test_bundle_adjustment_on_the_card_matches_the_cpu():
+    """Ten BA rounds on one problem: poses within 1e-5, points within
+    1e-4 m and every round's chi2 within rtol 1e-4 of the CPU's (f32 sums
+    in another order; the one-hot assembly has no atomics, so the card
+    gives the same answer on every run: checked bit for bit)."""
+    _need_card()
+    from vslam_tpu_torch.backend import ba
+
+    out = {d: ba.bundle_adjust(*_ba_problem(d)) for d in ("cuda", "cpu")}
+    again = ba.bundle_adjust(*_ba_problem("cuda"))
+    Tg, Xg, cg = (a.cpu() for a in out["cuda"])
+    Tc, Xc, cc = out["cpu"]
+    assert (Tg - Tc).abs().max() <= 1e-5
+    assert (Xg - Xc).abs().max() <= 1e-4
+    torch.testing.assert_close(cg, cc, rtol=1e-4, atol=0.0)
+    assert cc[-1] < 0.1 * cc[0]
+    for a, b in zip(again, out["cuda"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_depth_frame_on_the_card_matches_the_cpu():
+    """process_depth_frame at 192 x 320 (K3 once): keypoints, descriptors,
+    validity, uv4, the counts and the planes equal on both devices, p_cam
+    within rtol 1e-6."""
+    _need_card()
+    from vslam_tpu_torch.mapping import frame
+
+    cam = cam_ops.make_camera(fx=300.0, fy=300.0, cx=160.0, cy=96.0, baseline_m=0.075,
+                              rows=192, cols=320, device="cpu")
+    world = synthetic.make_world(cam, n_frames=8, n_points=2500, seed=7, step=0.3)
+    img, depth = synthetic.render_depth_frame(world, 4)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        before = db.K3.launches
+        outs[device] = frame.process_depth_frame(
+            cam_ops.to_device(cam, device), torch.from_numpy(img).to(device),
+            torch.from_numpy(depth).to(device), torch.tensor(12.0, device=device), 0.3, 30.0,
+            capacity=256, bin_size=10, want_planes=True)
+        assert db.K3.launches - before == (1 if device == "cuda" else 0)
+    (fg, *rest_g), (fc, *rest_c) = outs["cuda"], outs["cpu"]
+    for name in ("uv4", "desc", "valid", "reliable", "track_len", "landmark_slot"):
+        assert torch.equal(getattr(fg, name).cpu(), getattr(fc, name)), name
+    torch.testing.assert_close(fg.p_cam.cpu(), fc.p_cam, rtol=1e-6, atol=0.0)
+    for a, b in zip(rest_g, rest_c):
+        assert torch.equal(a.cpu(), b)
+    assert int(rest_c[1]) > 100

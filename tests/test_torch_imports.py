@@ -1,5 +1,5 @@
 """The port's boundaries: no jax import, no silent fallback, and explicit
-NotImplementedError for what the slice does not cover."""
+NotImplementedError for what the port does not cover."""
 
 import os
 import subprocess
@@ -42,6 +42,31 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    timeout=120)
 
 
+def test_every_port_module_imports_with_jax_blocked():
+    """Every module of vslam_tpu_torch imports in a process where importing
+    jax or vslam_tpu raises."""
+    code = (
+        "import importlib, importlib.abc, pkgutil, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'vslam_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import vslam_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(vslam_tpu_torch.__path__,\n"
+        "                                               'vslam_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "assert {'vslam_tpu_torch.backend.ba', 'vslam_tpu_torch.system.ba_runner',\n"
+        "        'vslam_tpu_torch.frontend.depth'} <= set(names), names\n"
+        "print(len(names))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env,
+                         timeout=120, capture_output=True, text=True)
+    assert int(out.stdout.split()[-1]) >= 30
+
+
 def test_cuda_device_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -55,8 +80,13 @@ def _default_device_calls():
     from vslam_tpu_torch.mapping import frame, landmarks
 
     eye = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))
+    ba, rgbd = _open_loop(), _open_loop()
+    ba.graph_optimization.enable_full_bundle_adjustment = True
+    rgbd.command_line.tracker_mode = "RGB_DEPTH"
     return {
         "SlamEngine": lambda: SlamEngine(CAM, _open_loop(), landmark_capacity=1024).device,
+        "SlamEngine with BA": lambda: SlamEngine(CAM, ba, landmark_capacity=1024).device,
+        "SlamEngine RGB-D": lambda: SlamEngine(CAM, rgbd, landmark_capacity=1024).device,
         "FusedPoseTracker": lambda: FusedPoseTracker(CAM, _open_loop(), 1024).device,
         "Relocalizer": lambda: Relocalizer(tconfig.ParameterCollection().relocalization,
                                            capacity=256).device,
@@ -69,7 +99,8 @@ def _default_device_calls():
     }
 
 
-@pytest.mark.parametrize("name", ["SlamEngine", "FusedPoseTracker", "Relocalizer",
+@pytest.mark.parametrize("name", ["SlamEngine", "SlamEngine with BA", "SlamEngine RGB-D",
+                                  "FusedPoseTracker", "Relocalizer",
                                   "make_camera", "empty_table", "empty_frame",
                                   "optimize_pose_graph_hierarchical"])
 def test_entry_points_run_on_the_card_by_default(name):
@@ -85,13 +116,12 @@ def test_entry_points_run_on_the_card_by_default(name):
 
 
 # The ROADMAP item each refusal names.
-_ITEM = {"aligner_type": "item 16", "enable_full_bundle_adjustment": "item 12",
-         "use_fused_tracker": "not to port", "enable_image_dump": "item 18"}
+_ITEM = {"aligner_type": "item 16", "use_fused_tracker": "not to port",
+         "enable_image_dump": "item 18"}
 
 
 @pytest.mark.parametrize("group,key,value", [
     ("relocalization", "aligner_type", "FAST-ICP"),
-    ("graph_optimization", "enable_full_bundle_adjustment", True),
     ("tracking", "use_fused_tracker", False),
     ("visualization", "enable_image_dump", True),
 ])
@@ -109,8 +139,27 @@ def test_closed_loop_engine_constructs():
     assert eng.relocalizer.QUERY_CAP == eng.tracker.state.kf_desc.shape[1]
 
 
+@pytest.mark.parametrize("name", ["tum", "icl"])
+def test_shipped_rgbd_configurations_construct(name):
+    """configuration_tum.yaml and configuration_icl.yaml (BRIEF256) build
+    an RGB-D engine; configuration_xtion.yaml (ORB256) waits for item 14."""
+    cfg = tconfig.load_config(os.path.join(REPO, "configurations", f"configuration_{name}.yaml"))
+    eng = SlamEngine(CAM, cfg, landmark_capacity=1024, device="cpu")
+    assert eng.tracker.mode == "depth" and eng.tracker.params.min_depth == 0.3
+
+
+def test_ba_and_rgbd_engines_construct():
+    ba = tconfig.ParameterCollection()
+    ba.graph_optimization.enable_full_bundle_adjustment = True
+    assert SlamEngine(CAM, ba, landmark_capacity=1024, device="cpu").n_ba_runs == 0
+    both = tconfig.ParameterCollection()
+    both.graph_optimization.enable_full_bundle_adjustment = True
+    both.command_line.tracker_mode = "RGB_DEPTH"
+    with pytest.raises(ValueError, match="bundle adjustment"):
+        SlamEngine(CAM, both, landmark_capacity=1024, device="cpu")
+
+
 @pytest.mark.parametrize("group,key,value", [
-    ("command_line", "tracker_mode", "RGB_DEPTH"),
     ("tracking", "batch_frontend", True),
 ])
 def test_unported_tracker_modes_raise(group, key, value):

@@ -128,3 +128,27 @@ def pose_graph_from_numpy(d: dict, device="cpu"):
         k: (torch.from_numpy(np.asarray(d[k]).astype(np.int64)).to(device)
             if k in ("edge_i", "edge_j") else _tensor(d[k], device))
         for k in PoseGraph._fields})
+
+
+_BA_INDEX_FIELDS = ("obs_cam",)
+
+
+def ba_problem_from_numpy(d: dict, device="cpu"):
+    """A JAX BAProblem's fields (numpy; the odometry fields may be None)
+    -> the port's BAProblem; camera indices become int64."""
+    from vslam_tpu_torch.backend.ba import BAProblem
+
+    return BAProblem(**{
+        k: (None if d.get(k) is None
+            else torch.from_numpy(np.asarray(d[k]).astype(np.int64)).to(device)
+            if k in _BA_INDEX_FIELDS else _tensor(d[k], device))
+        for k in BAProblem._fields})
+
+
+def ba_problem_to_numpy(prob) -> dict:
+    """The port's BAProblem -> numpy fields in the JAX layout (int32
+    camera indices)."""
+    return {k: (None if v is None
+                else v.detach().cpu().numpy().astype(np.int32) if k in _BA_INDEX_FIELDS
+                else v.detach().cpu().numpy())
+            for k, v in prob._asdict().items()}

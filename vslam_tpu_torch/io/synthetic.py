@@ -1,5 +1,5 @@
-"""Synthetic stereo sequences with exact ground truth (port of the slice's
-part of vslam_tpu/io/synthetic.py; host-side numpy).
+"""Synthetic stereo and RGB-D sequences with exact ground truth (port of the
+parts of vslam_tpu/io/synthetic.py; host-side numpy).
 
 A procedurally textured 3D point world rendered along a known trajectory
 gives stereo pairs + ground-truth poses.  Each world point carries a
@@ -136,3 +136,32 @@ def render_frame(world: SyntheticWorld, frame_idx: int):
         return img
 
     return render(False), render(True), p_cam.astype(np.float32)
+
+
+def render_depth_frame(world: SyntheticWorld, frame_idx: int):
+    """Render (intensity, depth_m) for RGB-D mode: the left image of
+    render_frame, and a depth map exact on the rendered patches (nearest
+    point wins) and 0 (invalid) elsewhere."""
+    cam = world.cam
+    img_l, _, p_cam = render_frame(world, frame_idx)
+    fx, fy = float(cam.fx), float(cam.fy)
+    cx, cy = float(cam.cx), float(cam.cy)
+    depth = np.zeros_like(img_l)
+    z = p_cam[:, 2]
+    vis = z > 0.5
+    u = fx * p_cam[:, 0] / np.where(vis, z, 1.0) + cx
+    v = fy * p_cam[:, 1] / np.where(vis, z, 1.0) + cy
+    r = world.patch // 2
+    H, W = depth.shape
+    zbuf = np.full_like(depth, np.inf)
+    for i in np.argsort(-z):
+        if not vis[i]:
+            continue
+        ui, vi = int(round(u[i])), int(round(v[i]))
+        if ui < r or ui >= W - r or vi < r or vi >= H - r:
+            continue
+        if z[i] >= zbuf[vi, ui]:
+            continue
+        depth[vi - r:vi + r + 1, ui - r:ui + r + 1] = z[i]
+        zbuf[vi - r:vi + r + 1, ui - r:ui + r + 1] = z[i]
+    return img_l, depth

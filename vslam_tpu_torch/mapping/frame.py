@@ -1,5 +1,5 @@
-"""Per-frame state and the stereo front-end / tracking programs (port of
-vslam_tpu/mapping/frame.py).
+"""Per-frame state and the stereo and RGB-D front-end / tracking programs
+(port of vslam_tpu/mapping/frame.py).
 
 FrameState is a fixed-capacity SoA record with a valid mask; the temporal
 track is carried by the integer columns `track_len` and `landmark_slot`.
@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from vslam_tpu_torch.frontend import brief, detect, fast_brief, matching
+from vslam_tpu_torch.frontend import brief, depth, detect, fast_brief, matching
 from vslam_tpu_torch.ops import camera as cam_ops
 from vslam_tpu_torch.ops import hamming, lie
 from vslam_tpu_torch.solve import aligners, gn
@@ -27,9 +27,9 @@ _FAST_DETECTORS = ("FAST", "FAST9", "AGAST", "FAST12")
 
 
 class FrameState(NamedTuple):
-    """Stereo framepoints of one frame (capacity K, masked, compacted)."""
+    """Framepoints of one frame (capacity K, masked, compacted)."""
 
-    uv4: torch.Tensor  # (K, 4) [uL, vL, uR, vR]
+    uv4: torch.Tensor  # (K, 4) stereo [uL, vL, uR, vR]; RGB-D [u, v, z, 0]
     desc: torch.Tensor  # (K, 8) int32 left descriptors
     p_cam: torch.Tensor  # (K, 3) points in this camera's frame
     valid: torch.Tensor  # (K,) bool
@@ -238,6 +238,74 @@ def _stereo_frontend_tail(cam, kl, kr, dl, dr, planes, max_hamming_stereo,
     return frame, n_kp, n_fp
 
 
+def process_depth_frame(
+    cam: cam_ops.CameraParams,
+    img: torch.Tensor,
+    depth_m: torch.Tensor,  # registered to the intensity camera
+    threshold: torch.Tensor,
+    min_depth,
+    max_depth,
+    capacity: int = 1024,
+    bin_size: int = 16,
+    border: int = 20,
+    descriptor: str = "BRIEF256",
+    detector: str = "FAST",
+    want_planes: bool = False,
+    octaves: int = 1,
+):
+    """RGB-D front-end: detect -> describe -> depth gather -> back-project
+    (reference DepthFramePointGenerator::compute).  uv4 carries
+    [u, v, depth_m, 0].  BRIEF256 describes from the dense planes of the
+    intensity image (one K3 launch; one per level with octaves); with
+    want_planes the (8, H, W) level-0 planes are returned too, for
+    landmark recovery.
+    Returns (FrameState, n_keypoints, n_framepoints[, planes])."""
+    if descriptor == "ORB256":
+        raise NotImplementedError(
+            "descriptor 'ORB256' (rotation-aware gather BRIEF) is not ported yet "
+            "(ROADMAP Queue 1 item 14)")
+    kp = detect.detect_keypoints(img, threshold, bin_size, capacity, border, detector,
+                                 octaves=octaves)
+    planes = None
+    if descriptor == "BRIEF256R":
+        desc = brief.describe_dense_rotated(img, kp.uv)
+        if want_planes:
+            planes = brief.dense_planes(img)
+    else:
+        parts, lvl, start = [], img, 0
+        for o, cap_o in enumerate(detect.octave_capacities(capacity, octaves)):
+            if o > 0:
+                lvl = detect.downsample2(lvl)
+            pl = brief.dense_planes(lvl)
+            if o == 0:
+                planes = pl
+            s = float(1 << o)
+            sl = slice(start, start + cap_o)
+            parts.append(brief.gather_descriptors(pl, lvl.shape,
+                                                  (kp.uv[sl] - (s - 1.0) / 2.0) / s))
+            start += cap_o
+        desc = torch.cat(parts)
+    z = depth.gather_depth(depth_m, kp.uv)
+    valid = kp.valid & (z >= min_depth) & (z <= max_depth)
+    p_cam = cam_ops.back_project(cam, kp.uv, z)
+    uv4 = torch.cat([kp.uv, z[:, None], torch.zeros_like(z[:, None])], dim=1)
+    uv4, desc, p_cam, valid = _compact(valid, uv4, desc, p_cam, valid)
+    frame = FrameState(
+        uv4=uv4,
+        desc=desc,
+        p_cam=p_cam,
+        valid=valid,
+        track_len=valid.to(torch.int32),
+        landmark_slot=torch.full((capacity,), -1, dtype=torch.int32, device=uv4.device),
+        reliable=valid,  # depth-sensor points carry a measured range
+    )
+    n_kp = kp.valid.sum(dtype=torch.int32)
+    n_fp = valid.sum(dtype=torch.int32)
+    if want_planes:
+        return frame, n_kp, n_fp, planes
+    return frame, n_kp, n_fp
+
+
 class TrackResult(NamedTuple):
     T_cur_prev: torch.Tensor  # (4, 4) estimated camera motion
     prev_to_cur: torch.Tensor  # (Kprev,) int32 index into cur, -1 unmatched
@@ -274,6 +342,41 @@ def track_and_align(
         p_prev=prev.p_cam, meas=cur.uv4[m.cur_idx.to(torch.int64)], weight=weights,
     )
     res = aligners.stereo_uv_align_fast(cam, data, matched, T_guess, gn_config)
+    return TrackResult(
+        T_cur_prev=res.x,
+        prev_to_cur=torch.where(matched, m.cur_idx, -1).to(torch.int32),
+        n_matches=matched.sum(dtype=torch.int32),
+        n_inliers=res.num_inliers,
+        mean_chi2=res.chi2,
+        converged=res.converged,
+    )
+
+
+def track_and_align_uvd(
+    cam: cam_ops.CameraParams,
+    prev: FrameState,
+    cur: FrameState,
+    T_guess: torch.Tensor,
+    radius_px,
+    max_hamming,
+    point_weights: torch.Tensor,
+    gn_config: gn.GNConfig = gn.GNConfig(),
+) -> TrackResult:
+    """RGB-D track_and_align: [u, v, depth] residuals through the UVD
+    aligner (reference UVDAligner)."""
+    p_pred = lie.transform_point_cloud(T_guess, prev.p_cam)
+    proj_uv, z_pred = cam_ops.project(cam, p_pred)
+    predictable = prev.valid & (z_pred > 0.05)
+    m = matching.match_projective(
+        proj_uv, prev.desc, predictable,
+        cur.uv4[:, :2], cur.desc, cur.valid,
+        radius_px, max_hamming,
+    )
+    matched = m.valid & predictable
+    meas = cur.uv4[m.cur_idx.to(torch.int64)][:, :3]
+    data = aligners.UVDData(p_prev=prev.p_cam, meas=meas, weight=point_weights,
+                            depth_reliable=meas[:, 2] > 0.01)
+    res = aligners.uvd_align(cam, data, matched, T_guess, gn_config)
     return TrackResult(
         T_cur_prev=res.x,
         prev_to_cur=torch.where(matched, m.cur_idx, -1).to(torch.int32),
@@ -328,6 +431,54 @@ def recover_lost_landmarks(
     cur = cur._replace(
         uv4=_add_delta(cur.uv4, tgt, use, torch.cat([uv_l, uv_r], dim=1)),
         desc=_put_rows(cur.desc, tgt, use, dl),
+        p_cam=_add_delta(cur.p_cam, tgt, use, p_cam_rec),
+        valid=_put_rows(cur.valid, tgt, use, True),
+        track_len=_add_delta(cur.track_len, tgt, use, prev.track_len + 1),
+        landmark_slot=_add_delta(cur.landmark_slot, tgt, use, prev.landmark_slot),
+        reliable=_put_rows(cur.reliable, tgt, use, True),
+    )
+    return cur, use.sum(dtype=torch.int32)
+
+
+def recover_lost_landmarks_depth(
+    cam: cam_ops.CameraParams,
+    prev: FrameState,
+    cur: FrameState,
+    motion: torch.Tensor,  # (4, 4) T_cur_prev from the pose solve
+    prev_to_cur: torch.Tensor,  # (K,) match indices, -1 = lost
+    planes: torch.Tensor,  # (8, H, W) dense BRIEF planes of the intensity image
+    depth_m: torch.Tensor,  # registered depth (meters)
+    desc_gate,
+    min_depth,
+    max_depth,
+    border: int = 20,
+    enabled=True,
+    max_depth_error_ratio: float = 0.2,
+):
+    """RGB-D landmark recovery (reference DepthFramePointGenerator::
+    recoverPoints): lost landmark-backed points are re-acquired at their
+    solved-pose projections, the descriptor looked up in the dense planes
+    and the depth in the registered map, gated on descriptor distance, the
+    depth range and predicted-vs-measured depth.  Returns (cur', n)."""
+    lost = prev.valid & (prev.landmark_slot >= 0) & (prev_to_cur < 0)
+    p_pred = lie.transform_point_cloud(motion, prev.p_cam)
+    uv, z_pred = cam_ops.project(cam, p_pred)
+    vis = cam_ops.in_field_of_view(cam, uv, z_pred, border)
+    d = brief.gather_descriptors(planes, depth_m.shape, uv)
+    z_meas = depth.gather_depth(depth_m, uv)
+    depth_ok = ((z_meas >= min_depth) & (z_meas <= max_depth)
+                & (torch.abs(z_meas - z_pred)
+                   <= max_depth_error_ratio * torch.clamp(z_meas, min=0.5)))
+    gate = torch.as_tensor(desc_gate).to(torch.int32)
+    ok = lost & vis & (hamming.hamming_pairwise(d, prev.desc) <= gate) & depth_ok & enabled
+    p_cam_rec = cam_ops.back_project(cam, uv, z_meas)
+    dest = cur.valid.sum(dtype=torch.int64) + torch.cumsum(ok.to(torch.int64), 0) - 1
+    use = ok & (dest < cur.capacity)
+    tgt = torch.where(use, dest, 0)
+    uv4_rec = torch.cat([uv, z_meas[:, None], torch.zeros_like(z_meas[:, None])], dim=1)
+    cur = cur._replace(
+        uv4=_add_delta(cur.uv4, tgt, use, uv4_rec),
+        desc=_put_rows(cur.desc, tgt, use, d),
         p_cam=_add_delta(cur.p_cam, tgt, use, p_cam_rec),
         valid=_put_rows(cur.valid, tgt, use, True),
         track_len=_add_delta(cur.track_len, tgt, use, prev.track_len + 1),

@@ -85,6 +85,7 @@ def spawn_and_update_observed(
     point_valid: torch.Tensor,  # (K,)
     frame_idx: torch.Tensor,
     origin_kf: torch.Tensor,
+    mode: str = "stereo",
     min_forced_updates: int = 0,
     min_meas_for_opt: int = 0,
     max_t_err_depth_ratio: float = 0.0,
@@ -92,6 +93,9 @@ def spawn_and_update_observed(
     """Landmark spawn + batched GN refinement in one pass: fresh rows are
     initialized (n_updates=1, H=0, origin, unprotected) and then receive
     their first observation update like every other observed landmark.
+    mode "stereo" refines on [uL, vL, uR, vR]; "depth" on [u, v, z] (the
+    LandmarkParameters knobs apply to the stereo refinement only, as in
+    the JAX package).
 
     Distinct framepoints hold distinct slots, so observed rows hit
     distinct table rows; unobserved rows alias row 0 and add zero deltas
@@ -105,13 +109,17 @@ def spawn_and_update_observed(
     base_H = torch.where(fresh[:, None, None], 0.0, table.H_acc[tgt])
     n_up_t = table.n_updates[tgt]
     base_nup = torch.where(fresh, 1, n_up_t)
-    xyz_n, H_n, _, _ = aligners.update_landmarks(
-        cam, base_xyz, base_H, T_world_cam, uv4, obs,
-        n_updates=base_nup,
-        min_forced_updates=min_forced_updates,
-        min_meas_for_opt=min_meas_for_opt,
-        max_t_err_depth_ratio=max_t_err_depth_ratio,
-    )
+    if mode == "stereo":
+        xyz_n, H_n, _, _ = aligners.update_landmarks(
+            cam, base_xyz, base_H, T_world_cam, uv4, obs,
+            n_updates=base_nup,
+            min_forced_updates=min_forced_updates,
+            min_meas_for_opt=min_meas_for_opt,
+            max_t_err_depth_ratio=max_t_err_depth_ratio,
+        )
+    else:
+        xyz_n, H_n, _, _ = aligners.update_landmarks_uvd(
+            cam, base_xyz, base_H, T_world_cam, uv4[:, :3], obs)
 
     def add(col, new, mask):
         m = mask.reshape((-1,) + (1,) * (col.dim() - 1))
@@ -136,3 +144,15 @@ def spawn_and_update_observed(
                       (prot_t & ~(fresh & obs)).to(torch.int32),
                       torch.ones_like(obs)) > 0,
     )
+
+
+def scatter_xyz(table: LandmarkTable, slots: torch.Tensor, xyz_new: torch.Tensor,
+                use: torch.Tensor) -> LandmarkTable:
+    """Write back externally optimized landmark positions (bundle
+    adjustment's back-propagation, graph_optimizer.cpp:478-486); slots
+    with use set must be distinct.  The JAX package's predicated add-delta
+    scatter: unused rows alias slot 0 and add zero."""
+    tgt = torch.where(use, slots, 0).to(torch.int64)
+    cur = table.xyz_w[tgt]
+    delta = torch.where(use[:, None], xyz_new - cur, torch.zeros_like(cur))
+    return table._replace(xyz_w=table.xyz_w.index_add(0, tgt, delta))

@@ -1,7 +1,7 @@
-"""Stereo pose solver and batched landmark refinement (port of the
-slice's part of vslam_tpu/solve/aligners.py).
+"""Pose solvers (stereo UV, RGB-D UVD, closure ICP) and the batched
+landmark refinements (port of vslam_tpu/solve/aligners.py).
 
-Both use closed-form Jacobians.  Each `lax.while_loop` of the JAX solver
+All use closed-form Jacobians.  Each `lax.while_loop` of the JAX solver
 becomes a Python loop to the iteration cap whose state is frozen, by a
 per-solve `active` flag, once the loop condition fails: the result is the
 while-loop's, and the loop needs no host sync to decide when to stop.
@@ -144,41 +144,15 @@ def stereo_uv_align_fast(
     )
 
 
-class ICPData(NamedTuple):
-    """Point-to-point closure verification data, leading dims (B, N)."""
-
-    p_moving: torch.Tensor  # (B, N, 3) points in the query keyframe frame
-    p_fixed: torch.Tensor  # (B, N, 3) corresponding reference-frame points
-    weight: torch.Tensor  # (B, N) per-correspondence information
-
-
-def icp_align(data: ICPData, mask: torch.Tensor, T0: torch.Tensor,
-              config: gn.GNConfig = gn.GNConfig()) -> gn.GNResult:
-    """Estimate T_ref_query aligning moving onto fixed points, for B
-    candidates at once: the JAX package's icp_align (the generic robust
-    two-phase gauss_newton) with the analytic Jacobian of R p + t - q wrt
-    the left tangent, [I, -hat(R p + t)].
-
-    mask: (B, N) valid correspondences; T0: (B, 4, 4).  Every field of
-    the result has the leading dim B.  As in the JAX engine, num_inliers
-    counts the inlier set carried out of the refinement phase."""
-    p_mov, p_fix, weight = data
-    kernel = config.kernel_max_error
+def _two_phase_batched(linearize, T0: torch.Tensor, mask: torch.Tensor,
+                       config: gn.GNConfig) -> gn.GNResult:
+    """The JAX package's generic robust two-phase gauss_newton over B
+    problems at once: robust GN to convergence, then inlier-only rounds
+    that reject a collapse of the inlier set.  linearize(T, extra_mask)
+    gives (H (B,6,6), b (B,6), total chi2 (B,), inliers (B,N)) with
+    extra_mask ANDed into mask.  num_inliers counts the inlier set carried
+    out of the refinement phase."""
     B, dev = T0.shape[0], T0.device
-    eye3 = torch.eye(3, dtype=T0.dtype, device=dev)
-
-    def linearize(T, extra_mask):
-        p = lie.transform_points(T[:, None], p_mov)  # (B, N, 3)
-        r = p - p_fix
-        J = torch.cat([eye3.expand(p.shape + (3,)), -lie.hat(p)], dim=-1)  # (B,N,3,6)
-        chi2 = weight * torch.sum(r * r, dim=-1)
-        w = torch.where(chi2 > kernel, kernel / torch.clamp(chi2, min=1e-12), 1.0)
-        w_eff = w * (mask & extra_mask).to(T.dtype)
-        ow = weight * w_eff
-        H = torch.einsum("bnri,bn,bnrj->bij", J, ow, J)
-        b = torch.einsum("bnri,bnr->bi", J, ow[..., None] * r)
-        inliers = (chi2 <= kernel) & mask & extra_mask
-        return H, b, torch.sum(chi2 * w_eff, dim=-1), inliers
 
     def one_round(T, extra_mask):
         H, b, total, inliers = linearize(T, extra_mask)
@@ -193,7 +167,7 @@ def icp_align(data: ICPData, mask: torch.Tensor, T0: torch.Tensor,
     inf = torch.full((B,), float("inf"), device=dev)
     all_true = torch.ones_like(mask)
 
-    # Phase 1: robust GN over all correspondences.
+    # Phase 1: robust GN over all measurements.
     T, prev, chi2 = T0, inf, torch.full((B,), 1e30, device=dev)
     it = torch.zeros(B, dtype=torch.int32, device=dev)
     inl, step = mask, inf
@@ -233,6 +207,92 @@ def icp_align(data: ICPData, mask: torch.Tensor, T0: torch.Tensor,
         inlier_mask=inl,
         converged=num_inliers >= config.min_num_inliers,
     )
+
+
+class ICPData(NamedTuple):
+    """Point-to-point closure verification data, leading dims (B, N)."""
+
+    p_moving: torch.Tensor  # (B, N, 3) points in the query keyframe frame
+    p_fixed: torch.Tensor  # (B, N, 3) corresponding reference-frame points
+    weight: torch.Tensor  # (B, N) per-correspondence information
+
+
+def icp_align(data: ICPData, mask: torch.Tensor, T0: torch.Tensor,
+              config: gn.GNConfig = gn.GNConfig()) -> gn.GNResult:
+    """Estimate T_ref_query aligning moving onto fixed points, for B
+    candidates at once: the JAX package's icp_align (the generic robust
+    two-phase gauss_newton) with the analytic Jacobian of R p + t - q wrt
+    the left tangent, [I, -hat(R p + t)].
+
+    mask: (B, N) valid correspondences; T0: (B, 4, 4).  Every field of
+    the result has the leading dim B."""
+    p_mov, p_fix, weight = data
+    kernel = config.kernel_max_error
+    eye3 = torch.eye(3, dtype=T0.dtype, device=T0.device)
+
+    def linearize(T, extra_mask):
+        p = lie.transform_points(T[:, None], p_mov)  # (B, N, 3)
+        r = p - p_fix
+        J = torch.cat([eye3.expand(p.shape + (3,)), -lie.hat(p)], dim=-1)  # (B,N,3,6)
+        chi2 = weight * torch.sum(r * r, dim=-1)
+        w = torch.where(chi2 > kernel, kernel / torch.clamp(chi2, min=1e-12), 1.0)
+        w_eff = w * (mask & extra_mask).to(T.dtype)
+        ow = weight * w_eff
+        H = torch.einsum("bnri,bn,bnrj->bij", J, ow, J)
+        b = torch.einsum("bnri,bnr->bi", J, ow[..., None] * r)
+        inliers = (chi2 <= kernel) & mask & extra_mask
+        return H, b, torch.sum(chi2 * w_eff, dim=-1), inliers
+
+    return _two_phase_batched(linearize, T0, mask, config)
+
+
+class UVDData(NamedTuple):
+    """RGB-D pose-solve data, leading dim N (fixed capacity, masked)."""
+
+    p_prev: torch.Tensor  # (N, 3) points in the previous camera frame
+    meas: torch.Tensor  # (N, 3) measured [u, v, depth_m]
+    weight: torch.Tensor  # (N,)
+    depth_reliable: torch.Tensor  # (N,) bool; unreliable -> uv only
+
+
+def uvd_align(cam: cam_ops.CameraParams, data: UVDData, mask: torch.Tensor,
+              T0: torch.Tensor, config: gn.GNConfig = gn.GNConfig()) -> gn.GNResult:
+    """RGB-D pose solve on [u, v, z] residuals (reference UVDAligner):
+    the JAX package's uvd_align, the generic two-phase gauss_newton with
+    the diagonal information [w, w, w * 10 * reliable] and the closed-form
+    Jacobian [Jproj; e_z] @ [I, -hat(p)] of the left tangent."""
+    p_prev, meas, weight, reliable = data
+    kernel = config.kernel_max_error
+    eps = 1e-6
+    mask = mask & (lie.transform_points(T0, p_prev)[:, 2] > 0.01)
+    dw = torch.where(reliable, 10.0, 0.0)  # the depth channel's information
+    omega = torch.stack([weight, weight, weight * dw], dim=-1)  # (N, 3)
+    eye3 = torch.eye(3, dtype=T0.dtype, device=T0.device)
+
+    def linearize(T, extra_mask):
+        p = lie.transform_points(T[0], p_prev)  # (N, 3)
+        uv, z = cam_ops.project(cam, p, eps)
+        r = torch.cat([uv, z[:, None]], dim=-1) - meas
+        zs = torch.clamp(z, min=eps)
+        zi2 = (z > eps).to(p.dtype) / (zs * zs)
+        zero = torch.zeros_like(z)
+        Jp = torch.stack([
+            torch.stack([cam.fx / zs, zero, -cam.fx * p[:, 0] * zi2], dim=-1),
+            torch.stack([zero, cam.fy / zs, -cam.fy * p[:, 1] * zi2], dim=-1),
+            torch.stack([zero, zero, torch.ones_like(z)], dim=-1),
+        ], dim=-2)  # (N, 3, 3)
+        J = Jp @ torch.cat([eye3.expand(p.shape + (3,)), -lie.hat(p)], dim=-1)
+        chi2 = torch.sum(r * omega * r, dim=-1)
+        w = torch.where(chi2 > kernel, kernel / torch.clamp(chi2, min=1e-12), 1.0)
+        w_eff = w * (mask & extra_mask[0]).to(T.dtype)
+        ow = omega * w_eff[:, None]
+        H = torch.einsum("nri,nr,nrj->ij", J, ow, J)
+        b = torch.einsum("nri,nr->i", J, ow * r)
+        inliers = (chi2 <= kernel) & mask & extra_mask[0]
+        return H[None], b[None], torch.sum(chi2 * w_eff)[None], inliers[None]
+
+    res = _two_phase_batched(linearize, T0[None], mask[None], config)
+    return gn.GNResult(*(f[0] for f in res))
 
 
 def update_landmarks(
@@ -296,3 +356,46 @@ def update_landmarks(
     xyz_out = torch.where(obs_mask[:, None], xyz_new, xyz_world)
     H_out = torch.where(obs_mask[:, None, None], H_new, H_acc)
     return xyz_out, H_out, chi2, (chi2 <= kernel_max_error_px2) & obs_mask
+
+
+def update_landmarks_uvd(
+    cam: cam_ops.CameraParams,
+    xyz_world: torch.Tensor,  # (M, 3)
+    H_acc: torch.Tensor,  # (M, 3, 3)
+    T_world_cam: torch.Tensor,  # (4, 4)
+    meas_uvd: torch.Tensor,  # (M, 3) measured [u, v, depth_m]
+    obs_mask: torch.Tensor,  # (M,)
+    kernel_max_error: float = 9.0 * 3,
+    prior_damping: float = 1.0,
+    depth_weight: float = 100.0,
+):
+    """RGB-D variant of update_landmarks: residual [u - u_m, v - v_m,
+    (z - z_m) sqrt(depth_weight)], closed-form Jacobian wrt the world
+    position.  Returns (xyz_new, H_new, chi2, inlier) as update_landmarks."""
+    eps = 1e-6
+    sqrt_dw = float(depth_weight) ** 0.5
+    T_cw = lie.inverse(T_world_cam)
+    R_cw = T_cw[:3, :3]
+    p = lie.transform_points(T_cw, xyz_world)
+    uv, z = cam_ops.project(cam, p, eps)
+    r = torch.cat([uv - meas_uvd[:, :2], ((z - meas_uvd[:, 2]) * sqrt_dw)[:, None]], dim=-1)
+
+    zs = torch.clamp(z, min=eps)
+    zi2 = (z > eps).to(p.dtype) / (zs * zs)
+    zero = torch.zeros_like(z)
+    J = torch.stack([
+        torch.stack([cam.fx / zs, zero, -cam.fx * p[:, 0] * zi2], dim=-1),
+        torch.stack([zero, cam.fy / zs, -cam.fy * p[:, 1] * zi2], dim=-1),
+        torch.stack([zero, zero, torch.full_like(z, sqrt_dw)], dim=-1),
+    ], dim=-2) @ R_cw  # (M, 3, 3)
+
+    chi2 = torch.sum(r * r, dim=-1)
+    w = torch.where(chi2 > kernel_max_error,
+                    kernel_max_error / torch.clamp(chi2, min=1e-9), 1.0)
+    Jt = J.transpose(-1, -2)
+    H_new = H_acc + w[:, None, None] * (Jt @ J)
+    dx = gn.solve_normal_equations(H_new, w[:, None] * (Jt @ r[..., None])[..., 0],
+                                   prior_damping)
+    xyz_out = torch.where(obs_mask[:, None], xyz_world + dx, xyz_world)
+    H_out = torch.where(obs_mask[:, None, None], H_new, H_acc)
+    return xyz_out, H_out, chi2, (chi2 <= kernel_max_error) & obs_mask

@@ -1,7 +1,8 @@
 """SlamEngine: system orchestration (port of vslam_tpu/system/engine.py).
 
-Wires the per-frame tracker, the world map (local maps), the Hamming
-database relocalizer, landmark merging and the hierarchical pose graph;
+Wires the per-frame tracker (stereo or RGB-D), the world map (local
+maps), the Hamming database relocalizer, landmark merging, the
+hierarchical pose graph and windowed bundle adjustment;
 owns the per-frame loop, the trajectory and the end-of-run report
 (printReport parity, slam_assembly.cpp:622-744).
 
@@ -29,6 +30,7 @@ from vslam_tpu_torch.io.config import ParameterCollection
 from vslam_tpu_torch.loop.relocalizer import Relocalizer
 from vslam_tpu_torch.mapping import landmarks as lm_mod
 from vslam_tpu_torch.mapping import merging
+from vslam_tpu_torch.system import ba_runner
 from vslam_tpu_torch.mapping.local_maps import WorldMap
 from vslam_tpu_torch.ops import camera as cam_ops
 from vslam_tpu_torch.tracking import fused
@@ -42,9 +44,15 @@ BREAK_EDGE_WEIGHT = 1e-3
 
 
 def _check_supported(cfg: ParameterCollection) -> None:
-    if cfg.graph_optimization.enable_full_bundle_adjustment:
-        raise NotImplementedError(
-            "full bundle adjustment is not ported yet (ROADMAP Queue 1 item 12)")
+    if (cfg.graph_optimization.enable_full_bundle_adjustment
+            and cfg.command_line.tracker_mode == "RGB_DEPTH"):
+        # The JAX engine runs this pair against wrong residuals: its
+        # keyframe observations are [u, v, z, 0] in RGB-D mode, and BA
+        # reads them as stereo [uL, vL, uR, vR].
+        raise ValueError(
+            "enable_full_bundle_adjustment with tracker_mode RGB_DEPTH: bundle "
+            "adjustment reads keyframe observations as stereo [uL, vL, uR, vR], "
+            "but RGB-D keyframes hold [u, v, depth, 0]")
     if not cfg.tracking.use_fused_tracker:
         raise NotImplementedError(
             "the modular PoseTracker is not ported (ROADMAP: not to port)")
@@ -88,6 +96,11 @@ class SlamEngine:
         self._slot_remap: dict[int, int] = {}  # absorbed -> representative
         self.n_optimizations = 0
         self.n_merges = 0
+        self.n_ba_runs = 0
+        self._last_ba_frame = 0
+        # Snapshots of the current drain not registered yet: a bundle
+        # adjustment run while registering an earlier one corrects them.
+        self._unregistered: list[KeyframeSnapshot] = []
         self._t_start = time.perf_counter()
         self._frame_times: list[float] = []
 
@@ -107,8 +120,9 @@ class SlamEngine:
 
     def process(self, img_l: np.ndarray, img_r: np.ndarray,
                 odometry: np.ndarray | None = None) -> np.ndarray:
-        """Process one stereo frame; returns the tracker's last harvested
-        T_world_cam (exact per frame on the CPU)."""
+        """Process one frame (the stereo pair, or the intensity image and
+        depth in meters); returns the tracker's last harvested T_world_cam
+        (exact per frame on the CPU)."""
         t0 = time.perf_counter()
         T = self.tracker.compute(img_l, img_r, odometry)
         self._consume_keyframe_events()
@@ -136,7 +150,10 @@ class SlamEngine:
         the previous drain, then dispatch the new local maps' query (one
         query+insert program).  Corrections from closures resolved here
         are global, so registering the snapshots first is exact."""
-        local_maps = [self._register_keyframe(s) for s in self.tracker.pop_keyframes()]
+        self._unregistered = self.tracker.pop_keyframes()
+        local_maps = []
+        while self._unregistered:
+            local_maps.append(self._register_keyframe(self._unregistered.pop(0)))
         if local_maps:
             # The descriptors stay on the device: gather the batch's
             # snapshot rows there for the relocalizer.
@@ -213,7 +230,34 @@ class SlamEngine:
                               for b in breaks[self._breaks_consumed:])
             self._breaks_consumed = len(breaks)
             self.kf_odom_weight.append(BREAK_EDGE_WEIGHT if spans_break else 1.0)
+        # Full BA runs on its frame cadence whether or not relocalization
+        # is on (slam_assembly.cpp:558-568).
+        self._maybe_run_bundle_adjustment(snap)
         return local_map
+
+    def _maybe_run_bundle_adjustment(self, snap: KeyframeSnapshot):
+        """Windowed BA every number_of_frames_per_bundle_adjustment frames
+        (reference optimizeFactorGraph cadence, graph_optimizer.cpp:459)."""
+        gopt = self.cfg.graph_optimization
+        if (gopt.enable_full_bundle_adjustment and len(self.kf_poses) >= 2
+                and snap.frame_idx - self._last_ba_frame
+                >= gopt.number_of_frames_per_bundle_adjustment):
+            self._last_ba_frame = snap.frame_idx
+            with log.measure("bundle_adjustment"):
+                self._run_bundle_adjustment()
+
+    def _run_bundle_adjustment(self):
+        """Windowed BA over the recent keyframes (system/ba_runner.py).  The
+        newest keyframe's correction also moves the snapshots harvested in
+        the same drain and not registered yet (on the card a drain holds
+        many), as the harvest moves snapshots still in flight."""
+        C_last = ba_runner.run_windowed_ba(self)
+        if C_last is None:
+            return
+        self.n_ba_runs += 1
+        for s in self._unregistered:
+            s.T_world_kf = (C_last @ s.T_world_kf).astype(np.float32)
+            s.xyz_w = (s.xyz_w @ C_last[:3, :3].T + C_last[:3, 3]).astype(np.float32)
 
     def _record_closure(self, closure):
         """World-map bookkeeping + the pose-graph edge (reference, query,
@@ -383,7 +427,7 @@ class SlamEngine:
             "n_local_maps": len(self.world_map),
             "n_closures": len(self.world_map.closures),
             "n_optimizations": self.n_optimizations,
-            "n_ba_runs": 0,
+            "n_ba_runs": self.n_ba_runs,
             "n_merged_landmarks": self.n_merges,
             "n_track_breaks": stats.n_breaks,
             "n_recovered_landmarks": stats.n_recovered,

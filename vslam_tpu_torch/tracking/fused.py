@@ -2,7 +2,8 @@
 
 One call of `step` runs the whole per-frame pipeline of the reference's
 PoseTracker3D::compute on a device-resident TrackerState: the stereo
-front-end (fused kernel K1, or the staged front-end on K2/K3/K4), the
+front-end (fused kernel K1, or the staged front-end on K2/K3/K4) or the
+RGB-D one (FAST and K3 on the intensity image, depth gathered), the
 detector-threshold controller, the registration retry ladder, track
 propagation, temporary-point promotion, landmark recovery, landmark
 spawn + refinement, the local-map trigger with its keyframe snapshot,
@@ -24,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from vslam_tpu_torch.frontend import depth as depth_mod
 from vslam_tpu_torch.mapping import frame as frame_mod
 from vslam_tpu_torch.mapping import landmarks as lm_mod
 from vslam_tpu_torch.ops import camera as cam_ops
@@ -68,12 +70,14 @@ RING_W = 28
 
 
 class FusedParams(NamedTuple):
-    """Static parameters of the per-frame step (the stereo slice's subset
-    of the JAX package's FusedParams, same names and defaults)."""
+    """Static parameters of the per-frame step (the JAX package's
+    FusedParams without the split front-end's switch; same names and
+    defaults)."""
 
     capacity: int = 1024
     bin_size: int = 16
     border: int = 20
+    mode: str = "stereo"  # stereo | depth
     descriptor: str = "BRIEF256"
     detector: str = "FAST"
     octaves: int = 1
@@ -81,6 +85,8 @@ class FusedParams(NamedTuple):
     epipolar_tol: float = 1.5
     min_disparity: float = 1.0
     max_disparity: float = 200.0
+    min_depth: float = 0.3
+    max_depth: float = 10.0
     min_track_for_landmark: int = 2
     min_inliers: int = 20
     min_inlier_ratio: float = 0.0
@@ -111,6 +117,9 @@ class FusedParams(NamedTuple):
     kf_min_landmarks: int = 50
     kf_max_landmarks: int = 1024
     kf_ring_size: int = 32
+    # RGB-D: bilateral smoothing of the registered depth map
+    # (depth_framepoint_generator.cpp:415-421).
+    bilateral_depth: bool = False
     enable_eviction: bool = True
     evict_every: int = 32
     evict_age_frames: int = 120
@@ -187,17 +196,38 @@ def push_free_slots(free_list: torch.Tensor, free_count: torch.Tensor,
 
 def _front_end(cam, params: FusedParams, state: TrackerState, img_l, img_r):
     """Returns (frame, n_kp, n_fp, planes); planes (the dense BRIEF maps
-    kept for landmark recovery) is None when recovery is off."""
-    out = frame_mod.stereo_frontend_core(
-        cam, img_l, img_r, state.threshold,
-        params.max_hamming_stereo, params.epipolar_tol,
-        params.min_disparity, params.max_disparity,
-        capacity=params.capacity, bin_size=params.bin_size,
-        border=params.border, descriptor=params.descriptor,
-        detector=params.detector, want_planes=params.enable_recovery,
-        octaves=params.octaves,
-    )
+    kept for landmark recovery: (2, 8, H, W) stereo, (8, H, W) RGB-D) is
+    None when recovery is off.  In depth mode img_r is the registered
+    depth map in meters."""
+    if params.mode == "stereo":
+        out = frame_mod.stereo_frontend_core(
+            cam, img_l, img_r, state.threshold,
+            params.max_hamming_stereo, params.epipolar_tol,
+            params.min_disparity, params.max_disparity,
+            capacity=params.capacity, bin_size=params.bin_size,
+            border=params.border, descriptor=params.descriptor,
+            detector=params.detector, want_planes=params.enable_recovery,
+            octaves=params.octaves,
+        )
+    else:
+        out = frame_mod.process_depth_frame(
+            cam, img_l, img_r, state.threshold, params.min_depth, params.max_depth,
+            capacity=params.capacity, bin_size=params.bin_size, border=params.border,
+            descriptor=params.descriptor, detector=params.detector,
+            want_planes=params.enable_recovery, octaves=params.octaves,
+        )
     return out if params.enable_recovery else out + (None,)
+
+
+def _register_depth_input(cam, params: FusedParams, depth_m, depth_calib=None):
+    """The depth image as the front-end reads it: reprojected into the
+    RGB camera when the sensors are not aligned (depth_calib = (K_depth,
+    T_rgb_depth)), then bilateral-smoothed if configured."""
+    if depth_calib is not None:
+        depth_m = depth_mod.register_depth(cam, depth_m, *depth_calib)
+    if params.bilateral_depth:
+        depth_m = depth_mod.bilateral_filter_depth(depth_m)
+    return depth_m
 
 
 def _spawn_and_update(cam, params: FusedParams, state: TrackerState, cur):
@@ -228,6 +258,7 @@ def _spawn_and_update(cam, params: FusedParams, state: TrackerState, cur):
         cam, table, state.T_world_cam, cur.landmark_slot, fresh, cur.p_cam,
         cur.uv4, cur.desc, cur.valid, state.frame_idx,
         origin_kf=state.kf_count,
+        mode=params.mode,
         min_forced_updates=params.lm_min_forced_updates,
         min_meas_for_opt=params.lm_min_meas_for_opt,
         max_t_err_depth_ratio=params.lm_max_t_err_depth_ratio,
@@ -287,11 +318,12 @@ def _evict(params, state, table, cur, free_list, free_count):
 
 
 def _step_tail(cam, params: FusedParams, state: TrackerState, cur, n_kp, n_fp,
-               planes, motion_model_on: bool, T_odom=None):
+               planes, motion_model_on: bool, T_odom=None, depth_m=None):
     """Everything after the front-end; returns the new TrackerState.
 
     motion_model_on: constant-velocity guess (else identity); T_odom: an
-    external motion guess T_cur_prev that replaces both when given."""
+    external motion guess T_cur_prev that replaces both when given;
+    depth_m: the registered depth map (depth mode)."""
     dev = state.T_world_cam.device
     eye = torch.eye(4, dtype=torch.float32, device=dev)
     img_shape = (cam.rows, cam.cols)
@@ -311,8 +343,11 @@ def _step_tail(cam, params: FusedParams, state: TrackerState, cur, n_kp, n_fp,
     else:
         T_guess = state.last_motion if motion_model_on else eye
 
+    track_fn = (frame_mod.track_and_align if params.mode == "stereo"
+                else frame_mod.track_and_align_uvd)
+
     def attempt(radius, gate, guess):
-        return frame_mod.track_and_align(
+        return track_fn(
             cam, state.prev, cur, guess, radius, gate.to(torch.int32),
             weights, params.gn_config,
         )
@@ -362,11 +397,18 @@ def _step_tail(cam, params: FusedParams, state: TrackerState, cur, n_kp, n_fp,
         cam, state.prev, cur, motion, res.prev_to_cur, enabled=ok,
     )
     n_recovered = torch.zeros((), dtype=torch.int32, device=dev)
-    if params.enable_recovery:
+    if params.enable_recovery and params.mode == "stereo":
         cur, n_recovered = frame_mod.recover_lost_landmarks(
             cam, state.prev, cur, motion, res.prev_to_cur, planes, img_shape,
             torch.clamp(state.desc_gate, max=params.max_recovery_gate),
             params.min_disparity, params.max_disparity,
+            border=params.border, enabled=ok,
+        )
+    elif params.enable_recovery:
+        cur, n_recovered = frame_mod.recover_lost_landmarks_depth(
+            cam, state.prev, cur, motion, res.prev_to_cur, planes, depth_m,
+            torch.clamp(state.desc_gate, max=params.max_recovery_gate),
+            params.min_depth, params.max_depth,
             border=params.border, enabled=ok,
         )
 
@@ -446,11 +488,16 @@ def _step_tail(cam, params: FusedParams, state: TrackerState, cur, n_kp, n_fp,
 
 
 def step(cam, params: FusedParams, state: TrackerState, imgs: torch.Tensor,
-         motion_model_on: bool, T_odom=None) -> TrackerState:
-    """One frame: imgs is the (2, H, W) stereo pair (uint8 or f32) on the
-    state's device."""
+         motion_model_on: bool, T_odom=None, depth_calib=None) -> TrackerState:
+    """One frame: imgs is (2, H, W) on the state's device, the stereo pair
+    (uint8 or f32), or in depth mode the f32 intensity image and depth in
+    meters; depth_calib (K_depth, T_rgb_depth) registers a misaligned
+    depth sensor's image first."""
     img_l = imgs[0].to(torch.float32)
     img_r = imgs[1].to(torch.float32)
+    depth_m = None
+    if params.mode == "depth":
+        img_r = depth_m = _register_depth_input(cam, params, img_r, depth_calib)
     cur, n_kp, n_fp, planes = _front_end(cam, params, state, img_l, img_r)
     return _step_tail(cam, params, state, cur, n_kp, n_fp, planes,
-                      motion_model_on, T_odom)
+                      motion_model_on, T_odom, depth_m)

@@ -1,4 +1,4 @@
-"""Per-frame stereo odometry (port of FusedPoseTracker,
+"""Per-frame stereo and RGB-D odometry (port of FusedPoseTracker,
 vslam_tpu/tracking/tracker.py): owns the device TrackerState, steps it
 once per frame, and harvests poses, statistics and keyframe snapshots
 from the device rings in batched readbacks.  World-frame corrections from
@@ -34,7 +34,7 @@ class KeyframeSnapshot:
     slots: np.ndarray  # (n,) int32 landmark table slots
     xyz_w: np.ndarray  # (n, 3) landmark world positions at snapshot
     desc: np.ndarray | None  # descriptors stay in the device ring (None)
-    uv4: np.ndarray  # (n, 4) keyframe stereo observations
+    uv4: np.ndarray  # (n, 4) keyframe observations (stereo or [u, v, z, 0])
     ring_row: int = -1  # device snapshot-ring row
 
 
@@ -93,6 +93,18 @@ class _ControllerView:
         self._owner.state = st._replace(threshold=torch.full_like(st.threshold, v))
 
 
+def _depth_calibration(fp, device):
+    """(K_depth (3, 3), T_rgb_depth (4, 4)) of a depth sensor that is not
+    aligned with the intensity camera, or None when the depth image is
+    already registered to it."""
+    if fp.depth_camera_intrinsics is None or fp.depth_camera_to_rgb is None:
+        return None
+    return (torch.tensor(np.asarray(fp.depth_camera_intrinsics, np.float32).reshape(3, 3),
+                         device=device),
+            torch.tensor(np.asarray(fp.depth_camera_to_rgb, np.float32).reshape(4, 4),
+                         device=device))
+
+
 def params_from_config(cam: cam_ops.CameraParams, config: ParameterCollection,
                        device: torch.device) -> fused.FusedParams:
     """FusedParams from the configuration tree, as the JAX tracker builds
@@ -105,6 +117,7 @@ def params_from_config(cam: cam_ops.CameraParams, config: ParameterCollection,
         capacity=fp.capacity,
         bin_size=fp.bin_size_pixels,
         border=fp.border_pixels,
+        mode="depth" if config.command_line.tracker_mode == "RGB_DEPTH" else "stereo",
         descriptor=fp.descriptor_type,
         detector=fp.detector_type,
         octaves=fp.detector_number_of_octaves,
@@ -112,6 +125,8 @@ def params_from_config(cam: cam_ops.CameraParams, config: ParameterCollection,
         epipolar_tol=fp.maximum_epipolar_search_offset_pixels,
         min_disparity=fp.minimum_disparity_pixels,
         max_disparity=fp.maximum_disparity_pixels,
+        min_depth=fp.minimum_depth_meters,
+        max_depth=fp.maximum_depth_meters,
         min_track_for_landmark=tr.minimum_track_length_for_landmark_creation,
         min_inliers=tr.aligner_minimum_number_of_inliers,
         min_inlier_ratio=tr.aligner_minimum_inlier_ratio,
@@ -132,6 +147,7 @@ def params_from_config(cam: cam_ops.CameraParams, config: ParameterCollection,
         lm_min_meas_for_opt=config.landmark.minimum_number_of_measurements_for_optimization,
         lm_max_t_err_depth_ratio=config.landmark.maximum_translation_error_to_depth_ratio,
         enable_eviction=config.command_line.option_drop_framepoints,
+        bilateral_depth=fp.enable_bilateral_filtering,
         ring_size=max(64, 4 * int(config.parallelism.frames_per_chunk)),
         kf_ring_size=(int(config.parallelism.kf_archive_size)
                       if device.type == "cuda" else 32),
@@ -153,7 +169,8 @@ def params_from_config(cam: cam_ops.CameraParams, config: ParameterCollection,
 
 
 class FusedPoseTracker:
-    """Per-frame stereo odometry over the device-resident tracker step.
+    """Per-frame stereo or RGB-D odometry over the device-resident tracker
+    step.
 
     Poses and statistics are written by the step into a device result
     ring and read back every `harvest_every` frames: every frame on the
@@ -161,9 +178,6 @@ class FusedPoseTracker:
 
     def __init__(self, cam: cam_ops.CameraParams, config: ParameterCollection,
                  landmark_capacity: int = 65536, device=DEFAULT_DEVICE):
-        if config.command_line.tracker_mode != "RGB_STEREO":
-            raise NotImplementedError(
-                "RGB-D tracking is not ported yet (ROADMAP Queue 1 item 13)")
         if config.tracking.batch_frontend:
             raise NotImplementedError(
                 "the split (batched) front-end is not ported yet "
@@ -171,7 +185,13 @@ class FusedPoseTracker:
         self.device = resolve_device(device)
         self.cam = cam_ops.to_device(cam, self.device)
         self.params = params_from_config(self.cam, config, self.device)
+        self.mode = self.params.mode
         fp, tr = config.framepoint_generation, config.tracking
+        self.depth_calib = _depth_calibration(fp, self.device)
+        # Stereo frames cross to the device as uint8, like the JAX
+        # tracker's upload (FAST scores and ties are those of the integer
+        # image); RGB-D frames as f32, for depth in meters.
+        self._frame_dtype = np.uint8 if self.mode == "stereo" else np.float32
         self.state = fused.init_state(self.cam, self.params, landmark_capacity,
                                       fp.detector_threshold_starting_value)
         self.motion_model_on = tr.motion_model == "CONSTANT_VELOCITY"
@@ -204,23 +224,23 @@ class FusedPoseTracker:
 
     def compute(self, img_l: np.ndarray, img_r: np.ndarray,
                 odometry: np.ndarray | None = None) -> np.ndarray:
-        """Process one stereo frame; returns the last harvested pose
-        (exact per frame on the CPU, up to harvest_every frames behind on
-        CUDA — flush() first for exact state)."""
+        """Process one frame: the stereo pair, or in depth mode the
+        intensity image and the depth map in meters.  Returns the last
+        harvested pose (exact per frame on the CPU, up to harvest_every
+        frames behind on CUDA — flush() first for exact state)."""
         t0 = time.perf_counter()
-        # Frames cross to the device as uint8, like the JAX tracker's
-        # upload: FAST scores and ties are those of the integer image.
-        pair = torch.from_numpy(np.stack([img_l, img_r]).astype(np.uint8))
+        pair = torch.from_numpy(np.stack([img_l, img_r]).astype(self._frame_dtype))
         self._step(pair.to(self.device), odometry)
         self.stats.add_time("frame_step", time.perf_counter() - t0)
         return self._last_pose
 
     def prestage(self, frame_pairs) -> list:
-        """Upload every frame ahead of the loop (dataset playback), as
-        uint8 in one transfer; returns one handle per harvest_every frames
-        for compute_prestaged()."""
+        """Upload every frame ahead of the loop (dataset playback) in one
+        transfer, as compute() would (uint8 stereo, f32 RGB-D); returns one
+        handle per harvest_every frames for compute_prestaged()."""
         frames = torch.from_numpy(np.stack(
-            [np.stack([l, r]) for l, r in frame_pairs]).astype(np.uint8)).to(self.device)
+            [np.stack([l, r]) for l, r in frame_pairs]).astype(self._frame_dtype)
+        ).to(self.device)
         C = self.harvest_every
         return [frames[i:i + C] for i in range(0, len(frames), C)]
 
@@ -239,7 +259,7 @@ class FusedPoseTracker:
                 np.eye(4, dtype=np.float32) if odometry is None
                 else np.asarray(odometry, np.float32), device=self.device)
         self.state = fused.step(self.cam, self.params, self.state, imgs,
-                                self.motion_model_on, T_odom)
+                                self.motion_model_on, T_odom, self.depth_calib)
         self._dispatched += 1
         if self._dispatched - self._harvested >= self.harvest_every:
             self._drain()
