@@ -63,10 +63,31 @@ Phases (each raises on failure; the exit code is then non-zero):
                world scaled by 1/10; 64 K3 launches and no K1/K2/K4, 0
                breaks, ATE <= 0.05 m, local maps within +-15% of the JAX
                engine's on a CPU; the first 4 frames agree with the CPU
-               within 1e-3 m.
-The JAX counts printed beside phases 7-9 come from
+               within 1e-3 m;
+ 10. xtion-config — configurations/configuration_xtion.yaml as shipped
+               (RGB-D, FAST + ORB256, bin 12, bilateral depth filtering,
+               closed loop) on phase 9's world, turning half as fast (64
+               frames of a 128-frame circle); no K1/K2/K3/K4 launch
+               (ORB256 is a gather, not a kernel), 0 breaks, ATE <= 0.05 m,
+               local maps within +-15% of the JAX engine's on a CPU; the
+               first 4 frames agree with the CPU within 1e-3 m.  The depth
+               goes in as meters: the configuration's millimeter scale
+               (depth_scale_factor_intensity_to_meters) is read only by the
+               dataset loaders and the command line, which the port does
+               not have yet;
+ 11. detectors — on the left image of phase 6a's frame 0 (376x1241):
+               detect_keypoints with HARRIS, GFTT, DOG and KAZE (2 octaves,
+               bin 16) on the card against the same call on the CPU, >= 99%
+               of the keypoints in common, ms per call on the card; ORB256
+               describe of its FAST keypoints on the card against the CPU,
+               <= 0.1% of the bits differing; then configuration_kitti.yaml
+               with detector_type DOG, open loop, on the first 32 frames of
+               phase 6b's circle: 0 breaks, ATE <= 0.05 m, local maps
+               within +-15% of the JAX engine's on a CPU, the first 4
+               frames within 1e-3 m of the CPU.
+The JAX counts printed beside phases 7-11 come from
 chip_smoke_jax_reference.py.  The script then prints the kernel record
-(one JSON line: launches summed over the runs of phases 6-9,
+(one JSON line: launches summed over the runs of phases 6-10,
 bit-equality, times, bound, share of the bound, shared-load floor,
 blocks per SM, loads a pixel; K3's times at 480x640), the card's name
 and power limit (nvidia-smi), and last {"ok": true, "device": {...}}.
@@ -132,11 +153,14 @@ TUM_CAM = dict(fx=517.3, fy=516.5, cx=318.6, cy=255.3, baseline_m=0.075, rows=48
 TUM_FRAMES = 64
 TUM_RADIUS_M = 3.5  # of the scaled world (see tum_world)
 TUM_SCALE = 10.0  # the world is rendered at 10x and its depth divided back
+# Phase 10's circle turns 2.8 degrees a frame, half of phase 9's (see
+# phase_xtion).
+XTION_CIRCLE_FRAMES = 128
 BA_EVERY_FRAMES = 48
 
-# The JAX engine (vslam_tpu) on a CPU for the closed-loop workloads of
-# phases 7-9 (chip_smoke_jax_reference.py); it drains every frame, the
-# port on the card every 32.
+# The JAX engine (vslam_tpu) on a CPU for the workloads of phases 7-11
+# (chip_smoke_jax_reference.py); it drains every frame, the port on the
+# card every 32.
 JAX_CPU_CLOSED_LOOP = {"n_local_maps": 42, "n_closures": 3, "n_optimizations": 1,
                        "n_merged_landmarks": 82, "n_track_breaks": 0, "ate_m": 0.0351,
                        "db_rows": 7242, "closures": [(39, 0), (40, 0), (41, 0)]}
@@ -145,6 +169,12 @@ JAX_CPU_BA_CLOSED = {"n_local_maps": 42, "n_closures": 3, "n_optimizations": 1,
                      "ate_m": 0.0422, "db_rows": 7242, "closures": [(39, 0), (40, 0), (41, 0)]}
 JAX_CPU_TUM = {"n_local_maps": 21, "n_closures": 0, "n_optimizations": 0,
                "n_merged_landmarks": 0, "n_track_breaks": 0, "ate_m": 0.0108, "db_rows": 5435}
+JAX_CPU_XTION = {"n_local_maps": 63, "n_closures": 0, "n_optimizations": 0,
+                 "n_merged_landmarks": 0, "n_track_breaks": 0, "ate_m": 0.0164,
+                 "db_rows": 10154}
+JAX_CPU_KITTI_DOG = {"n_local_maps": 8, "n_track_breaks": 0, "ate_m": 0.0139}
+DOG_FRAMES = 32
+FLOAT_DETECTORS = ("HARRIS", "GFTT", "DOG", "KAZE")
 CLOSURE_STAGES = ("relocalization", "reloc_vote_icp", "pose_graph_optimization",
                   "pg_solve", "pg_propagate", "landmark_merging")
 
@@ -185,29 +215,54 @@ def bench_setup():
     return cam, bench_config(ParameterCollection), world, frames
 
 
-def tum_world(cam):
-    """Phase 9's sequence: a 64-frame circle rendered as RGB-D frames
-    (intensity, depth in meters), with the world -- points and pose
-    translations -- scaled by 1/10 so that the depths fall in TUM's
-    indoor range (0.3-4.5 m for the world's 3-45 m offsets).  Scaling a
-    world leaves its images as they are, so each frame is rendered from
-    the unscaled world and its depth divided by 10.  The circle's radius
-    is 3.5 m: on circles of 1.3 m and 2.5 m the shipped configuration's
-    closure ICP (its default 1 m kernel, 25 inliers at ratio 0.4) accepts
-    a false closure across the circle from chance descriptor matches, in
-    the JAX engine as in the port (ATE 0.77 m at 1.3 m).  Returns
-    (ground-truth poses, frames)."""
+def tum_world(cam, circle_frames=TUM_FRAMES):
+    """Phase 9's sequence: the first 64 frames of a circle of
+    circle_frames frames, rendered as RGB-D frames (intensity, depth in
+    meters), with the world -- points and pose translations -- scaled by
+    1/10 so that the depths fall in TUM's indoor range (0.3-4.5 m for the
+    world's 3-45 m offsets).  Scaling a world leaves its images as they
+    are, so each frame is rendered from the unscaled world and its depth
+    divided by 10.  The circle's radius is 3.5 m: on circles of 1.3 m and
+    2.5 m the shipped tum configuration's closure ICP (its default 1 m
+    kernel, 25 inliers at ratio 0.4) accepts a false closure across the
+    circle from chance descriptor matches, in the JAX engine as in the
+    port (ATE 0.77 m at 1.3 m).  Returns (ground-truth poses, frames)."""
     from vslam_tpu_torch.io import synthetic
 
-    poses = synthetic.circle_trajectory(TUM_FRAMES, radius=TUM_RADIUS_M * TUM_SCALE)
+    poses = synthetic.circle_trajectory(circle_frames, radius=TUM_RADIUS_M * TUM_SCALE)
     world = synthetic.make_world(cam, n_points=7000, seed=0, poses=poses)
     frames = []
     for t in range(TUM_FRAMES):
         img, depth = synthetic.render_depth_frame(world, t)
         frames.append((img, depth / np.float32(TUM_SCALE)))
-    gt = poses.copy()
+    gt = poses[:TUM_FRAMES].copy()
     gt[:, :3, 3] /= TUM_SCALE
     return gt, frames
+
+
+def kitti_dog_config(load_config):
+    """configuration_kitti.yaml with detector_type DOG, open loop, loaded
+    by the given package's load_config."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(here, "configurations", "configuration_kitti.yaml"))
+    cfg.framepoint_generation.detector_type = "DOG"
+    cfg.command_line.option_disable_relocalization = True
+    return cfg
+
+
+def kitti_dog_world(cam):
+    """Phase 6b's world and 64-frame circle, cut to its first DOG_FRAMES
+    frames.  Returns (ground-truth poses, stereo frames)."""
+    from vslam_tpu_torch.io import synthetic
+
+    world = synthetic.make_world(cam, n_points=7000, seed=0,
+                                 poses=synthetic.circle_trajectory(64, radius=13.0))
+    return (world.poses[:DOG_FRAMES],
+            [synthetic.render_frame(world, t)[:2] for t in range(DOG_FRAMES)])
+
+
+def within_15_percent(ref: int):
+    return int(np.ceil(0.85 * ref)), int(np.floor(1.15 * ref))
 
 
 def counters():
@@ -584,12 +639,88 @@ def phase_tum(card):
     cfg = load_config(os.path.join(here, "configurations", "configuration_tum.yaml"))
     cam = cam_ops.make_camera(**TUM_CAM)
     gt, frames = tum_world(cam)
-    ref = JAX_CPU_TUM["n_local_maps"]
-    local_maps = (int(np.ceil(0.85 * ref)), int(np.floor(1.15 * ref)))
     print(f"[tum-config] the JAX engine on a CPU: {JAX_CPU_TUM}")
     return drive_slice("tum-config", cam, cfg, gt, frames,
-                       {"K1": 0, "K2": 0, "K3": TUM_FRAMES, "K4": 0}, local_maps,
-                       TUM_CPU_FRAMES, card)
+                       {"K1": 0, "K2": 0, "K3": TUM_FRAMES, "K4": 0},
+                       within_15_percent(JAX_CPU_TUM["n_local_maps"]), TUM_CPU_FRAMES, card)
+
+
+def phase_xtion(card):
+    """configuration_xtion.yaml as shipped (RGB-D, ORB256, bilateral
+    depth, closed loop) on phase 9's world, depth in meters, but turning
+    half as fast: 64 frames of a 128-frame circle (2.8 degrees a frame).
+    At phase 9's 5.6 degrees a frame ORB256 breaks tracking on 54 of 64
+    frames, in the JAX engine on a CPU (ATE 2.18 m) as in the port: the
+    synthetic background is one fixed image that does not move with the
+    world, so the 31-pixel disk whose intensity centroid steers each
+    descriptor sees another background every frame, and the steered
+    pattern with it.  The configuration is the reference's live Xtion
+    setup, tuned for slow hand-held motion."""
+    from vslam_tpu_torch.io.config import load_config
+    from vslam_tpu_torch.ops import camera as cam_ops
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(here, "configurations", "configuration_xtion.yaml"))
+    cam = cam_ops.make_camera(**TUM_CAM)
+    gt, frames = tum_world(cam, XTION_CIRCLE_FRAMES)
+    print(f"[xtion-config] the JAX engine on a CPU: {JAX_CPU_XTION}")
+    return drive_slice("xtion-config", cam, cfg, gt, frames,
+                       {"K1": 0, "K2": 0, "K3": 0, "K4": 0},
+                       within_15_percent(JAX_CPU_XTION["n_local_maps"]), TUM_CPU_FRAMES, card)
+
+
+def _ms_per_call(fn, runs=10):
+    """Median host time of a synchronized call on the card."""
+    times = []
+    for _ in range(runs + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times[1:])
+
+
+def phase_detectors(kitti_frame, card):
+    """The float detectors and ORB256 on the card against the CPU, then
+    the 32-frame open-loop DOG run of configuration_kitti.yaml."""
+    from vslam_tpu_torch.frontend import detect, orb
+    from vslam_tpu_torch.io.config import load_config
+    from vslam_tpu_torch.ops import camera as cam_ops
+
+    img = torch.from_numpy(np.asarray(kitti_frame[0]).astype(np.uint8).astype(np.float32))
+    thr = torch.tensor(20.0)
+    for name in FLOAT_DETECTORS:
+        args = dict(bin_size=16, capacity=1024, border=20, detector=name, octaves=2)
+        kc = detect.detect_keypoints(img.cuda(), thr.cuda(), **args)
+        kp = detect.detect_keypoints(img, thr, **args)
+        on_card = set(map(tuple, kc.uv[kc.valid].cpu().numpy().tolist()))
+        on_cpu = set(map(tuple, kp.uv[kp.valid].numpy().tolist()))
+        common = len(on_card & on_cpu)
+        ms = _ms_per_call(lambda: detect.detect_keypoints(img.cuda(), thr.cuda(), **args))
+        print(f"[detectors] {name}: {len(on_card)} keypoints on the card, {len(on_cpu)} on "
+              f"the CPU, {common} in common; {ms:.2f} ms per call on the card "
+              f"(2 octaves, 376x1241, synchronized host clock, median of 10) ({card})")
+        if len(on_cpu) < 100 or common < 0.99 * len(on_cpu):
+            raise AssertionError(f"{name}: {common} of {len(on_cpu)} keypoints in common")
+    kp = detect.detect_keypoints(img, thr, 16, 1024, 20)
+    dc = orb.describe(img.cuda(), kp.uv.cuda()).cpu().numpy()
+    dp = orb.describe(img, kp.uv).numpy()
+    n_diff = int(np.unpackbits((dc ^ dp).view(np.uint8)).sum())
+    ms = _ms_per_call(lambda: orb.describe(img.cuda(), kp.uv.cuda()))
+    print(f"[detectors] ORB256 describe of {kp.uv.shape[0]} keypoints: {n_diff} of "
+          f"{dp.size * 32} bits differ between the card and the CPU; {ms:.2f} ms per call "
+          f"on the card ({card})")
+    if n_diff > 1e-3 * dp.size * 32:
+        raise AssertionError(f"ORB256: {n_diff} bits differ between the card and the CPU")
+
+    cfg = kitti_dog_config(load_config)
+    cam = cam_ops.make_camera(**KITTI_CAM)
+    gt, frames = kitti_dog_world(cam)
+    print(f"[kitti-dog] the JAX engine on a CPU: {JAX_CPU_KITTI_DOG}")
+    drive_slice("kitti-dog", cam, cfg, gt, frames,
+                {"K1": 0, "K2": DOG_FRAMES, "K3": 2 * DOG_FRAMES, "K4": 0},
+                within_15_percent(JAX_CPU_KITTI_DOG["n_local_maps"]), 4, card)
 
 
 def phase_build(card) -> dict:
@@ -665,8 +796,10 @@ def main():
         phase_closed_loop("ba-closed", cam, ba_closed_config(cfg), world, frames,
                           JAX_CPU_BA_CLOSED, card),
         phase_tum(card),
+        phase_xtion(card),
     ):
         launches = {k: launches[k] + counts[k] for k in launches}
+    phase_detectors(frames[0], card)
 
     sources = {"K1": ("fast_brief_frontend_pair", "fast_brief_frontend.cu",
                       "vslam_tpu/frontend/pallas_frontend.py:196")}

@@ -1,8 +1,9 @@
-"""The JAX engine (vslam_tpu) on the CPU for chip_smoke.py's closed-loop
-workloads, whose counts chip_smoke.py prints beside the card's
-(JAX_CPU_CLOSED_LOOP, JAX_CPU_BA_CLOSED, JAX_CPU_TUM):
+"""The JAX engine (vslam_tpu) on the CPU for chip_smoke.py's workloads
+that it holds to JAX's counts (JAX_CPU_CLOSED_LOOP, JAX_CPU_BA_CLOSED,
+JAX_CPU_TUM, JAX_CPU_XTION, JAX_CPU_KITTI_DOG):
 
     python3 chip_smoke_jax_reference.py [closed] [ba-closed] [tum-config]
+        [xtion-config] [kitti-dog]
 
 Each run uses chip_smoke.py's configuration and sequence, built with the
 JAX package's classes, on one CPU device (no sharded database search or
@@ -33,12 +34,19 @@ from vslam_tpu_torch.ops import camera as port_cam  # noqa: E402
 
 def workload(name):
     """(JAX camera, JAX configuration, ground-truth poses, frames)."""
-    if name == "tum-config":
-        here = os.path.dirname(os.path.abspath(__file__))
-        cfg = load_config(os.path.join(here, "configurations", "configuration_tum.yaml"))
-        gt, frames = chip_smoke.tum_world(port_cam.make_camera(**chip_smoke.TUM_CAM,
-                                                               device="cpu"))
+    here = os.path.dirname(os.path.abspath(__file__))
+    if name in ("tum-config", "xtion-config"):
+        cfg = load_config(os.path.join(here, "configurations",
+                                       f"configuration_{name.split('-')[0]}.yaml"))
+        gt, frames = chip_smoke.tum_world(
+            port_cam.make_camera(**chip_smoke.TUM_CAM, device="cpu"),
+            chip_smoke.XTION_CIRCLE_FRAMES if name == "xtion-config" else chip_smoke.TUM_FRAMES)
         return cam_ops.make_camera(**chip_smoke.TUM_CAM), cfg, gt, frames
+    if name == "kitti-dog":
+        cfg = chip_smoke.kitti_dog_config(load_config)
+        gt, frames = chip_smoke.kitti_dog_world(port_cam.make_camera(**chip_smoke.KITTI_CAM,
+                                                                     device="cpu"))
+        return cam_ops.make_camera(**chip_smoke.KITTI_CAM), cfg, gt, frames
     cfg = chip_smoke.bench_config(ParameterCollection)
     cfg = (chip_smoke.ba_closed_config(cfg) if name == "ba-closed"
            else chip_smoke.closed_loop_config(cfg))
@@ -65,5 +73,6 @@ def run(name):
 
 
 if __name__ == "__main__":
-    for name in sys.argv[1:] or ["closed", "ba-closed", "tum-config"]:
+    for name in sys.argv[1:] or ["closed", "ba-closed", "tum-config", "xtion-config",
+                                 "kitti-dog"]:
         run(name)

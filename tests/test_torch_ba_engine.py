@@ -152,6 +152,51 @@ def test_ba_at_the_card_drain_cadence(world_frames):
         np.testing.assert_allclose(traj[eng.kf_frame_indices[k]], eng.kf_poses[k], atol=1e-4)
 
 
+def test_ba_moves_the_drain_later_landmarks_with_the_live_pose(world_frames, monkeypatch):
+    """Harvest every 8 frames: BA runs while one keyframe k of a drain is
+    registered, and the tracker has already spawned landmarks from the
+    drain's later frames (origin_kf > k).  The correction that moves the
+    live pose must move them too: each keeps its position in the live
+    camera frame across the BA call, within 1e-5 m."""
+    _, frames = world_frames
+    eng = TEngine(tcam.make_camera(**CAM_ARGS, device="cpu"), make_cfg(TConfig, True),
+                  landmark_capacity=16384, device="cpu")
+    eng.tracker.harvest_every = 8
+    build, run = trunner.build_window_problem, trunner.run_windowed_ba
+    windows, checked = [], []
+
+    def build_and_record(engine, *args, **kwargs):
+        built = build(engine, *args, **kwargs)
+        windows.append(None if built is None else built[1][-1])
+        return built
+
+    def in_live_camera(state):
+        # The f32 correction is orthonormal only to ~1e-7, so invert the
+        # pose exactly rather than by its transpose.
+        t = state.table
+        T_cw = torch.linalg.inv(state.T_world_cam.double())
+        p = t.xyz_w.double() @ T_cw[:3, :3].T + T_cw[:3, 3]
+        return p.numpy(), (t.valid & (t.origin_kf > windows[-1])).numpy()
+
+    def run_and_check(engine, *args, **kwargs):
+        before = engine.tracker.state
+        C = run(engine, *args, **kwargs)
+        if C is not None and not np.allclose(C, np.eye(4), atol=1e-4):
+            p0, later = in_live_camera(before)
+            p1, _ = in_live_camera(engine.tracker.state)
+            assert later.sum() > 20
+            assert np.abs(p1[later] - p0[later]).max() <= 1e-5
+            checked.append(int(later.sum()))
+        return C
+
+    monkeypatch.setattr(trunner, "build_window_problem", build_and_record)
+    monkeypatch.setattr(trunner, "run_windowed_ba", run_and_check)
+    for h in eng.tracker.prestage(frames):
+        eng.process_prestaged(h)
+    eng.trajectory
+    assert checked, (eng.n_ba_runs, windows)
+
+
 def test_ba_with_rgb_depth_is_refused():
     """The JAX engine with BA and RGB_DEPTH optimizes [u, v, z, 0]
     observations as stereo [uL, vL, uR, vR]; the port refuses the pair."""

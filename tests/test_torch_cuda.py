@@ -254,3 +254,30 @@ def test_depth_frame_on_the_card_matches_the_cpu():
     for a, b in zip(rest_g, rest_c):
         assert torch.equal(a.cpu(), b)
     assert int(rest_c[1]) > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("detector", ["HARRIS", "GFTT", "DOG", "KAZE"])
+def test_float_detectors_and_orb256_on_the_card_match_the_cpu(detector):
+    """The float detectors at 2 octaves keep >= 99% of the CPU's
+    keypoints on the card (plain torch ops: no kernel of the port), and
+    ORB256 descriptors of them differ in <= 0.1% of their bits."""
+    _need_card()
+    from vslam_tpu_torch.frontend import detect, orb
+
+    cam = cam_ops.make_camera(fx=300.0, fy=300.0, cx=160.0, cy=96.0, baseline_m=0.4,
+                              rows=192, cols=320, device="cpu")
+    world = synthetic.make_world(cam, n_frames=8, n_points=2500, seed=7, step=0.3)
+    img = torch.from_numpy(synthetic.render_frame(world, 4)[0].astype(np.uint8)
+                           .astype(np.float32))
+    kps, descs = {}, {}
+    for device in ("cuda", "cpu"):
+        kp = detect.detect_keypoints(img.to(device), torch.tensor(10.0, device=device), 12,
+                                     256, 20, detector, octaves=2)
+        kps[device] = set(map(tuple, kp.uv[kp.valid].cpu().numpy().tolist()))
+        descs[device] = orb.describe(img.to(device), kp.uv).cpu().numpy()
+    assert len(kps["cpu"]) > 50
+    assert len(kps["cuda"] & kps["cpu"]) >= 0.99 * len(kps["cpu"])
+    if kps["cuda"] == kps["cpu"]:
+        n_diff = int(np.unpackbits((descs["cuda"] ^ descs["cpu"]).view(np.uint8)).sum())
+        assert n_diff <= 1e-3 * descs["cpu"].size * 32

@@ -1,14 +1,33 @@
-"""Port parity: FAST detection over the image pyramid (frontend/detect.py)
+"""Port parity: detection over the image pyramid (frontend/detect.py)
 against vslam_tpu.
 
-Tolerance: none.  Scores are sums of f32 threshold excesses taken in the
-same order; keypoints are compared as sets in order (uv, score, valid,
-octave), so the per-cell argmax and the top-K tie order must match
+FAST: no tolerance.  Scores are sums of f32 threshold excesses taken in
+the same order; keypoints are compared as sets in order (uv, score,
+valid, octave), so the per-cell argmax and the top-K tie order must match
 lax.argmax / lax.top_k exactly.  uint8-valued images make ties common.
+
+HARRIS, GFTT, DOG and KAZE, on a rendered 128 x 192 frame: XLA-CPU fuses
+and contracts their blurs and products in its own order (no order written
+in torch reproduces its conv_general_dilated), so
+  * the score maps agree where JAX's is nonzero within atol 1e-4 (HARRIS,
+    GFTT; measured 4.6e-5) or 1e-3 (DOG; measured 5.5e-4), and for KAZE
+    within 1e-5 of the map's largest score: its response is a Hessian
+    determinant scaled by sigma^4 * 4e4 after 30 explicit diffusion
+    steps, so f32 rounding in the evolved image shows at every score as
+    an absolute error (measured 1.9e-2 with scores up to 4,972, 3.9e-6
+    of the largest; JAX's own jitted and eager KAZE differ by 9.3e-3);
+  * their zero / nonzero support differs in at most 0.1% of pixels;
+  * KAZE's contrast factor is within 1/64 of the gradient maximum (its
+    histogram bin width), and the test reports whether it is exact;
+  * detect_keypoints keeps at least 99% of JAX's valid keypoints at
+    identical coordinates, at 1 and 2 octaves.
+A 16-frame stereo tracker run with DOG gives JAX's event counts, every
+position within 1e-4 m.
 """
 
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,8 +35,14 @@ import torch
 
 from vslam_tpu.frontend import detect as jdet
 from vslam_tpu.io import synthetic as jsyn
+from vslam_tpu.io.config import ParameterCollection as JConfig
 from vslam_tpu.ops import camera as jcam
+from vslam_tpu.tracking.tracker import FusedPoseTracker as JTracker
 from vslam_tpu_torch.frontend import detect as tdet
+from vslam_tpu_torch.io import synthetic as tsyn
+from vslam_tpu_torch.io.config import ParameterCollection as TConfig
+from vslam_tpu_torch.ops import camera as tcam
+from vslam_tpu_torch.tracking.tracker import FusedPoseTracker as TTracker
 
 # Under pytest-xdist each core runs a worker process; torch's own intra-op
 # threads on top of that oversubscribe the CPU and slow these tests ~30x.
@@ -85,5 +110,101 @@ def test_pyramid_helpers_match_jax():
 
 @pytest.mark.parametrize("detector", ["HARRIS", "GFTT", "DOG", "KAZE"])
 def test_unported_detectors_raise(detector):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tdet.score_map(torch.zeros((32, 32)), torch.tensor(10.0), detector)
+    """Every detector is ported: the registry dispatches each name and its
+    alias to its score map, and only an unknown name raises."""
+    img = torch.from_numpy(_small(2))
+    thr = torch.tensor(5.0)
+    want = {"HARRIS": tdet.harris_score_map, "GFTT": tdet.gftt_score_map,
+            "DOG": tdet.dog_score_map, "KAZE": tdet.kaze_score_map}[detector](img, thr)
+    alias = {"GFTT": "shi_tomasi", "KAZE": "AKAZE"}.get(detector, detector.lower())
+    assert (want > 0).any()
+    np.testing.assert_array_equal(tdet.score_map(img, thr, alias).numpy(), want.numpy())
+    with pytest.raises(ValueError, match="unknown detector"):
+        tdet.score_map(img, thr, detector + "X")
+
+
+SMALL_CAM = dict(fx=300.0, fy=300.0, cx=96.0, cy=64.0, baseline_m=0.4, rows=128, cols=192)
+FLOAT_THRESHOLDS = {"HARRIS": 10.0, "GFTT": 5.0, "DOG": 5.0, "KAZE": 5.0}
+# Score-map atol where JAX's map is nonzero (KAZE: a share of its largest
+# score).
+SCORE_TOL = {"HARRIS": 1e-4, "GFTT": 1e-4, "DOG": 1e-3, "KAZE": None}
+
+
+def _small(frame):
+    """A rendered 128 x 192 left image, uint8-valued."""
+    world = jsyn.make_world(jcam.make_camera(**SMALL_CAM), n_frames=4, n_points=1500,
+                            seed=42, step=0.45)
+    return np.asarray(jsyn.render_frame(world, frame)[0]).astype(np.uint8).astype(np.float32)
+
+
+@pytest.mark.parametrize("detector", ["HARRIS", "GFTT", "DOG", "KAZE"])
+def test_float_score_maps_match_jax(detector):
+    img = _small(2)
+    thr = FLOAT_THRESHOLDS[detector]
+    want = np.asarray(jax.jit(lambda x, t: jdet.score_map(x, t, detector))(
+        jnp.asarray(img), jnp.float32(thr)))
+    got = tdet.score_map(torch.from_numpy(img), torch.tensor(thr), detector).numpy()
+    nz = want != 0
+    assert nz.sum() > 50
+    assert ((got != 0) != nz).mean() <= 1e-3
+    atol = SCORE_TOL[detector] or 1e-5 * np.abs(want).max()
+    np.testing.assert_allclose(got[nz], want[nz], atol=atol, rtol=0.0)
+
+
+def test_kaze_contrast_factor_matches_jax():
+    x = _small(1) * np.float32(1.0 / 255.0)
+    want = float(jax.jit(jdet._kaze_contrast_k)(jnp.asarray(x)))
+    got = float(tdet._kaze_contrast_k(torch.from_numpy(x)))
+    gx, gy = jdet._grad_xy(jdet.gauss_blur(jnp.asarray(x), 1.0))
+    mmax = float(jnp.sqrt(gx * gx + gy * gy).max())
+    print(f"KAZE contrast factor: port {got!r}, JAX {want!r}, exact: {got == want}")
+    assert abs(got - want) <= mmax / 64.0
+
+
+@pytest.mark.parametrize("detector", ["HARRIS", "GFTT", "DOG", "KAZE"])
+@pytest.mark.parametrize("octaves", [1, 2])
+def test_float_detectors_keypoints_match_jax(detector, octaves):
+    img = _small(2)
+    thr = FLOAT_THRESHOLDS[detector]
+    want = jdet.detect_keypoints(jnp.asarray(img), jnp.float32(thr), 12, 128, 16, detector,
+                                 octaves=octaves)
+    got = tdet.detect_keypoints(torch.from_numpy(img), torch.tensor(thr), 12, 128, 16,
+                                detector, octaves=octaves)
+    kj = set(map(tuple, np.asarray(want.uv)[np.asarray(want.valid)]))
+    kt = set(map(tuple, got.uv.numpy()[got.valid.numpy()]))
+    assert len(kj) > 30
+    assert len(kj & kt) >= 0.99 * len(kj), (len(kj), len(kj & kt), len(kt))
+
+
+def _tracker_config(cls):
+    cfg = cls()
+    cfg.framepoint_generation.capacity = 256
+    cfg.framepoint_generation.bin_size_pixels = 12
+    cfg.framepoint_generation.border_pixels = 16
+    cfg.framepoint_generation.detector_type = "DOG"
+    return cfg
+
+
+def test_stereo_tracker_with_dog_matches_jax():
+    """16 frames of the stereo FusedPoseTracker with the DOG detector (the
+    JAX package's tests/test_detectors.py runs its tracker with it), on a
+    denser world than the score tests': DOG finds ~40 keypoints a frame
+    at this size."""
+    cam_args = dict(SMALL_CAM, fx=200.0, fy=200.0)
+    cam = tcam.make_camera(**cam_args, device="cpu")
+    world = tsyn.make_world(cam, n_frames=16, n_points=3000, seed=5, step=0.2)
+    jt = JTracker(jcam.make_camera(**cam_args), _tracker_config(JConfig),
+                  landmark_capacity=4096)
+    tt = TTracker(cam, _tracker_config(TConfig), landmark_capacity=4096, device="cpu")
+    for t in range(16):
+        left, right = tsyn.render_frame(world, t)[:2]
+        jt.compute(left, right)
+        tt.compute(left, right)
+    jt.flush()
+    tt.flush()
+    for k in ("n_frames", "n_breaks", "n_recovered", "n_spawned", "n_keypoints",
+              "n_framepoints", "n_tracked_points", "n_inliers"):
+        assert getattr(tt.stats, k) == getattr(jt.stats, k), k
+    assert tt.stats.n_breaks == 0 and tt.stats.n_inliers > 0
+    Tj, Tt = np.stack(jt.trajectory), np.stack(tt.trajectory)
+    assert np.abs(Tt[:, :3, 3] - Tj[:, :3, 3]).max() <= 1e-4

@@ -32,6 +32,7 @@ from vslam_tpu.ops import lie as jlie
 from vslam_tpu_torch.io import from_jax
 from vslam_tpu_torch.mapping import frame as tframe
 from vslam_tpu_torch.mapping import landmarks as tlm
+from vslam_tpu_torch.ops import camera as tcam
 from vslam_tpu_torch.solve import gn as tgn
 
 # Under pytest-xdist each core runs a worker process; torch's own intra-op
@@ -185,7 +186,8 @@ def test_propagate_promote_recover_match_jax(scene, frames):
     tout, tn_prom = tframe.promote_temporary_points(tc, tprev, tout, t_motion, t_p2c)
     tout, tn_rec = tframe.recover_lost_landmarks(
         tc, tprev, tout, t_motion, t_p2c,
-        torch.from_numpy(planes.view(np.int32)), (192, 512), 50.0, 1.0, 200.0, border=20)
+        torch.from_numpy(planes.view(np.int32)), torch.zeros((192, 512)),
+        torch.zeros((192, 512)), 50.0, 1.0, 200.0, border=20)
     assert int(jn_rec) > 10  # recovery actually ran
     assert int(tn_rec) == int(jn_rec) and int(tn_prom) == int(jn_prom)
     for name in ("valid", "reliable", "track_len", "landmark_slot"):
@@ -248,12 +250,81 @@ def test_spawn_and_update_observed_matches_jax(scene, frames):
     np.testing.assert_allclose(w_t, w_j, atol=1e-6)
 
 
+DETECTORS = ("FAST", "FAST12", "AGAST", "HARRIS", "GFTT", "SHI_TOMASI", "DOG", "KAZE",
+             "AKAZE")
+
+
 def test_unported_front_end_options_raise(scene):
-    _, tc, _, imgs = scene
-    p = torch.from_numpy(imgs[0])
-    for kw in (dict(detector="HARRIS"), dict(descriptor="ORB256"),
-               dict(descriptor="ORB256", octaves=2), dict(detector="DOG", octaves=2)):
-        args = dict(capacity=CAPACITY, bin_size=16, border=20)
-        args.update(kw)
-        with pytest.raises(NotImplementedError, match="item 14"):
-            tframe.stereo_frontend_core(tc, p[0], p[1], torch.tensor(20.0), *STEREO, **args)
+    """No front-end option is left unported: every detector with every
+    descriptor runs on the stereo and the depth front-end (a 96 x 160
+    crop, one and two octaves; tests/test_torch_staged.py and
+    tests/test_torch_rgbd.py hold them against JAX), and only an unknown
+    detector name raises."""
+    _, _, _, imgs = scene
+    crop = torch.from_numpy(imgs[0][:, 48:144, 176:336].copy())
+    cam = tcam.make_camera(fx=300.0, fy=300.0, cx=80.0, cy=48.0, baseline_m=0.4,
+                           rows=96, cols=160, device="cpu")
+    depth_m = torch.full((96, 160), 5.0)
+    thr = torch.tensor(10.0)
+    for detector in DETECTORS:
+        for descriptor in ("BRIEF256", "BRIEF256R", "ORB256"):
+            octaves = 2 if detector in ("FAST", "DOG") else 1
+            kw = dict(capacity=64, bin_size=12, border=20, descriptor=descriptor,
+                      detector=detector, octaves=octaves, want_planes=True)
+            frame, n_kp, _, planes = tframe.stereo_frontend_core(
+                cam, crop[0], crop[1], thr, *STEREO, **kw)
+            dframe, dn_kp, _, dplanes = tframe.process_depth_frame(
+                cam, crop[0], depth_m, thr, 0.3, 10.0, **kw)
+            assert int(n_kp) == int(dn_kp) > 0, (detector, descriptor)
+            assert frame.desc.shape == dframe.desc.shape == (64, 8)
+            assert (planes is None) == (dplanes is None) == (descriptor == "ORB256")
+    for run in (lambda kw: tframe.stereo_frontend_core(cam, crop[0], crop[1], thr,
+                                                       *STEREO, **kw),
+                lambda kw: tframe.process_depth_frame(cam, crop[0], depth_m, thr,
+                                                      0.3, 10.0, **kw)):
+        with pytest.raises(ValueError, match="unknown detector"):
+            run(dict(capacity=64, bin_size=12, border=20, detector="SIFT"))
+
+
+def test_recover_lost_landmarks_orb256_matches_jax(scene):
+    """ORB256 recovery describes both images at the projections (no
+    planes).  Integer fields exact, the recovered count exact, the
+    differing descriptor bits counted (at most 0.1%), positions 1e-4."""
+    jc, tc, world, imgs = scene
+    mh, et, mind, maxd = STEREO
+
+    @jax.jit
+    def jfront(il, ir):
+        return jframe.stereo_frontend_core(
+            jc, il, ir, jnp.float32(20.0), jnp.int32(mh), jnp.float32(et),
+            jnp.float32(mind), jnp.float32(maxd), capacity=CAPACITY, bin_size=16,
+            border=20, descriptor="ORB256")[0]
+
+    prev_j = jfront(jnp.asarray(imgs[0][0]), jnp.asarray(imgs[0][1]))
+    cur_j = jfront(jnp.asarray(imgs[1][0]), jnp.asarray(imgs[1][1]))
+    cur_j = cur_j._replace(valid=cur_j.valid & (jnp.arange(CAPACITY) < CAPACITY // 2))
+    valid = np.asarray(prev_j.valid)
+    prev_j = prev_j._replace(
+        landmark_slot=jnp.asarray(np.where(valid, np.arange(CAPACITY), -1), jnp.int32),
+        track_len=jnp.asarray(np.where(valid, 3, 0), jnp.int32))
+    p2c = np.where(np.random.default_rng(4).uniform(size=CAPACITY) < 0.6, -1, 0)
+    p2c = p2c.astype(np.int32)
+    motion = _gt_motion(world, 3, 4)
+    ref, n_ref = jframe.recover_lost_landmarks(
+        jc, prev_j, cur_j, jnp.asarray(motion), jnp.asarray(p2c), None,
+        jnp.asarray(imgs[1][0]), jnp.asarray(imgs[1][1]), jnp.float32(50.0),
+        jnp.float32(1.0), jnp.float32(200.0), border=20, descriptor="ORB256")
+    got, n_got = tframe.recover_lost_landmarks(
+        tc, from_jax.frame_state_from_numpy(_np(prev_j)),
+        from_jax.frame_state_from_numpy(_np(cur_j)), torch.from_numpy(motion),
+        torch.from_numpy(p2c), None, torch.from_numpy(imgs[1][0]),
+        torch.from_numpy(imgs[1][1]), 50.0, 1.0, 200.0, border=20, descriptor="ORB256")
+    assert int(n_got) == int(n_ref) > 10
+    for name in ("valid", "reliable", "track_len", "landmark_slot"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(ref, name)), err_msg=name)
+    want_desc = np.asarray(ref.desc).view(np.int32)
+    n_diff = int(np.unpackbits((got.desc.numpy() ^ want_desc).view(np.uint8)).sum())
+    assert n_diff <= 1e-3 * want_desc.size * 32, n_diff
+    np.testing.assert_allclose(got.uv4.numpy(), np.asarray(ref.uv4), atol=1e-4)
+    np.testing.assert_allclose(got.p_cam.numpy(), np.asarray(ref.p_cam), atol=1e-4)

@@ -58,7 +58,8 @@ def test_every_port_module_imports_with_jax_blocked():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "assert {'vslam_tpu_torch.backend.ba', 'vslam_tpu_torch.system.ba_runner',\n"
-        "        'vslam_tpu_torch.frontend.depth'} <= set(names), names\n"
+        "        'vslam_tpu_torch.frontend.depth', 'vslam_tpu_torch.frontend.orb',\n"
+        "        'vslam_tpu_torch.frontend.detect'} <= set(names), names\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -139,13 +140,15 @@ def test_closed_loop_engine_constructs():
     assert eng.relocalizer.QUERY_CAP == eng.tracker.state.kf_desc.shape[1]
 
 
-@pytest.mark.parametrize("name", ["tum", "icl"])
+@pytest.mark.parametrize("name", ["tum", "icl", "xtion"])
 def test_shipped_rgbd_configurations_construct(name):
-    """configuration_tum.yaml and configuration_icl.yaml (BRIEF256) build
-    an RGB-D engine; configuration_xtion.yaml (ORB256) waits for item 14."""
+    """configuration_tum.yaml, configuration_icl.yaml (BRIEF256) and
+    configuration_xtion.yaml (ORB256, bilateral depth) build an RGB-D
+    engine."""
     cfg = tconfig.load_config(os.path.join(REPO, "configurations", f"configuration_{name}.yaml"))
     eng = SlamEngine(CAM, cfg, landmark_capacity=1024, device="cpu")
     assert eng.tracker.mode == "depth" and eng.tracker.params.min_depth == 0.3
+    assert eng.tracker.params.bilateral_depth == (name == "xtion")
 
 
 def test_ba_and_rgbd_engines_construct():

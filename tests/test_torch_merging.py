@@ -5,7 +5,9 @@ back-propagation: the union-find remap, the batched absorb
 the same seeded inputs.
 
 Tolerances: remaps, integer and boolean fields exact; xyz and H_acc
-atol 1e-5 (f32 sums in another order).
+atol 1e-5 (f32 sums in another order); against the JAX package's Python
+union-find fallback, whose remap lists the same merges in another order,
+rtol 1e-6 on top (measured 1.9e-7: one ulp).
 """
 
 import os
@@ -78,13 +80,13 @@ def _np(table):
     return {k: np.asarray(v) for k, v in table._asdict().items()}
 
 
-def _assert_tables_match(got, want):
+def _assert_tables_match(got, want, rtol=0.0):
     got = from_jax.landmark_table_to_numpy(got)
     want = _np(want)
     for k in INT_FIELDS:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    np.testing.assert_allclose(got["xyz_w"], want["xyz_w"], atol=1e-5)
-    np.testing.assert_allclose(got["H_acc"], want["H_acc"], atol=1e-5)
+    np.testing.assert_allclose(got["xyz_w"], want["xyz_w"], rtol=rtol, atol=1e-5)
+    np.testing.assert_allclose(got["H_acc"], want["H_acc"], rtol=rtol, atol=1e-5)
 
 
 def test_apply_merges_matches_jax():
@@ -115,7 +117,16 @@ class _Allocator:
         self.released.extend(int(s) for s in slots)
 
 
-def test_merge_landmarks_matches_jax():
+@pytest.mark.parametrize("library", ["native", "fallback"])
+def test_merge_landmarks_matches_jax(library, monkeypatch):
+    """The JAX package releases the absorbed slots in its union-find's
+    remap order: ascending with the native library, insertion order with
+    its Python fallback (used where the library is not built).  The port
+    always releases them ascending, as the native library does."""
+    if library == "fallback":
+        monkeypatch.setattr(native, "get_lib", lambda: None)
+    elif not native.available():
+        pytest.skip("native library not built")  # as tests/test_native.py
     jt = _table(seed=2)
     corr = _pairs(seed=4)
     jalloc = jlm.SlotAllocator(CAP)
@@ -124,8 +135,13 @@ def test_merge_landmarks_matches_jax():
     got, got_remap = tmerging.merge_landmarks(
         from_jax.landmark_table_from_numpy(_np(jt)), talloc, corr)
     assert got_remap == want_remap and len(got_remap) > 10
-    assert talloc.released == jalloc._free
-    _assert_tables_match(got, want)
+    if library == "native":
+        assert talloc.released == jalloc._free
+    else:
+        assert talloc.released == sorted(jalloc._free)
+        assert talloc.released != jalloc._free  # the orders differ here
+    # The fallback's remap order is another order of the same f32 sums.
+    _assert_tables_match(got, want, rtol=1e-6 if library == "fallback" else 0.0)
 
 
 def test_push_free_slots_matches_jax():

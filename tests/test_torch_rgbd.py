@@ -18,6 +18,8 @@ Tolerances:
     chi2 rtol 1e-5, inlier flags exact;
   * recover_lost_landmarks_depth: the frame as process_depth_frame's,
     the recovered count exact;
+  * ORB256 (front-end and recovery): as above, but the differing
+    descriptor bits are counted and at most 0.1% (measured 0);
   * 16-frame tracker runs: every event count equal, every position
     within 1e-4 m (measured: 2e-6 m).
 """
@@ -34,6 +36,7 @@ from vslam_tpu.frontend import brief as jbrief
 from vslam_tpu.frontend import depth as jdepth
 from vslam_tpu.io import synthetic as jsyn
 from vslam_tpu.io.config import ParameterCollection as JConfig
+from vslam_tpu.io.config import load_config as jload
 from vslam_tpu.mapping import frame as jframe
 from vslam_tpu.ops import camera as jcam
 from vslam_tpu.ops import lie as jlie
@@ -44,6 +47,7 @@ from vslam_tpu_torch.frontend import depth as tdepth
 from vslam_tpu_torch.io import from_jax
 from vslam_tpu_torch.io import synthetic as tsyn
 from vslam_tpu_torch.io.config import ParameterCollection as TConfig
+from vslam_tpu_torch.io.config import load_config as tload
 from vslam_tpu_torch.mapping import frame as tframe
 from vslam_tpu_torch.ops import camera as tcam
 from vslam_tpu_torch.solve import aligners as tal
@@ -52,6 +56,8 @@ from vslam_tpu_torch.tracking.tracker import FusedPoseTracker as TTracker
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CAM_ARGS = dict(fx=300.0, fy=300.0, cx=160.0, cy=96.0, baseline_m=0.075, rows=192, cols=320)
 CAPACITY = 256
@@ -155,10 +161,32 @@ def test_process_depth_frame_matches_jax(scene, monkeypatch, name, kw):
         np.testing.assert_array_equal(tout[3].numpy(), np.asarray(jout[3]).view(np.int32))
 
 
-def test_process_depth_frame_rejects_orb(scene):
-    _, tc, _, frames = scene
-    with pytest.raises(NotImplementedError, match="item 14"):
-        _torch_depth_frame(tc, *frames[0], 12.0, descriptor="ORB256")
+def _assert_same_orb_frame(tf, jf):
+    """As _assert_same_frame, the differing descriptor bits counted (at
+    most 0.1%: ORB256's bilinear compares may flip at a tie)."""
+    jf = {k: np.asarray(v) for k, v in jf._asdict().items()}
+    for name in ("uv4", "valid", "reliable", "track_len", "landmark_slot"):
+        np.testing.assert_array_equal(getattr(tf, name).numpy(), jf[name], err_msg=name)
+    want = jf["desc"].view(np.int32)
+    n_diff = int(np.unpackbits((tf.desc.numpy() ^ want).view(np.uint8)).sum())
+    assert n_diff <= 1e-3 * want.size * 32, n_diff
+    np.testing.assert_allclose(tf.p_cam.numpy(), jf["p_cam"], rtol=1e-6)
+
+
+@pytest.mark.parametrize("want_planes", [True, False])
+def test_process_depth_frame_rejects_orb(scene, want_planes):
+    """ORB256 was once refused here; it is ported: the depth front-end
+    with ORB256 gives JAX's frame and returns no planes (recovery
+    describes the image)."""
+    jc, tc, _, frames = scene
+    img, depth = frames[4]
+    kw = dict(want_planes=want_planes, descriptor="ORB256")
+    jout = _jax_depth_frame(jc, img, depth, 12.0, **kw)
+    tout = _torch_depth_frame(tc, img, depth, 12.0, **kw)
+    _assert_same_orb_frame(tout[0], jout[0])
+    assert int(tout[1]) == int(jout[1]) and int(tout[2]) == int(jout[2]) > 100
+    if want_planes:
+        assert tout[3] is None and jout[3] is None
 
 
 def _uvd_problem(seed=0, n=200):
@@ -242,10 +270,39 @@ def test_recover_lost_landmarks_depth_matches_jax(scene):
         tc, from_jax.frame_state_from_numpy(to_t),
         from_jax.frame_state_from_numpy({k: np.asarray(v) for k, v in cur_j._asdict().items()}),
         torch.from_numpy(motion), torch.from_numpy(prev_to_cur),
-        torch.from_numpy(np.asarray(planes_j).view(np.int32)), torch.from_numpy(frames[7][1]),
+        torch.from_numpy(np.asarray(planes_j).view(np.int32)), torch.from_numpy(frames[7][0]),
+        torch.from_numpy(frames[7][1]),
         torch.tensor(50.0), 0.3, 30.0, border=20)
     assert int(n_got) == int(n_ref) > 20
     _assert_same_frame(got, ref)
+
+
+def test_recover_lost_landmarks_depth_orb256_matches_jax(scene):
+    jc, tc, world, frames = scene
+    kw = dict(want_planes=False, descriptor="ORB256")
+    prev_j = _jax_depth_frame(jc, *frames[6], 12.0, **kw)[0]
+    cur_j = _jax_depth_frame(jc, *frames[7], 12.0, **kw)[0]
+    cur_j = cur_j._replace(valid=cur_j.valid & (jnp.arange(CAPACITY) < CAPACITY // 2))
+    valid = np.asarray(prev_j.valid)
+    prev_j = prev_j._replace(
+        landmark_slot=jnp.asarray(np.where(valid, np.arange(CAPACITY), -1), jnp.int32),
+        track_len=jnp.asarray(np.where(valid, 3, 0), jnp.int32))
+    prev_to_cur = np.where(np.random.default_rng(4).uniform(size=CAPACITY) < 0.6, -1,
+                           0).astype(np.int32)
+    motion = np.linalg.inv(world.poses[7]) @ world.poses[6]
+    ref, n_ref = jframe.recover_lost_landmarks_depth(
+        jc, prev_j, cur_j, jnp.asarray(motion), jnp.asarray(prev_to_cur), None,
+        jnp.asarray(frames[7][0]), jnp.asarray(frames[7][1]), jnp.float32(50.0),
+        jnp.float32(0.3), jnp.float32(30.0), border=20, descriptor="ORB256")
+    got, n_got = tframe.recover_lost_landmarks_depth(
+        tc, from_jax.frame_state_from_numpy({k: np.asarray(v) for k, v in
+                                             prev_j._asdict().items()}),
+        from_jax.frame_state_from_numpy({k: np.asarray(v) for k, v in cur_j._asdict().items()}),
+        torch.from_numpy(motion), torch.from_numpy(prev_to_cur), None,
+        torch.from_numpy(frames[7][0]), torch.from_numpy(frames[7][1]),
+        torch.tensor(50.0), 0.3, 30.0, border=20, descriptor="ORB256")
+    assert int(n_got) == int(n_ref) > 20
+    _assert_same_orb_frame(got, ref)
 
 
 def _tracker_config(cls, calib=None):
@@ -292,3 +349,46 @@ def test_rgbd_tracker_matches_jax(scene, sensor):
     Tj, Tt = np.stack(jt.trajectory), np.stack(tt.trajectory)
     assert np.abs(Tt[:, :3, 3] - Tj[:, :3, 3]).max() <= 1e-4
     assert np.abs(Tt[-1, :3, 3] - world.poses[-1][:3, 3]).max() <= 0.05
+
+
+def test_rgbd_tracker_with_the_xtion_front_end_matches_jax(scene):
+    """16 frames with configuration_xtion.yaml's front-end and tracker
+    settings (FAST + ORB256, bin 12, bilateral depth, its threshold
+    controller and landmark settings), at this scene's capacity and depth
+    range.
+
+    Frames, breaks, keypoints, framepoints and inliers are JAX's exactly;
+    the tracked and spawned counts within 2.  Over the run 3 of 4,096
+    ORB256 descriptors differ from JAX's, by one bit each: the port's
+    orientation is within 7e-6 rad of XLA's (which itself changes with
+    how XLA fuses the program), and with XLA's angle the port's bits are
+    exact.  Each flip moves one match (measured: tracked 1,541 against
+    1,540, spawned 700 against 701).  Positions agree within 1e-4 m up to
+    frame 5, before the first such flip, and within 2e-3 m after it
+    (measured 1.2e-3 m at the end of a 4.5 m path); both runs end within
+    0.1 m of the ground truth (measured 0.054 m)."""
+    jc, tc, world, frames = scene
+    cfgs = []
+    for load in (jload, tload):
+        cfg = load(os.path.join(REPO, "configurations", "configuration_xtion.yaml"))
+        cfg.framepoint_generation.capacity = CAPACITY
+        cfg.framepoint_generation.maximum_depth_meters = 30.0
+        cfgs.append(cfg)
+    assert cfgs[1].framepoint_generation.descriptor_type == "ORB256"
+    jt = JTracker(jc, cfgs[0], landmark_capacity=8192)
+    tt = TTracker(tc, cfgs[1], landmark_capacity=8192, device="cpu")
+    assert tt.params.bilateral_depth and tt.params.descriptor == "ORB256"
+    for img, depth in frames:
+        jt.compute(img, depth)
+        tt.compute(img, depth)
+    jt.flush()
+    tt.flush()
+    for k in EVENTS:
+        tol = 2 if k in ("n_tracked_points", "n_spawned") else 0
+        assert abs(getattr(tt.stats, k) - getattr(jt.stats, k)) <= tol, k
+    assert tt.stats.n_breaks == 0 and tt.stats.n_spawned > 500
+    Tj, Tt = np.stack(jt.trajectory), np.stack(tt.trajectory)
+    assert np.abs(Tt[:6, :3, 3] - Tj[:6, :3, 3]).max() <= 1e-4
+    assert np.abs(Tt[:, :3, 3] - Tj[:, :3, 3]).max() <= 2e-3
+    for T in (Tt, Tj):
+        assert np.abs(T[-1, :3, 3] - world.poses[-1][:3, 3]).max() <= 0.1

@@ -99,7 +99,8 @@ def test_step_tail_on_carried_state_matches_jax(sequence):
     tout = tfused._step_tail(
         tc, tparams, tstate, tcur, torch.tensor(int(n_kp), dtype=torch.int32),
         torch.tensor(int(n_fp), dtype=torch.int32),
-        torch.from_numpy(np.asarray(planes).view(np.int32).copy()), True)
+        torch.from_numpy(np.asarray(planes).view(np.int32).copy()),
+        torch.from_numpy(pair[0]), torch.from_numpy(pair[1]), True)
     jout = _np_state(jax_tail(state, cur, n_kp, n_fp, planes))
     got = from_jax.tracker_state_to_numpy(tout)
 

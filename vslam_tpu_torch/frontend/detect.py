@@ -1,21 +1,31 @@
-"""FAST-family corner detection over an image pyramid (port of the FAST
-subset of vslam_tpu/frontend/detect.py).
+"""Keypoint detection over an image pyramid (port of
+vslam_tpu/frontend/detect.py).
 
-Whole-image array program: FAST-9/16 (or FAST-12) score map -> 3x3 NMS
--> border mask -> per-cell argmax over a bin_size grid -> global top-K to
-a fixed capacity, per pyramid octave, with coordinates mapped back to
-level 0.  HARRIS, GFTT, DOG and KAZE are not ported yet (ROADMAP Queue 1
-item 14).
+Whole-image array program: a detector's score map -> 3x3 NMS -> border
+mask -> per-cell argmax over a bin_size grid -> global top-K to a fixed
+capacity, per pyramid octave, with coordinates mapped back to level 0.
+The detectors: FAST-9/16 and FAST-12 (AGAST maps onto FAST-9), Harris,
+Shi-Tomasi (GFTT), difference of Gaussians (DOG, also SIFT) and the
+nonlinear-diffusion KAZE (also AKAZE).
+
+Exactness against the JAX package on the CPU: FAST is bit-exact.  The
+float detectors are not: XLA-CPU contracts and orders the blurs' sums in
+its own way, and no order written here reproduces its
+`conv_general_dilated`, so their score maps agree to a tolerance and
+their keypoints nearly always (tests/test_torch_detect.py).  Every blur
+is written as shifted sums (no convolution call: cuDNN would choose its
+own algorithm and, by default, TF32).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from vslam_tpu_torch.frontend.fast_brief import CIRCLE, Keypoints, _arc
+from vslam_tpu_torch.frontend.orb import box_blur
 
 ARC_LEN = 9
-_UNPORTED = ("HARRIS", "GFTT", "SHI_TOMASI", "DOG", "KAZE", "AKAZE")
 
 
 def _shifted_stack(img: torch.Tensor) -> torch.Tensor:
@@ -47,15 +57,253 @@ def fast_score_map(img: torch.Tensor, threshold: torch.Tensor,
     return torch.where(corner, torch.maximum(bright, dark), 0.0)
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 square root, as XLA's: through f64 (exact
+    after the second rounding).  torch's own f32 sqrt on the CPU is not
+    correctly rounded (its AVX-512 path)."""
+    return torch.sqrt(x.double()).float()
+
+
+def _structure_tensor(img: torch.Tensor, radius: int = 2):
+    """Box-blurred gradient products (A = IxIx, B = IxIy, C = IyIy) of
+    the image scaled to [0, 1]; central differences, the wrapped border
+    rows and columns zeroed."""
+    x = img * (1.0 / 255.0)
+    Ix = 0.5 * (torch.roll(x, -1, 1) - torch.roll(x, 1, 1))
+    Iy = 0.5 * (torch.roll(x, -1, 0) - torch.roll(x, 1, 0))
+    Ix[:, 0] = 0.0
+    Ix[:, -1] = 0.0
+    Iy[0, :] = 0.0
+    Iy[-1, :] = 0.0
+    return (box_blur(Ix * Ix, radius), box_blur(Ix * Iy, radius),
+            box_blur(Iy * Iy, radius))
+
+
+# Scales putting typical strong-corner responses into the ~5-100 range of
+# the FAST threshold controller.
+_HARRIS_SCALE = 5.0e4
+_GFTT_SCALE = 5.0e3
+
+
+def harris_score_map(img: torch.Tensor, threshold: torch.Tensor) -> torch.Tensor:
+    """Harris response det(M) - 0.04 trace(M)^2, 0 at or below the
+    threshold."""
+    A, B, C = _structure_tensor(img)
+    det = A * C - B * B
+    tr = A + C
+    score = (det - 0.04 * tr * tr) * _HARRIS_SCALE
+    return torch.where(score > threshold, score, 0.0)
+
+
+def gftt_score_map(img: torch.Tensor, threshold: torch.Tensor) -> torch.Tensor:
+    """Shi-Tomasi (good features to track) minimum-eigenvalue response."""
+    A, B, C = _structure_tensor(img)
+    half_tr = 0.5 * (A + C)
+    d = A - C
+    rad = _sqrt(torch.clamp(0.25 * (d * d) + B * B, min=0.0))
+    score = (half_tr - rad) * _GFTT_SCALE
+    return torch.where(score > threshold, score, 0.0)
+
+
+def _gauss_kernel1d(sigma: float) -> np.ndarray:
+    radius = int(np.ceil(3.0 * sigma))
+    x = np.arange(-radius, radius + 1, dtype=np.float64)
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    return (k / k.sum()).astype(np.float32)
+
+
+def _taps(x: torch.Tensor, k: np.ndarray, dim: int) -> torch.Tensor:
+    """Zero-padded correlation of x with the 1-D kernel k along dim, as
+    shifted sums in ascending tap order."""
+    n = len(k)
+    H, W = x.shape
+    if dim == 1:
+        p = torch.nn.functional.pad(x, (n // 2, n // 2))
+        views = [p[:, t:t + W] for t in range(n)]
+    else:
+        p = torch.nn.functional.pad(x, (0, 0, n // 2, n // 2))
+        views = [p[t:t + H] for t in range(n)]
+    out = views[0] * float(k[0])
+    for t in range(1, n):
+        out = out + views[t] * float(k[t])
+    return out
+
+
+def gauss_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Separable Gaussian blur of an (H, W) f32 image (radius ceil(3
+    sigma), zero outside the image): rows, then columns."""
+    k = _gauss_kernel1d(sigma)
+    return _taps(_taps(img, k, 1), k, 0)
+
+
+def _window_max(x: torch.Tensor, size) -> torch.Tensor:
+    """Max over a centred window of a (S, H, W) stack, -inf outside (the
+    JAX package's reduce_window "SAME")."""
+    pad = tuple(s // 2 for s in size)
+    return torch.nn.functional.max_pool3d(x[None, None], size, stride=1, padding=pad)[0, 0]
+
+
+# DoG contrast (8-bit units) -> the detector-threshold range, and the
+# intra-octave scale ladder (k = 2^(1/2), 5 levels -> 4 DoG bands, extrema
+# on the 2 interior bands).
+_DOG_SCALE = 12.0
+_DOG_SIGMAS = (1.0, 1.414, 2.0, 2.828, 4.0)
+
+
+def dog_score_map(img: torch.Tensor, threshold: torch.Tensor) -> torch.Tensor:
+    """Difference-of-Gaussians scale-space extremum response: a pixel
+    scores |D| where it is a 3x3x3 extremum of the DoG stack on an
+    interior band and passes SIFT's edge test (principal-curvature ratio
+    r = 10)."""
+    g = [gauss_blur(img, s) for s in _DOG_SIGMAS]
+    D = torch.stack([g[i + 1] - g[i] for i in range(len(g) - 1)])  # (S, H, W)
+    maxn = _window_max(D, (3, 3, 3))
+    minn = -_window_max(-D, (3, 3, 3))
+    is_ext = ((D >= maxn) & (D > 0)) | ((D <= minn) & (D < 0))
+    Dxx = torch.roll(D, -1, 2) + torch.roll(D, 1, 2) - 2.0 * D
+    Dyy = torch.roll(D, -1, 1) + torch.roll(D, 1, 1) - 2.0 * D
+    Dxy = 0.25 * (
+        torch.roll(torch.roll(D, -1, 1), -1, 2)
+        + torch.roll(torch.roll(D, 1, 1), 1, 2)
+        - torch.roll(torch.roll(D, -1, 1), 1, 2)
+        - torch.roll(torch.roll(D, 1, 1), -1, 2)
+    )
+    tr = Dxx + Dyy
+    det = Dxx * Dyy - Dxy * Dxy
+    r = 10.0
+    not_edge = (det > 0) & (tr * tr * r < (r + 1.0) ** 2 * det)
+    score = torch.where(is_ext & not_edge, torch.abs(D) * _DOG_SCALE, 0.0)
+    score = score[1:-1].amax(dim=0)
+    return torch.where(score > threshold, score, 0.0)
+
+
+# KAZE: the image evolves by Perona-Malik diffusion dL/dt = div(g grad L),
+# integrated by Fast Explicit Diffusion cycles with the tau ladder
+# tau_j = tau_max / (2 cos^2(pi (2j+1) / (4n+2))); keypoints are extrema
+# of the scale-normalized Hessian determinant over the evolution ladder
+# t = sigma^2 / 2.
+_KAZE_SIGMAS = (1.6, 2.26, 3.2, 4.53, 6.4)
+_KAZE_SCALE = 4.0e4
+
+
+def _fed_tau_ladder(n: int, tau_max: float = 0.25) -> np.ndarray:
+    j = np.arange(n, dtype=np.float64)
+    return (tau_max / (2.0 * np.cos(np.pi * (2 * j + 1) / (4 * n + 2)) ** 2)
+            ).astype(np.float32)
+
+
+def _fed_steps_for_time(T: float, tau_max: float = 0.25) -> int:
+    """Smallest n with cycle time tau_max * n(n+1)/3 >= T."""
+    n = 1
+    while tau_max * n * (n + 1) / 3.0 < T:
+        n += 1
+    return n
+
+
+def _grad_xy(L: torch.Tensor):
+    """Central differences, the wrapped border columns / rows zeroed."""
+    gx = 0.5 * (torch.roll(L, -1, 1) - torch.roll(L, 1, 1))
+    gy = 0.5 * (torch.roll(L, -1, 0) - torch.roll(L, 1, 0))
+    gx[:, 0] = 0.0
+    gx[:, -1] = 0.0
+    gy[0, :] = 0.0
+    gy[-1, :] = 0.0
+    return gx, gy
+
+
+def _diffusion_substep(L: torch.Tensor, g: torch.Tensor, tau: float) -> torch.Tensor:
+    """One explicit step of div(g grad L): face conductivities the mean
+    of the two cells', zero flux through the image border."""
+
+    def flux(axis, direction):
+        f = 0.5 * (g + torch.roll(g, -direction, axis)) * (torch.roll(L, -direction, axis) - L)
+        edge = -1 if direction == 1 else 0
+        if axis == 0:
+            f[edge, :] = 0.0
+        else:
+            f[:, edge] = 0.0
+        return f
+
+    div = flux(1, 1) + flux(1, -1) + flux(0, 1) + flux(0, -1)
+    return L + tau * div
+
+
+def _kaze_contrast_k(L: torch.Tensor, percentile: float = 0.7) -> torch.Tensor:
+    """KAZE's contrast factor: the percentile of the nonzero gradient
+    magnitudes of the 1-sigma-blurred image, from a 64-bin histogram (an
+    integer count, the same on every run)."""
+    gx, gy = _grad_xy(gauss_blur(L, 1.0))
+    mag = _sqrt(gx * gx + gy * gy)
+    mmax = torch.clamp(mag.max(), min=1e-6)
+    bins = torch.clamp((mag / mmax * 64.0).to(torch.int32), 0, 63)
+    hist = torch.zeros(64, dtype=torch.int64, device=L.device).index_add_(
+        0, bins.reshape(-1).to(torch.int64), (mag > 1e-6).reshape(-1).to(torch.int64))
+    hist[0] = 0
+    total = torch.clamp(hist.sum(), min=1)
+    c = torch.cumsum(hist, 0)
+    kbin = (c < (percentile * total.to(torch.float32)).to(torch.int64)).sum()
+    return torch.clamp((kbin.to(torch.float32) + 0.5) / 64.0 * mmax, min=1e-3)
+
+
+def kaze_score_map(img: torch.Tensor, threshold: torch.Tensor) -> torch.Tensor:
+    """Nonlinear-diffusion scale-space Hessian response: a pixel scores
+    where the scale-normalized Hessian determinant of an interior
+    evolution level is a positive 3x3 spatial maximum (derivative step d
+    ~ sigma / 1.6), max over the interior levels."""
+    x = img.to(torch.float32) * (1.0 / 255.0)
+    L = gauss_blur(x, _KAZE_SIGMAS[0])
+    k = _kaze_contrast_k(x)
+    k2 = k * k
+    levels = [L]
+    t_prev = _KAZE_SIGMAS[0] ** 2 / 2.0
+    for sigma in _KAZE_SIGMAS[1:]:
+        t = sigma ** 2 / 2.0
+        taus = _fed_tau_ladder(_fed_steps_for_time(t - t_prev))
+        # Perona-Malik g2 conductivity, frozen for the cycle.
+        gx, gy = _grad_xy(gauss_blur(L, 1.0))
+        g = 1.0 / (1.0 + (gx * gx + gy * gy) / k2)
+        for tau in taus:
+            L = _diffusion_substep(L, g, float(tau))
+        levels.append(L)
+        t_prev = t
+
+    resp = []
+    for sigma, Li in zip(_KAZE_SIGMAS, levels):
+        d = max(1, int(round(sigma / 1.6)))
+
+        def dstep(L, axis, dd=d):
+            return (torch.roll(L, -dd, axis) - torch.roll(L, dd, axis)) * (0.5 / dd)
+
+        Lx = dstep(Li, 1)
+        Ly = dstep(Li, 0)
+        Lxx = dstep(Lx, 1)
+        Lxy = dstep(Lx, 0)
+        Lyy = dstep(Ly, 0)
+        resp.append((sigma ** 2) ** 2 * (Lxx * Lyy - Lxy * Lxy))
+    D = torch.stack(resp)  # (S, H, W)
+    is_ext = (D >= _window_max(D, (1, 3, 3))) & (D > 0)
+    score = torch.where(is_ext, D * _KAZE_SCALE, 0.0)
+    score = score[1:-1].amax(dim=0)
+    return torch.where(score > threshold, score, 0.0)
+
+
 def score_map(img: torch.Tensor, threshold: torch.Tensor, detector: str) -> torch.Tensor:
+    """The detector registry (the reference's pluggable detector, chosen
+    by detector_type): AGAST scores as FAST-9, SHI_TOMASI as GFTT, SIFT
+    as DOG (io/config.py maps it) and AKAZE as KAZE."""
     d = detector.upper()
     if d in ("FAST", "FAST9", "AGAST"):
         return fast_score_map(img, threshold, arc_len=9)
     if d == "FAST12":
         return fast_score_map(img, threshold, arc_len=12)
-    if d in _UNPORTED:
-        raise NotImplementedError(
-            f"detector {detector!r} is not ported yet (ROADMAP Queue 1 item 14)")
+    if d == "HARRIS":
+        return harris_score_map(img, threshold)
+    if d in ("GFTT", "SHI_TOMASI"):
+        return gftt_score_map(img, threshold)
+    if d == "DOG":
+        return dog_score_map(img, threshold)
+    if d in ("KAZE", "AKAZE"):
+        return kaze_score_map(img, threshold)
     raise ValueError(f"unknown detector '{detector}' "
                      "(FAST|FAST12|AGAST|HARRIS|GFTT|DOG|KAZE|AKAZE)")
 

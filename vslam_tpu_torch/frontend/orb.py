@@ -1,8 +1,11 @@
-"""BRIEF test pattern and box blur (port of the subset of
-vslam_tpu/frontend/orb.py that the dense BRIEF descriptors use).
+"""Box blur, the BRIEF test pattern and the rotation-aware gather
+descriptor ORB256 (port of vslam_tpu/frontend/orb.py).
 
-The rotation-aware gather descriptor `describe` (descriptor_type ORB256)
-is not ported yet (ROADMAP Queue 1 item 14).
+`describe` steers the 256-pair pattern by each keypoint's intensity-
+centroid orientation over a radius-15 disk and compares bilinear samples
+of the box-blurred image, every keypoint at once: (K, 31, 31) disk samples
+and (K, 256, 2) pattern samples, gathered with indices clipped as JAX
+clamps them.
 """
 
 from __future__ import annotations
@@ -10,6 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vslam_tpu_torch.ops import hamming
+
+PATCH_RADIUS = 15  # orientation patch radius (ORB standard 31x31 patch)
 PATTERN_RADIUS = 13  # BRIEF pattern extent
 N_BITS = 256
 
@@ -20,6 +26,15 @@ def _make_pattern(seed: int = 7) -> np.ndarray:
     sigma = (2 * PATTERN_RADIUS + 1) / 5.0
     pts = rng.normal(0.0, sigma, size=(N_BITS, 2, 2))
     return np.clip(pts, -PATTERN_RADIUS, PATTERN_RADIUS).astype(np.float32)
+
+
+PATTERN = _make_pattern()  # (256, 2, 2)
+
+# Circular orientation patch: (31, 31) mask and its row / column offsets.
+_yy, _xx = np.mgrid[-PATCH_RADIUS:PATCH_RADIUS + 1, -PATCH_RADIUS:PATCH_RADIUS + 1]
+DISK = (_yy**2 + _xx**2 <= PATCH_RADIUS**2).astype(np.float32)
+DISK_DR = _yy.astype(np.float32)
+DISK_DC = _xx.astype(np.float32)
 
 
 def _fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
@@ -66,3 +81,59 @@ def box_blur(img: torch.Tensor, radius: int = 2) -> torch.Tensor:
     for j in range(2, k):
         s = _fma(rows[:, j:j + W], inv, s)
     return s * inv
+
+
+def _bilinear(img: torch.Tensor, r: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Bilinear samples of an (H, W) image at float (r, c) of any shape,
+    clamped to the image.  The weights multiply in the JAX package's
+    order; a NaN coordinate reads pixel 0 and gives NaN, as there."""
+    H, W = img.shape
+    r = torch.clamp(r, 0.0, H - 1.001)
+    c = torch.clamp(c, 0.0, W - 1.001)
+    r0 = torch.floor(r)
+    c0 = torch.floor(c)
+    fr = r - r0
+    fc = c - c0
+    ri = torch.nan_to_num(r0).clamp(0, H - 2).to(torch.int64)
+    ci = torch.nan_to_num(c0).clamp(0, W - 2).to(torch.int64)
+    flat = img.reshape(-1)
+    base = ri * W + ci
+    i00 = flat[base]
+    i01 = flat[base + 1]
+    i10 = flat[base + W]
+    i11 = flat[base + W + 1]
+    return (i00 * (1 - fr) * (1 - fc) + i01 * (1 - fr) * fc
+            + i10 * fr * (1 - fc) + i11 * fr * fc)
+
+
+def _const(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    return torch.from_numpy(a).to(like.device)
+
+
+def orientations(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Intensity-centroid orientation atan2(m01, m10) of each keypoint
+    over the radius-15 disk.  uv: (K, 2) [col, row] f32; returns (K,)."""
+    dr, dc, disk = (_const(a, img) for a in (DISK_DR, DISK_DC, DISK))
+    c = uv[:, 0, None, None]
+    r = uv[:, 1, None, None]
+    vals = _bilinear(img, r + dr, c + dc) * disk  # (K, 31, 31)
+    m10 = (vals * dc).sum(dim=(1, 2))
+    m01 = (vals * dr).sum(dim=(1, 2))
+    return torch.atan2(m01, m10)
+
+
+def describe(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Packed 256-bit ORB256 descriptors: (H, W) f32 image, (K, 2)
+    [col, row] keypoints -> (K, 8) int32.  Invalid keypoints give rows
+    that the caller masks."""
+    smooth = box_blur(img, radius=2)
+    theta = orientations(smooth, uv)
+    ct = torch.cos(theta)[:, None, None]
+    st = torch.sin(theta)[:, None, None]
+    pat = _const(PATTERN, img)
+    dr = pat[None, :, :, 0]
+    dc = pat[None, :, :, 1]
+    dr_rot = st * dc + ct * dr  # (K, 256, 2)
+    dc_rot = ct * dc - st * dr
+    vals = _bilinear(smooth, uv[:, 1, None, None] + dr_rot, uv[:, 0, None, None] + dc_rot)
+    return hamming.pack_bits((vals[..., 0] < vals[..., 1]).reshape(uv.shape[0], N_BITS))

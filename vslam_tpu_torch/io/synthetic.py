@@ -138,6 +138,46 @@ def render_frame(world: SyntheticWorld, frame_idx: int):
     return render(False), render(True), p_cam.astype(np.float32)
 
 
+def roll_trajectory(n_frames: int, step: float = 0.4, roll_amplitude_deg: float = 15.0,
+                    roll_period: int = 24):
+    """Forward motion with an oscillating in-plane roll: the rotation-
+    stress sequence.  Returns (poses (T, 4, 4), roll_rad (T,)); pass
+    roll_rad[t] to render_stressed so the patches rotate with the
+    camera."""
+    poses = [np.eye(4, dtype=np.float32)]
+    rolls = [0.0]
+    for t in range(1, n_frames):
+        roll = np.deg2rad(roll_amplitude_deg) * np.sin(2 * np.pi * t / roll_period)
+        T = np.eye(4, dtype=np.float32)
+        T[:3, 3] = [0.0, 0.0, step * t]
+        T[:3, :3] = np.array([[np.cos(roll), -np.sin(roll), 0.0],
+                              [np.sin(roll), np.cos(roll), 0.0],
+                              [0.0, 0.0, 1.0]], np.float32)
+        poses.append(T)
+        rolls.append(float(roll))
+    return np.stack(poses), np.asarray(rolls, np.float32)
+
+
+def render_stressed(world: SyntheticWorld, frame_idx: int, roll_rad: float = 0.0,
+                    gain: float = 1.0, offset: float = 0.0):
+    """render_frame with the patches rotated against a rolling camera
+    (scipy's in-plane rotation of each splat, linear, edge-replicated)
+    and a lighting change img * gain + offset clipped to [0, 255]."""
+    from scipy import ndimage
+
+    if abs(roll_rad) > 1e-4:
+        world = SyntheticWorld(
+            cam=world.cam, points_w=world.points_w,
+            textures=ndimage.rotate(world.textures, -np.rad2deg(roll_rad), axes=(1, 2),
+                                    reshape=False, mode="nearest", order=1),
+            poses=world.poses, background=world.background, patch=world.patch)
+    img_l, img_r, p_cam = render_frame(world, frame_idx)
+    if gain != 1.0 or offset != 0.0:
+        img_l = np.clip(img_l * gain + offset, 0.0, 255.0)
+        img_r = np.clip(img_r * gain + offset, 0.0, 255.0)
+    return img_l, img_r, p_cam
+
+
 def render_depth_frame(world: SyntheticWorld, frame_idx: int):
     """Render (intensity, depth_m) for RGB-D mode: the left image of
     render_frame, and a depth map exact on the rendered patches (nearest

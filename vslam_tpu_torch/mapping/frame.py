@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from vslam_tpu_torch.frontend import brief, depth, detect, fast_brief, matching
+from vslam_tpu_torch.frontend import brief, depth, detect, fast_brief, matching, orb
 from vslam_tpu_torch.ops import camera as cam_ops
 from vslam_tpu_torch.ops import hamming, lie
 from vslam_tpu_torch.solve import aligners, gn
@@ -143,22 +143,18 @@ def stereo_frontend_core(
     """Stereo front-end: detection and description of both images,
     epipolar match, triangulation, compaction.
 
-    BRIEF256 at one octave with border >= 16 runs the fused kernel K1
-    (exact only >= 16 px from the edge); everything else runs the staged
-    front-end: FAST over the pyramid, then dense BRIEF planes (K2, K3) or
-    rotated-bank planes (K4).  With want_planes the level-0 planes of both
-    images (2, 8, H, W) are returned too, for landmark recovery.
+    A FAST-family detector with BRIEF256 at one octave and border >= 16
+    runs the fused kernel K1 (exact only >= 16 px from the edge);
+    everything else runs the staged front-end: the detector over the
+    pyramid, then dense BRIEF planes (K2, K3), rotated-bank planes (K4)
+    or the ORB256 gather.  With want_planes the level-0 planes of both
+    images (2, 8, H, W) are returned too, for landmark recovery (None
+    for ORB256, whose recovery re-describes from the images).
     Returns (FrameState, n_keypoints_left, n_framepoints[, planes])."""
     d_up = detector.upper()
-    if d_up not in _FAST_DETECTORS:
-        raise NotImplementedError(
-            f"detector {detector!r} is not ported yet (ROADMAP Queue 1 item 14)")
-    if descriptor == "ORB256":
-        raise NotImplementedError(
-            "descriptor 'ORB256' (rotation-aware gather BRIEF) is not ported yet "
-            "(ROADMAP Queue 1 item 14)")
     H, W = img_l.shape
-    if descriptor == "BRIEF256" and octaves == 1 and border >= 16:
+    if (descriptor == "BRIEF256" and octaves == 1 and border >= 16
+            and d_up in _FAST_DETECTORS):
         planes, score, rowmax, rowarg = fast_brief.fast_brief_frontend_pair(
             torch.stack([img_l, img_r]).to(torch.float32), threshold,
             arc_len=12 if d_up == "FAST12" else 9, border=border, bin_size=bin_size,
@@ -181,7 +177,10 @@ def stereo_frontend_core(
         kr = detect.detect_keypoints(img_r, threshold, bin_size, capacity, border,
                                      detector, octaves=octaves)
         planes = None
-        if descriptor == "BRIEF256R":
+        if descriptor == "ORB256":
+            dl = orb.describe(img_l, kl.uv)
+            dr = orb.describe(img_r, kr.uv)
+        elif descriptor == "BRIEF256R":
             # Rotated-bank descriptors; landmark recovery re-describes from
             # the upright level-0 planes, as the JAX package does.
             dl = brief.describe_dense_rotated(img_l, kl.uv)
@@ -256,18 +255,16 @@ def process_depth_frame(
     """RGB-D front-end: detect -> describe -> depth gather -> back-project
     (reference DepthFramePointGenerator::compute).  uv4 carries
     [u, v, depth_m, 0].  BRIEF256 describes from the dense planes of the
-    intensity image (one K3 launch; one per level with octaves); with
-    want_planes the (8, H, W) level-0 planes are returned too, for
-    landmark recovery.
+    intensity image (one K3 launch; one per level with octaves), ORB256
+    by its gather; with want_planes the (8, H, W) level-0 planes are
+    returned too, for landmark recovery (None for ORB256).
     Returns (FrameState, n_keypoints, n_framepoints[, planes])."""
-    if descriptor == "ORB256":
-        raise NotImplementedError(
-            "descriptor 'ORB256' (rotation-aware gather BRIEF) is not ported yet "
-            "(ROADMAP Queue 1 item 14)")
     kp = detect.detect_keypoints(img, threshold, bin_size, capacity, border, detector,
                                  octaves=octaves)
     planes = None
-    if descriptor == "BRIEF256R":
+    if descriptor == "ORB256":
+        desc = orb.describe(img, kp.uv)
+    elif descriptor == "BRIEF256R":
         desc = brief.describe_dense_rotated(img, kp.uv)
         if want_planes:
             planes = brief.dense_planes(img)
@@ -393,26 +390,33 @@ def recover_lost_landmarks(
     cur: FrameState,
     motion: torch.Tensor,  # (4, 4) T_cur_prev from the pose solve
     prev_to_cur: torch.Tensor,  # (K,) match indices, -1 = lost
-    planes: torch.Tensor,  # (2, 8, H, W) dense BRIEF planes
-    img_shape,
+    planes,  # (2, 8, H, W) dense BRIEF planes, or None for ORB256
+    img_l: torch.Tensor,
+    img_r: torch.Tensor,
     desc_gate,
     min_disparity,
     max_disparity,
     border: int = 20,
+    descriptor: str = "BRIEF256",
     enabled=True,
 ):
     """Landmark recovery (reference recoverPoints): landmark-backed points
     of the previous frame that found no match are re-acquired at their
-    solved-pose projections by a descriptor lookup in both images, gated
-    on descriptor distance, field of view and disparity, re-triangulated
-    and appended after the valid block of cur.  Returns (cur', n)."""
+    solved-pose projections by a descriptor lookup in both images (in the
+    dense planes; ORB256 describes the images there), gated on descriptor
+    distance, field of view and disparity, re-triangulated and appended
+    after the valid block of cur.  Returns (cur', n)."""
     lost = prev.valid & (prev.landmark_slot >= 0) & (prev_to_cur < 0)
     p_pred = lie.transform_point_cloud(motion, prev.p_cam)
     uv_l, uv_r, z = cam_ops.project_stereo(cam, p_pred)
     vis = (cam_ops.in_field_of_view(cam, uv_l, z, border)
            & cam_ops.in_field_of_view(cam, uv_r, z, border))
-    dl = brief.gather_descriptors(planes[0], img_shape, uv_l)
-    dr = brief.gather_descriptors(planes[1], img_shape, uv_r)
+    if descriptor == "ORB256":
+        dl = orb.describe(img_l, uv_l)
+        dr = orb.describe(img_r, uv_r)
+    else:
+        dl = brief.gather_descriptors(planes[0], img_l.shape, uv_l)
+        dr = brief.gather_descriptors(planes[1], img_r.shape, uv_r)
     gate = torch.as_tensor(desc_gate).to(torch.int32)
     p_cam_rec, tri_ok = cam_ops.triangulate_disparity(cam, uv_l, uv_r, 1.0)
     disp = uv_l[:, 0] - uv_r[:, 0]
@@ -446,25 +450,31 @@ def recover_lost_landmarks_depth(
     cur: FrameState,
     motion: torch.Tensor,  # (4, 4) T_cur_prev from the pose solve
     prev_to_cur: torch.Tensor,  # (K,) match indices, -1 = lost
-    planes: torch.Tensor,  # (8, H, W) dense BRIEF planes of the intensity image
+    planes,  # (8, H, W) dense BRIEF planes of the intensity image, or None
+    img: torch.Tensor,  # the intensity image
     depth_m: torch.Tensor,  # registered depth (meters)
     desc_gate,
     min_depth,
     max_depth,
     border: int = 20,
+    descriptor: str = "BRIEF256",
     enabled=True,
     max_depth_error_ratio: float = 0.2,
 ):
     """RGB-D landmark recovery (reference DepthFramePointGenerator::
     recoverPoints): lost landmark-backed points are re-acquired at their
     solved-pose projections, the descriptor looked up in the dense planes
-    and the depth in the registered map, gated on descriptor distance, the
-    depth range and predicted-vs-measured depth.  Returns (cur', n)."""
+    (ORB256: described from the image) and the depth in the registered
+    map, gated on descriptor distance, the depth range and predicted-vs-
+    measured depth.  Returns (cur', n)."""
     lost = prev.valid & (prev.landmark_slot >= 0) & (prev_to_cur < 0)
     p_pred = lie.transform_point_cloud(motion, prev.p_cam)
     uv, z_pred = cam_ops.project(cam, p_pred)
     vis = cam_ops.in_field_of_view(cam, uv, z_pred, border)
-    d = brief.gather_descriptors(planes, depth_m.shape, uv)
+    if descriptor == "ORB256":
+        d = orb.describe(img, uv)
+    else:
+        d = brief.gather_descriptors(planes, img.shape, uv)
     z_meas = depth.gather_depth(depth_m, uv)
     depth_ok = ((z_meas >= min_depth) & (z_meas <= max_depth)
                 & (torch.abs(z_meas - z_pred)

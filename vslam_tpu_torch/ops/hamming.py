@@ -26,6 +26,16 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     return x & 0x3F
 
 
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(N, 256) {0, 1} -> (N, 8) int32 words, little-endian bit order per
+    word: the JAX package's uint32 words, bit 31 the sign.  The words are
+    summed in int64, which shifts on every device, and wrapped to int32."""
+    w = bits.to(torch.int64).reshape(bits.shape[0], DESC_WORDS, 32)
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    v = (w << shifts).sum(dim=-1)
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
 def hamming_pairwise(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Distance between aligned rows: (N, 8), (N, 8) -> (N,) int32."""
     return popcount32(a ^ b).sum(dim=-1, dtype=torch.int32)

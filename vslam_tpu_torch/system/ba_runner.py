@@ -155,7 +155,8 @@ def ba_config(engine, iterations: int | None = None) -> ba_mod.BAConfig:
 def run_windowed_ba(engine, iterations: int | None = None) -> np.ndarray | None:
     """Build and solve the windowed problem, write the landmarks back and
     propagate the pose corrections.  Returns the correction applied to the
-    newest keyframe (and the live pose), or None if no BA ran."""
+    newest keyframe (and the live pose, and the landmarks spawned after
+    that keyframe), or None if no BA ran."""
     built = build_window_problem(engine)
     if built is None:
         return None
@@ -201,6 +202,16 @@ def run_windowed_ba(engine, iterations: int | None = None) -> np.ndarray | None:
         tracker.trajectory = list(stacked)
 
     C_last = corrections.get(kf_ids[-1], np.eye(4, dtype=np.float32))
+    if kf_ids[-1] in corrections:
+        # Landmarks spawned after the newest window keyframe k (origin_kf
+        # > k: on the card, by the later frames of the drain being
+        # registered) ride with the live pose.  Identity rows for 0..k
+        # leave every other landmark's bits as they are.
+        k = kf_ids[-1]
+        C = torch.eye(4, dtype=torch.float32, device=xyz_opt.device).repeat(k + 2, 1, 1)
+        C[k + 1] = torch.from_numpy(C_last).to(xyz_opt.device)
+        tracker.state = tracker.state._replace(
+            table=lm_mod.apply_kf_corrections(tracker.state.table, C))
     tracker.apply_world_correction(C_last)
     if engine.world_map._last_T is not None:
         engine.world_map._last_T = (C_last @ engine.world_map._last_T).astype(np.float32)

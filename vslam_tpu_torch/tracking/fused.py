@@ -197,8 +197,10 @@ def push_free_slots(free_list: torch.Tensor, free_count: torch.Tensor,
 def _front_end(cam, params: FusedParams, state: TrackerState, img_l, img_r):
     """Returns (frame, n_kp, n_fp, planes); planes (the dense BRIEF maps
     kept for landmark recovery: (2, 8, H, W) stereo, (8, H, W) RGB-D) is
-    None when recovery is off.  In depth mode img_r is the registered
-    depth map in meters."""
+    None when recovery is off or the descriptor is ORB256 (its recovery
+    describes the images).  In depth mode img_r is the registered depth
+    map in meters."""
+    want_planes = params.enable_recovery and params.descriptor != "ORB256"
     if params.mode == "stereo":
         out = frame_mod.stereo_frontend_core(
             cam, img_l, img_r, state.threshold,
@@ -206,7 +208,7 @@ def _front_end(cam, params: FusedParams, state: TrackerState, img_l, img_r):
             params.min_disparity, params.max_disparity,
             capacity=params.capacity, bin_size=params.bin_size,
             border=params.border, descriptor=params.descriptor,
-            detector=params.detector, want_planes=params.enable_recovery,
+            detector=params.detector, want_planes=want_planes,
             octaves=params.octaves,
         )
     else:
@@ -214,9 +216,9 @@ def _front_end(cam, params: FusedParams, state: TrackerState, img_l, img_r):
             cam, img_l, img_r, state.threshold, params.min_depth, params.max_depth,
             capacity=params.capacity, bin_size=params.bin_size, border=params.border,
             descriptor=params.descriptor, detector=params.detector,
-            want_planes=params.enable_recovery, octaves=params.octaves,
+            want_planes=want_planes, octaves=params.octaves,
         )
-    return out if params.enable_recovery else out + (None,)
+    return out if want_planes else out + (None,)
 
 
 def _register_depth_input(cam, params: FusedParams, depth_m, depth_calib=None):
@@ -318,15 +320,15 @@ def _evict(params, state, table, cur, free_list, free_count):
 
 
 def _step_tail(cam, params: FusedParams, state: TrackerState, cur, n_kp, n_fp,
-               planes, motion_model_on: bool, T_odom=None, depth_m=None):
+               planes, img_l, img_r, motion_model_on: bool, T_odom=None):
     """Everything after the front-end; returns the new TrackerState.
 
-    motion_model_on: constant-velocity guess (else identity); T_odom: an
-    external motion guess T_cur_prev that replaces both when given;
-    depth_m: the registered depth map (depth mode)."""
+    img_l, img_r: the frame's images (depth mode: the intensity image and
+    the registered depth map in meters); motion_model_on: constant-
+    velocity guess (else identity); T_odom: an external motion guess
+    T_cur_prev that replaces both when given."""
     dev = state.T_world_cam.device
     eye = torch.eye(4, dtype=torch.float32, device=dev)
-    img_shape = (cam.rows, cam.cols)
 
     # Detector threshold controller (base_framepoint_generator.cpp:440-459)
     # with the reference's dead band.
@@ -399,17 +401,17 @@ def _step_tail(cam, params: FusedParams, state: TrackerState, cur, n_kp, n_fp,
     n_recovered = torch.zeros((), dtype=torch.int32, device=dev)
     if params.enable_recovery and params.mode == "stereo":
         cur, n_recovered = frame_mod.recover_lost_landmarks(
-            cam, state.prev, cur, motion, res.prev_to_cur, planes, img_shape,
+            cam, state.prev, cur, motion, res.prev_to_cur, planes, img_l, img_r,
             torch.clamp(state.desc_gate, max=params.max_recovery_gate),
             params.min_disparity, params.max_disparity,
-            border=params.border, enabled=ok,
+            border=params.border, descriptor=params.descriptor, enabled=ok,
         )
     elif params.enable_recovery:
         cur, n_recovered = frame_mod.recover_lost_landmarks_depth(
-            cam, state.prev, cur, motion, res.prev_to_cur, planes, depth_m,
+            cam, state.prev, cur, motion, res.prev_to_cur, planes, img_l, img_r,
             torch.clamp(state.desc_gate, max=params.max_recovery_gate),
             params.min_depth, params.max_depth,
-            border=params.border, enabled=ok,
+            border=params.border, descriptor=params.descriptor, enabled=ok,
         )
 
     table, cur, next_slot, n_spawned, free_count = _spawn_and_update(
@@ -495,9 +497,8 @@ def step(cam, params: FusedParams, state: TrackerState, imgs: torch.Tensor,
     depth sensor's image first."""
     img_l = imgs[0].to(torch.float32)
     img_r = imgs[1].to(torch.float32)
-    depth_m = None
     if params.mode == "depth":
-        img_r = depth_m = _register_depth_input(cam, params, img_r, depth_calib)
+        img_r = _register_depth_input(cam, params, img_r, depth_calib)
     cur, n_kp, n_fp, planes = _front_end(cam, params, state, img_l, img_r)
-    return _step_tail(cam, params, state, cur, n_kp, n_fp, planes,
-                      motion_model_on, T_odom, depth_m)
+    return _step_tail(cam, params, state, cur, n_kp, n_fp, planes, img_l, img_r,
+                      motion_model_on, T_odom)
