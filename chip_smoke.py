@@ -7,7 +7,9 @@ Phases (each raises on failure; the exit code is then non-zero):
                name and power limit (nvidia-smi);
   2. build   — compile K1 (csrc/fast_brief_frontend.cu) and the dense
                BRIEF kernel behind K2/K3/K4 (csrc/dense_brief.cu) with
-               nvcc, both builds started together (their wall time);
+               nvcc, and the PNG decoder's host unfilter
+               (csrc/png_unfilter.cpp) with g++, the builds started
+               together (their wall time);
                registers and spills (ptxas), resident blocks per SM
                (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the
                shared loads of one pixel (cuobjdump -sass, null with the
@@ -31,17 +33,21 @@ Phases (each raises on failure; the exit code is then non-zero):
   6. slices  — SlamEngine in open-loop mode on the card, each run with
                every launch count set to 0 just before it and read just
                after:
-               a. K1 slice: 128 frames of a 13 m-radius circle at KITTI
-                  resolution with the bench's settings; 128 K1 launches,
-                  0 breaks, ATE <= 0.05 m, 36-48 local maps;
-               b. configuration_kitti.yaml (2 octaves, BRIEF256) on a
-                  64-frame 13 m circle; K2 64, K3 128, K1 and K4 0
-                  launches, 0 breaks, ATE <= 0.05 m, 14-18 local maps;
+               a. K1 slice: the first 64 frames of the bench's 128-frame
+                  13 m-radius circle at KITTI resolution with its settings
+                  (phases 7-8 run all 128 on the same K1 path); 64 K1
+                  launches, 0 breaks, ATE <= 0.05 m, local maps within
+                  +-15% of the JAX engine's on a CPU;
+               b. configuration_kitti.yaml (2 octaves, BRIEF256) on the
+                  first 32 frames of a 64-frame 13 m circle (phase 12 runs
+                  all 64 from disk); K2 32, K3 64, K1 and K4 0 launches,
+                  0 breaks, ATE <= 0.05 m, local maps within +-15% of the
+                  JAX engine's on a CPU;
                c. configuration_euroc.yaml (BRIEF256R) at EuRoC's 752x480
                   and intrinsics on a 32-frame 4 m circle; K4 32 and K2 1
                   launches per frame, K1 and K3 0, 0 breaks, ATE <= 0.05 m,
                   13-17 local maps;
-               each slice's first frames (8, 8, 4) agree with the same
+               each slice's first frames (8, 4, 4) agree with the same
                engine on the CPU within 1e-3 m;
   7. closed  — SlamEngine in closed-loop mode (relocalization, closure
                ICP, pose graph, landmark merging; BA off), the workload
@@ -58,36 +64,67 @@ Phases (each raises on failure; the exit code is then non-zero):
                run; prints each BA problem's (P, L) and the BA stage's
                seconds and calls beside the JAX engine's counts;
   9. tum-config — configurations/configuration_tum.yaml as shipped (RGB-D,
-               closed loop) at TUM fr1's 640x480 and intrinsics on a
-               64-frame circle rendered as (intensity, depth) with the
-               world scaled by 1/10; 64 K3 launches and no K1/K2/K4, 0
+               closed loop) at TUM fr1's 640x480 and intrinsics on the
+               first 32 frames of a 64-frame circle (phase 13 runs all 64
+               from disk) rendered as (intensity, depth) with the world
+               scaled by 1/10; 32 K3 launches and no K1/K2/K4, 0
                breaks, ATE <= 0.05 m, local maps within +-15% of the JAX
                engine's on a CPU; the first 4 frames agree with the CPU
                within 1e-3 m;
  10. xtion-config — configurations/configuration_xtion.yaml as shipped
                (RGB-D, FAST + ORB256, bin 12, bilateral depth filtering,
-               closed loop) on phase 9's world, turning half as fast (64
+               closed loop) on phase 9's world, turning half as fast (32
                frames of a 128-frame circle); no K1/K2/K3/K4 launch
                (ORB256 is a gather, not a kernel), 0 breaks, ATE <= 0.05 m,
                local maps within +-15% of the JAX engine's on a CPU; the
                first 4 frames agree with the CPU within 1e-3 m.  The depth
                goes in as meters: the configuration's millimeter scale
                (depth_scale_factor_intensity_to_meters) is read only by the
-               dataset loaders and the command line, which the port does
-               not have yet;
+               dataset loaders and the command line, which this phase
+               does not go through;
  11. detectors — on the left image of phase 6a's frame 0 (376x1241):
                detect_keypoints with HARRIS, GFTT, DOG and KAZE (2 octaves,
                bin 16) on the card against the same call on the CPU, >= 99%
                of the keypoints in common, ms per call on the card; ORB256
                describe of its FAST keypoints on the card against the CPU,
                <= 0.1% of the bits differing; then configuration_kitti.yaml
-               with detector_type DOG, open loop, on the first 32 frames of
-               phase 6b's circle: 0 breaks, ATE <= 0.05 m, local maps
+               with detector_type DOG, open loop, on phase 6b's 32 frames: 0 breaks, ATE <= 0.05 m, local maps
                within +-15% of the JAX engine's on a CPU, the first 4
                frames within 1e-3 m of the CPU.
-The JAX counts printed beside phases 7-11 come from
+ 12. kitti-disk — phase 6b's whole 64-frame circle written as a KITTI odometry
+               directory (image_0/ and image_1/ 8-bit PNGs through stdlib
+               zlib with a Paeth row in every 8, so the decoder's C
+               unfilter runs; times.txt; calib.txt with P1[0, 3] = -fx*b;
+               the ground truth), then `python -m vslam_tpu_torch run -c
+               configurations/configuration_kitti.yaml --open-loop` (on
+               the default device; closed, this circle ends at ATE 0.051 m
+               in JAX and the port alike) writing KITTI and TUM
+               trajectories, the pose and factor graphs and the report,
+               `eval` against the ground truth and `convert` TUM -> KITTI,
+               each a subprocess: frame 0 decodes to the written bytes, 0
+               breaks, ATE <= 0.05 m, 14-18 local maps, K2 64 and K3 128
+               launches (the run's report), and an engine in this process
+               on the same decoded frames gives the same positions within
+               1e-6 m over the first 40 frames, then saves a checkpoint
+               there, between two of the card's 32-frame drains, holding
+               a local map for every keyframe the device made;
+               ms/frame and the decode time of a stereo pair;
+ 13. tum-disk — phase 9's whole 64-frame circle as a TUM directory (RGB8
+               with equal channels, 16-bit depth at 5,000 units a meter,
+               rgb.txt, depth.txt, groundtruth.txt), `run --format tum -c
+               configurations/configuration_tum.yaml` and `eval --format
+               tum`: 0 breaks, ATE <= 0.05 m, 18-24 local maps, 64 K3
+               launches;
+ 14. checkpoint — the checkpoint phase 12's in-process engine saved after 40
+               frames, loaded into a fresh engine on the card (no landmark
+               names a missing keyframe), which runs frames 40-63: within
+               0.2 m of phase 12's trajectory, ATE <= 0.1 m, K2 24 and K3
+               48 launches; its size and its save
+               and load times.  Phases 12-14 also print whether cv2 and
+               matplotlib are installed (the port needs neither).
+The JAX counts printed beside phases 6-11 come from
 chip_smoke_jax_reference.py.  The script then prints the kernel record
-(one JSON line: launches summed over the runs of phases 6-10,
+(one JSON line: launches summed over the runs of phases 6-10 and 12-14,
 bit-equality, times, bound, share of the bound, shared-load floor,
 blocks per SM, loads a pixel; K3's times at 480x640), the card's name
 and power limit (nvidia-smi), and last {"ok": true, "device": {...}}.
@@ -107,15 +144,23 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-N_FRAMES = 128
-RADIUS_M = 13.0
+from vslam_tpu_torch.eval.workloads import (  # noqa: E402  (the bench workload)
+    KITTI_CAM, ba_closed_config, bench_config, bench_world, closed_loop_config)
+from vslam_tpu_torch.frontend.dense_brief import kernel_counters as counters  # noqa: E402
+
 ATE_LIMIT_M = 0.05
-LOCAL_MAPS = (36, 48)
+LOCAL_MAPS = (36, 48)  # phases 7-8: 128 frames, JAX's 42
+# Phase 6a runs the first half of the bench's circle; phases 7-8 run all
+# of it through the same K1 path.
+K1_SLICE_FRAMES = 64
 CPU_CHECK_FRAMES = 8
 TUM_CPU_FRAMES = 4
+# Phase 6b's world: 7,000 points around a 64-frame 13 m circle at KITTI
+# resolution.  Phases 6b and 11 run its first half; phase 12 runs all of
+# it from disk, through the command line.
+KITTI_CIRCLE_FRAMES = 64
+KITTI_SLICE_FRAMES = 32
 CPU_CHECK_TOL_M = 1e-3
-KITTI_CAM = dict(fx=718.856, fy=718.856, cx=607.19, cy=185.22, baseline_m=0.5372,
-                 rows=376, cols=1241)
 # EuRoC MAV cam0 intrinsics and the cam0-cam1 baseline (the dataset's
 # sensor.yaml files).
 EUROC_CAM = dict(fx=458.654, fy=457.296, cx=367.215, cy=248.375, baseline_m=0.110,
@@ -151,12 +196,15 @@ def timed(kernel, plain, work, pixels, taps, card, label):
 TUM_CAM = dict(fx=517.3, fy=516.5, cx=318.6, cy=255.3, baseline_m=0.075, rows=480,
                cols=640)
 TUM_FRAMES = 64
+# Phases 9 and 10 run the first halves of their circles; phase 13 runs
+# all of phase 9's from disk, through the command line.
+TUM_CONFIG_FRAMES = 32
+XTION_FRAMES = 32
 TUM_RADIUS_M = 3.5  # of the scaled world (see tum_world)
 TUM_SCALE = 10.0  # the world is rendered at 10x and its depth divided back
 # Phase 10's circle turns 2.8 degrees a frame, half of phase 9's (see
 # phase_xtion).
 XTION_CIRCLE_FRAMES = 128
-BA_EVERY_FRAMES = 48
 
 # The JAX engine (vslam_tpu) on a CPU for the workloads of phases 7-11
 # (chip_smoke_jax_reference.py); it drains every frame, the port on the
@@ -167,42 +215,17 @@ JAX_CPU_CLOSED_LOOP = {"n_local_maps": 42, "n_closures": 3, "n_optimizations": 1
 JAX_CPU_BA_CLOSED = {"n_local_maps": 42, "n_closures": 3, "n_optimizations": 1,
                      "n_merged_landmarks": 82, "n_track_breaks": 0, "n_ba_runs": 2,
                      "ate_m": 0.0422, "db_rows": 7242, "closures": [(39, 0), (40, 0), (41, 0)]}
-JAX_CPU_TUM = {"n_local_maps": 21, "n_closures": 0, "n_optimizations": 0,
-               "n_merged_landmarks": 0, "n_track_breaks": 0, "ate_m": 0.0108, "db_rows": 5435}
-JAX_CPU_XTION = {"n_local_maps": 63, "n_closures": 0, "n_optimizations": 0,
-                 "n_merged_landmarks": 0, "n_track_breaks": 0, "ate_m": 0.0164,
-                 "db_rows": 10154}
+JAX_CPU_TUM = {"n_local_maps": 10, "n_closures": 0, "n_optimizations": 0,
+               "n_merged_landmarks": 0, "n_track_breaks": 0, "ate_m": 0.0078, "db_rows": 2723}
+JAX_CPU_XTION = {"n_local_maps": 31, "n_closures": 0, "n_optimizations": 0,
+                 "n_merged_landmarks": 0, "n_track_breaks": 0, "ate_m": 0.0093,
+                 "db_rows": 5133}
 JAX_CPU_KITTI_DOG = {"n_local_maps": 8, "n_track_breaks": 0, "ate_m": 0.0139}
-DOG_FRAMES = 32
+JAX_CPU_K1_SLICE = {"n_local_maps": 21, "n_track_breaks": 0, "ate_m": 0.0043}
+JAX_CPU_KITTI_CONFIG = {"n_local_maps": 8, "n_track_breaks": 0, "ate_m": 0.0138}
 FLOAT_DETECTORS = ("HARRIS", "GFTT", "DOG", "KAZE")
 CLOSURE_STAGES = ("relocalization", "reloc_vote_icp", "pose_graph_optimization",
                   "pg_solve", "pg_propagate", "landmark_merging")
-
-
-def bench_config(parameter_collection):
-    """The bench's configuration, open loop, as an instance of the given
-    ParameterCollection class (the port's, or the JAX package's for
-    chip_smoke_jax_reference.py)."""
-    cfg = parameter_collection()
-    cfg.framepoint_generation.capacity = 1024
-    cfg.framepoint_generation.bin_size_pixels = 16
-    cfg.world_map.minimum_distance_traveled_for_local_map = 1.5
-    cfg.world_map.minimum_number_of_frames_for_local_map = 3
-    cfg.local_map.maximum_number_of_landmarks = 512
-    cfg.parallelism.frames_per_chunk = 32
-    cfg.graph_optimization.enable_full_bundle_adjustment = False
-    cfg.command_line.option_disable_relocalization = True
-    return cfg
-
-
-def bench_world(cam):
-    """The bench's world (7000 points, seed 0) on the 128-frame circle and
-    its stereo frames."""
-    from vslam_tpu_torch.io import synthetic
-
-    poses = synthetic.circle_trajectory(N_FRAMES, radius=RADIUS_M)
-    world = synthetic.make_world(cam, n_points=7000, seed=0, poses=poses)
-    return world, [synthetic.render_frame(world, t)[:2] for t in range(N_FRAMES)]
 
 
 def bench_setup():
@@ -215,8 +238,8 @@ def bench_setup():
     return cam, bench_config(ParameterCollection), world, frames
 
 
-def tum_world(cam, circle_frames=TUM_FRAMES):
-    """Phase 9's sequence: the first 64 frames of a circle of
+def tum_world(cam, circle_frames=TUM_FRAMES, n_frames=TUM_FRAMES):
+    """Phase 9's sequence: the first n_frames frames of a circle of
     circle_frames frames, rendered as RGB-D frames (intensity, depth in
     meters), with the world -- points and pose translations -- scaled by
     1/10 so that the depths fall in TUM's indoor range (0.3-4.5 m for the
@@ -232,45 +255,43 @@ def tum_world(cam, circle_frames=TUM_FRAMES):
     poses = synthetic.circle_trajectory(circle_frames, radius=TUM_RADIUS_M * TUM_SCALE)
     world = synthetic.make_world(cam, n_points=7000, seed=0, poses=poses)
     frames = []
-    for t in range(TUM_FRAMES):
+    for t in range(n_frames):
         img, depth = synthetic.render_depth_frame(world, t)
         frames.append((img, depth / np.float32(TUM_SCALE)))
-    gt = poses[:TUM_FRAMES].copy()
+    gt = poses[:n_frames].copy()
     gt[:, :3, 3] /= TUM_SCALE
     return gt, frames
 
 
-def kitti_dog_config(load_config):
-    """configuration_kitti.yaml with detector_type DOG, open loop, loaded
-    by the given package's load_config."""
+def kitti_config(load_config, detector=None):
+    """configuration_kitti.yaml, open loop (the command line's
+    --open-loop), with another detector_type if one is given, loaded by
+    the given package's load_config.  Closed, phase 12's 64-frame circle
+    closes once (local map 15 -> 0) and ends at ATE 0.0510 m, in the JAX
+    engine on a CPU (0.05101 m) as in the port: above the 0.05 m limit."""
     here = os.path.dirname(os.path.abspath(__file__))
     cfg = load_config(os.path.join(here, "configurations", "configuration_kitti.yaml"))
-    cfg.framepoint_generation.detector_type = "DOG"
+    if detector is not None:
+        cfg.framepoint_generation.detector_type = detector
     cfg.command_line.option_disable_relocalization = True
     return cfg
 
 
-def kitti_dog_world(cam):
-    """Phase 6b's world and 64-frame circle, cut to its first DOG_FRAMES
-    frames.  Returns (ground-truth poses, stereo frames)."""
+def kitti_world(cam, n_frames):
+    """Phase 6b's world (7,000 points, seed 0) on its 64-frame 13 m
+    circle, cut to its first n_frames frames.  Returns (ground-truth
+    poses, stereo frames)."""
     from vslam_tpu_torch.io import synthetic
 
-    world = synthetic.make_world(cam, n_points=7000, seed=0,
-                                 poses=synthetic.circle_trajectory(64, radius=13.0))
-    return (world.poses[:DOG_FRAMES],
-            [synthetic.render_frame(world, t)[:2] for t in range(DOG_FRAMES)])
+    world = synthetic.make_world(
+        cam, n_points=7000, seed=0,
+        poses=synthetic.circle_trajectory(KITTI_CIRCLE_FRAMES, radius=13.0))
+    return (world.poses[:n_frames],
+            [synthetic.render_frame(world, t)[:2] for t in range(n_frames)])
 
 
 def within_15_percent(ref: int):
     return int(np.ceil(0.85 * ref)), int(np.floor(1.15 * ref))
-
-
-def counters():
-    """The launch counter of each kernel wrapper, by kernel."""
-    from vslam_tpu_torch.frontend import dense_brief as db
-    from vslam_tpu_torch.frontend import fast_brief as fb
-
-    return {"K1": fb.K1, "K2": db.K2, "K3": db.K3, "K4": db.K4}
 
 
 def reset_counts():
@@ -521,28 +542,18 @@ def config_slice(label, name, cam_args, n_frames, radius, per_frame, local_maps,
                        cpu_frames, card)
 
 
-def closed_loop_config(cfg_open):
-    """bench.py's closed-loop settings on top of the K1 slice's."""
-    import copy
+def phase_kitti_config(card):
+    """Phase 6b: configuration_kitti.yaml, open loop, on the first half of
+    its circle (phase 12 runs all of it from disk)."""
+    from vslam_tpu_torch.io.config import load_config
+    from vslam_tpu_torch.ops import camera as cam_ops
 
-    cfg = copy.deepcopy(cfg_open)
-    cfg.command_line.option_disable_relocalization = False
-    cfg.relocalization.preliminary_minimum_interspace_queries = 8
-    cfg.relocalization.preliminary_minimum_matching_ratio = 0.08
-    cfg.relocalization.icp_minimum_number_of_inliers = 10
-    cfg.relocalization.icp_minimum_inlier_ratio = 0.3
-    cfg.graph_optimization.minimum_closure_residual_for_optimization_meters = 0.10
-    cfg.graph_optimization.minimum_closure_residual_for_optimization_degrees = 0.5
-    return cfg
-
-
-def ba_closed_config(cfg_open):
-    """bench.py's BA-enabled run: the closed loop with windowed bundle
-    adjustment every BA_EVERY_FRAMES frames (bench.py:98-100)."""
-    cfg = closed_loop_config(cfg_open)
-    cfg.graph_optimization.enable_full_bundle_adjustment = True
-    cfg.graph_optimization.number_of_frames_per_bundle_adjustment = BA_EVERY_FRAMES
-    return cfg
+    cam = cam_ops.make_camera(**KITTI_CAM)
+    gt, frames = kitti_world(cam, KITTI_SLICE_FRAMES)
+    print(f"[kitti-config] the JAX engine on a CPU: {JAX_CPU_KITTI_CONFIG}")
+    return drive_slice("kitti-config", cam, kitti_config(load_config), gt, frames,
+                       {"K1": 0, "K2": KITTI_SLICE_FRAMES, "K3": 2 * KITTI_SLICE_FRAMES, "K4": 0},
+                       within_15_percent(JAX_CPU_KITTI_CONFIG["n_local_maps"]), 4, card)
 
 
 def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card):
@@ -638,10 +649,10 @@ def phase_tum(card):
     here = os.path.dirname(os.path.abspath(__file__))
     cfg = load_config(os.path.join(here, "configurations", "configuration_tum.yaml"))
     cam = cam_ops.make_camera(**TUM_CAM)
-    gt, frames = tum_world(cam)
+    gt, frames = tum_world(cam, TUM_FRAMES, TUM_CONFIG_FRAMES)
     print(f"[tum-config] the JAX engine on a CPU: {JAX_CPU_TUM}")
     return drive_slice("tum-config", cam, cfg, gt, frames,
-                       {"K1": 0, "K2": 0, "K3": TUM_FRAMES, "K4": 0},
+                       {"K1": 0, "K2": 0, "K3": TUM_CONFIG_FRAMES, "K4": 0},
                        within_15_percent(JAX_CPU_TUM["n_local_maps"]), TUM_CPU_FRAMES, card)
 
 
@@ -662,7 +673,7 @@ def phase_xtion(card):
     here = os.path.dirname(os.path.abspath(__file__))
     cfg = load_config(os.path.join(here, "configurations", "configuration_xtion.yaml"))
     cam = cam_ops.make_camera(**TUM_CAM)
-    gt, frames = tum_world(cam, XTION_CIRCLE_FRAMES)
+    gt, frames = tum_world(cam, XTION_CIRCLE_FRAMES, XTION_FRAMES)
     print(f"[xtion-config] the JAX engine on a CPU: {JAX_CPU_XTION}")
     return drive_slice("xtion-config", cam, cfg, gt, frames,
                        {"K1": 0, "K2": 0, "K3": 0, "K4": 0},
@@ -714,12 +725,12 @@ def phase_detectors(kitti_frame, card):
     if n_diff > 1e-3 * dp.size * 32:
         raise AssertionError(f"ORB256: {n_diff} bits differ between the card and the CPU")
 
-    cfg = kitti_dog_config(load_config)
+    cfg = kitti_config(load_config, detector="DOG")
     cam = cam_ops.make_camera(**KITTI_CAM)
-    gt, frames = kitti_dog_world(cam)
+    gt, frames = kitti_world(cam, KITTI_SLICE_FRAMES)
     print(f"[kitti-dog] the JAX engine on a CPU: {JAX_CPU_KITTI_DOG}")
     drive_slice("kitti-dog", cam, cfg, gt, frames,
-                {"K1": 0, "K2": DOG_FRAMES, "K3": 2 * DOG_FRAMES, "K4": 0},
+                {"K1": 0, "K2": KITTI_SLICE_FRAMES, "K3": 2 * KITTI_SLICE_FRAMES, "K4": 0},
                 within_15_percent(JAX_CPU_KITTI_DOG["n_local_maps"]), 4, card)
 
 
@@ -730,13 +741,17 @@ def phase_build(card) -> dict:
     from vslam_tpu_torch.frontend import fast_brief as fb
     from vslam_tpu_torch.frontend.cuda_build import loop_shared_loads
 
+    from vslam_tpu_torch.io import image
+
     t0 = time.perf_counter()
-    libraries = {"K1": fb.K1.library, "K2/K3/K4": db.KERNEL.library}
+    libraries = {"K1": fb.K1.library, "K2/K3/K4": db.KERNEL.library,
+                 "PNG unfilter (host)": image.UNFILTER}
     for lib in libraries.values():
-        lib.start()  # one nvcc per source, all at once
+        lib.start()  # one compiler per source, all at once
+    image.UNFILTER.load()  # seconds; the nvcc builds go on meanwhile
     fb.K1.build()
     db.KERNEL.build()
-    print(f"[build] both libraries built in {time.perf_counter() - t0:.2f} s of wall time")
+    print(f"[build] the three libraries built in {time.perf_counter() - t0:.2f} s of wall time")
     for name, lib in libraries.items():
         print(f"[build] {name} ({lib.src.name}) built in {lib.build_seconds:.2f} s")
         for line in lib.build_log.splitlines():
@@ -762,6 +777,298 @@ def phase_build(card) -> dict:
     return facts
 
 
+# ---------------------------------------------------------------------------
+# Phases 12-14: recorded sequences from disk through the command line
+# ---------------------------------------------------------------------------
+
+# Rows unfiltered but for a Paeth row in every 8.
+PNG_FILTERS = (0,) * 7 + (4,)
+# Between two of the card's 32-frame drains: the checkpoint must register
+# the keyframes harvested by its own flush.
+RESUME_AT = 40
+CHECKPOINT_TOL_M = 0.2
+CHECKPOINT_ATE_M = 0.1
+SAME_RUN_TOL_M = 1e-6
+
+
+def cli(args, label, timeout=600):
+    """`python -m vslam_tpu_torch <args>` from this checkout, on the
+    default device; raises on a non-zero exit.  Returns its stdout."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "vslam_tpu_torch", *args], cwd=here, env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    if out.returncode != 0:
+        raise AssertionError(f"{label}: `python -m vslam_tpu_torch {args[0]}` exited "
+                             f"{out.returncode}:\n{out.stderr[-3000:]}")
+    print(f"[{label}] `python -m vslam_tpu_torch {args[0]}` took "
+          f"{time.perf_counter() - t0:.2f} s")
+    return out.stdout
+
+
+def check_run(label, rep, ate, local_maps, expect):
+    """The checks of a disk phase: 0 breaks, ATE, local maps, launches."""
+    run = rep["run"]
+    got = run["kernel_launches"]
+    n = run["frames"]
+    after_first = 1e3 * (run["seconds"] - run["first_frame_seconds"]) / (n - 1)
+    print(f"[{label}] {n} frames: ATE {ate:.4f} m, "
+          f"{rep['n_local_maps']} local maps, {rep['n_closures']} closures, "
+          f"{rep['n_merged_landmarks']} merged landmarks, {rep['n_track_breaks']} breaks, "
+          f"launches {got}; {run['ms_per_frame']:.2f} ms/frame over the run incl. the "
+          f"final flush, {run['first_frame_seconds']:.2f} s of it the first frame (the "
+          f"process's warm-up), {after_first:.2f} ms/frame after it; "
+          f"{1e3 * run['frame_wait_seconds'] / n:.2f} ms/frame waiting for decoded frames; "
+          f"device {run['device']}")
+    if got != expect:
+        raise AssertionError(f"{label}: launches {got}, expected {expect}")
+    if rep["n_track_breaks"] != 0:
+        raise AssertionError(f"{label}: {rep['n_track_breaks']} tracking breaks")
+    if not ate <= ATE_LIMIT_M:
+        raise AssertionError(f"{label}: ATE {ate:.4f} m > {ATE_LIMIT_M} m")
+    if not local_maps[0] <= rep["n_local_maps"] <= local_maps[1]:
+        raise AssertionError(f"{label}: {rep['n_local_maps']} local maps outside {local_maps}")
+    if not rep["run"]["device"].startswith("cuda"):
+        raise AssertionError(f"{label}: ran on {rep['run']['device']}, not the card")
+
+
+def write_kitti_sequence(root, cam_args, frames, poses):
+    """A KITTI odometry sequence directory: image_0/ and image_1/ 8-bit
+    PNGs, times.txt, calib.txt (P1[0, 3] = -fx * b) and the ground truth
+    in KITTI format.  Returns frame 0's left image as written."""
+    from vslam_tpu_torch.eval import trajectory as traj_eval
+    from vslam_tpu_torch.io import image
+
+    for d in ("image_0", "image_1"):
+        os.makedirs(os.path.join(root, d))
+    written = None
+    for t, (left, right) in enumerate(frames):
+        for d, img in (("image_0", left), ("image_1", right)):
+            u8 = np.clip(img, 0, 255).astype(np.uint8)
+            image.write_png(os.path.join(root, d, f"{t:06d}.png"), u8, PNG_FILTERS)
+            written = u8 if written is None else written
+    np.savetxt(os.path.join(root, "times.txt"), np.arange(len(frames)) * 0.1)
+    fx, fy, cx, cy, b = (cam_args[k] for k in ("fx", "fy", "cx", "cy", "baseline_m"))
+    with open(os.path.join(root, "calib.txt"), "w") as f:
+        f.write(f"P0: {fx} 0 {cx} 0 0 {fy} {cy} 0 0 0 1 0\n")
+        f.write(f"P1: {fx} 0 {cx} {-fx * b} 0 {fy} {cy} 0 0 0 1 0\n")
+    traj_eval.write_kitti(os.path.join(root, "gt_kitti.txt"), poses.astype(np.float64))
+    return written
+
+
+def phase_kitti_disk(tmp, card):
+    """Phase 12: phase 6b's 64-frame sequence as a KITTI directory, run
+    through `python -m vslam_tpu_torch run` with configuration_kitti.yaml
+    and --open-loop (kitti_config), then `eval` and `convert`; an in-process
+    engine on the same decoded frames must give the same trajectory.
+    Returns (launch counts, the subprocess trajectory, the decoded
+    frames, the camera, the ground truth, the path of the checkpoint
+    the in-process engine saved at frame RESUME_AT)."""
+    from vslam_tpu_torch.eval import trajectory as traj_eval
+    from vslam_tpu_torch.io import checkpoint, datasets, image
+    from vslam_tpu_torch.io.config import load_config
+    from vslam_tpu_torch.ops import camera as cam_ops
+    from vslam_tpu_torch.system.engine import SlamEngine
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    yaml_path = os.path.join(here, "configurations", "configuration_kitti.yaml")
+    gt, frames = kitti_world(cam_ops.make_camera(**KITTI_CAM, device="cpu"), KITTI_CIRCLE_FRAMES)
+    seq = os.path.join(tmp, "kitti_seq")
+    t0 = time.perf_counter()
+    written = write_kitti_sequence(seq, KITTI_CAM, frames, gt)
+    print(f"[kitti-disk] wrote {2 * KITTI_CIRCLE_FRAMES} PNGs (376x1241 gray8, a Paeth row "
+          f"in {len(PNG_FILTERS)}) in {time.perf_counter() - t0:.2f} s")
+    first = image.decode_image(os.path.join(seq, "image_0", "000000.png"))
+    if first.dtype != np.uint8 or not np.array_equal(first, written):
+        raise AssertionError("kitti-disk: frame 0 does not decode to the written bytes")
+    ds = datasets.KittiDataset(seq)
+    t0 = time.perf_counter()
+    for i in range(len(ds)):
+        image.decode_image(ds.left[i])
+        image.decode_image(ds.right[i])
+    decode_ms = 1e3 * (time.perf_counter() - t0) / len(ds)
+    print(f"[kitti-disk] frame 0 decodes to the written bytes; decoding a stereo pair takes "
+          f"{decode_ms:.2f} ms on one host thread")
+
+    out = os.path.join(tmp, "kitti_out")
+    os.makedirs(out)
+    cli(["run", "--dataset", seq, "--format", "kitti", "-c", yaml_path, "--open-loop",
+         "--output-kitti", os.path.join(out, "est_kitti.txt"),
+         "--output-tum", os.path.join(out, "est_tum.txt"),
+         "--save-pose-graph", os.path.join(out, "pose_graph.g2o"),
+         "--save-factor-graph", os.path.join(out, "factor_graph.g2o"),
+         "--timing-output", os.path.join(out, "timing.json")], "kitti-disk")
+    with open(os.path.join(out, "timing.json")) as f:
+        rep = json.load(f)
+    metrics = json.loads(cli(["eval", "--estimate", os.path.join(out, "est_kitti.txt"),
+                              "--ground-truth", os.path.join(seq, "gt_kitti.txt")],
+                             "kitti-disk").strip().splitlines()[-1])
+    print(f"[kitti-disk] eval: {metrics}")
+    cli(["convert", "--input", os.path.join(out, "est_tum.txt"), "--input-format", "tum",
+         "--output", os.path.join(out, "converted_kitti.txt"), "--output-format", "kitti"],
+        "kitti-disk")
+    est = traj_eval.read_kitti(os.path.join(out, "est_kitti.txt"))
+    conv = traj_eval.read_kitti(os.path.join(out, "converted_kitti.txt"))
+    with open(os.path.join(out, "pose_graph.g2o")) as f:
+        n_vertices = sum(line.startswith("VERTEX_SE3:QUAT") for line in f)
+    print(f"[kitti-disk] outputs: {len(est)} KITTI poses, {len(conv)} converted from TUM "
+          f"(max |diff| {np.abs(conv[:, :3, 3] - est[:, :3, 3]).max():.2e} m), pose graph "
+          f"with {n_vertices} vertices, factor graph "
+          f"{os.path.getsize(os.path.join(out, 'factor_graph.g2o'))} bytes ({card})")
+    check_run("kitti-disk", rep, metrics["ate_rmse_m"], (14, 18),
+              {"K1": 0, "K2": KITTI_CIRCLE_FRAMES, "K3": 2 * KITTI_CIRCLE_FRAMES, "K4": 0})
+    if est.shape != (KITTI_CIRCLE_FRAMES, 4, 4) or conv.shape != est.shape:
+        raise AssertionError(f"kitti-disk: trajectory files hold {est.shape}, {conv.shape}")
+    if not np.abs(conv[:, :3, 3] - est[:, :3, 3]).max() <= 1e-5:
+        raise AssertionError("kitti-disk: convert changed the positions")
+    if n_vertices != rep["n_local_maps"]:
+        raise AssertionError(f"kitti-disk: {n_vertices} pose-graph vertices, "
+                             f"{rep['n_local_maps']} local maps")
+
+    # The first RESUME_AT frames (8 after the card's last drain) in this
+    # process: the same engine, frame by frame, then a checkpoint for
+    # phase 14, which must hold every keyframe the device has made.
+    decoded = list(ds)
+    engine = SlamEngine(ds.cam, kitti_config(load_config))
+    for fr in decoded[:RESUME_AT]:
+        engine.process(fr.img_left, fr.img_right)
+    ckpt = os.path.join(tmp, "kitti_state.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_checkpoint(engine, ckpt)
+    save_s = time.perf_counter() - t0
+    n_maps, kf_count = len(engine.world_map), int(engine.tracker.state.kf_count)
+    print(f"[kitti-disk] checkpoint at frame {RESUME_AT}: {n_maps} local maps, the device's "
+          f"keyframe count {kf_count}")
+    if n_maps != kf_count:
+        raise AssertionError(f"kitti-disk: the checkpoint holds {n_maps} local maps of "
+                             f"{kf_count} keyframes")
+    dev = np.abs(engine.trajectory[:, :3, 3] - est[:RESUME_AT, :3, 3]).max()
+    print(f"[kitti-disk] in-process engine on the decoded frames vs the command line: max "
+          f"|diff| {dev:.2e} m over the first {RESUME_AT} frames (KITTI files round to 1e-9 "
+          "relative)")
+    if not dev <= SAME_RUN_TOL_M:
+        raise AssertionError(f"kitti-disk: the command line and the in-process engine differ "
+                             f"by {dev} m over the first {RESUME_AT} frames")
+    return rep["run"]["kernel_launches"], est, decoded, ds.cam, gt, ckpt, save_s
+
+
+def phase_checkpoint(est, decoded, cam, gt, ckpt, save_s, card):
+    """Phase 14: the checkpoint phase 12's in-process engine saved at frame
+    RESUME_AT, loaded into a fresh engine on the card, which runs the
+    frames after it; launch counts zeroed just before and read just
+    after the resumed run."""
+    from vslam_tpu_torch.eval import trajectory as traj_eval
+    from vslam_tpu_torch.io import checkpoint
+    from vslam_tpu_torch.io.config import load_config
+    from vslam_tpu_torch.system.engine import SlamEngine
+
+    engine = SlamEngine(cam, kitti_config(load_config))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.load_checkpoint(engine, ckpt)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    table = engine.tracker.state.table
+    origin_max = int(table.origin_kf[table.valid].max())
+    if origin_max >= len(engine.world_map):
+        raise AssertionError(f"checkpoint: a landmark names keyframe {origin_max} of "
+                             f"{len(engine.world_map)} local maps")
+    reset_counts()
+    for fr in decoded[RESUME_AT:]:
+        engine.process(fr.img_left, fr.img_right)
+    traj = engine.trajectory
+    counts = read_counts()
+    n_after = len(decoded) - RESUME_AT
+    err = np.linalg.norm(traj[:, :3, 3] - est[:, :3, 3], axis=1)
+    rmse, _, _ = traj_eval.ate_rmse(traj, gt)
+    print(f"[checkpoint] {os.path.getsize(ckpt) / 2**20:.2f} MiB npz; save {save_s:.3f} s, load "
+          f"{load_s:.3f} s; resumed at frame {RESUME_AT}: max |diff| {err.max():.4f} m from "
+          f"phase 12's run, ATE {rmse:.4f} m, {engine.report()['n_local_maps']} local maps, "
+          f"launches {counts} ({card})")
+    if traj.shape != (len(decoded), 4, 4) or not np.all(np.isfinite(traj)):
+        raise AssertionError(f"checkpoint: trajectory {traj.shape} or non-finite poses")
+    if not err.max() <= CHECKPOINT_TOL_M or not rmse <= CHECKPOINT_ATE_M:
+        raise AssertionError(f"checkpoint: resumed run {err.max():.4f} m from phase 12's, "
+                             f"ATE {rmse:.4f} m")
+    if counts != {"K1": 0, "K2": n_after, "K3": 2 * n_after, "K4": 0}:
+        raise AssertionError(f"checkpoint: launches {counts}")
+    return counts
+
+
+def phase_tum_disk(tmp, card):
+    """Phase 13: phase 9's 64-frame RGB-D sequence as a TUM directory (RGB8
+    intensity with equal channels, 16-bit depth at 5,000 units a meter),
+    run through `python -m vslam_tpu_torch run --format tum` with
+    configuration_tum.yaml, then `eval --format tum`."""
+    from vslam_tpu_torch.eval import trajectory as traj_eval
+    from vslam_tpu_torch.io import image
+    from vslam_tpu_torch.ops import camera as cam_ops
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    gt, frames = tum_world(cam_ops.make_camera(**TUM_CAM, device="cpu"))
+    seq = os.path.join(tmp, "tum_seq")
+    for d in ("rgb", "depth"):
+        os.makedirs(os.path.join(seq, d))
+    ts = np.arange(len(frames)) * 0.1
+    t0 = time.perf_counter()
+    with open(os.path.join(seq, "rgb.txt"), "w") as fr, \
+            open(os.path.join(seq, "depth.txt"), "w") as fd:
+        for t, (img, depth) in enumerate(frames):
+            gray = np.clip(img, 0, 255).astype(np.uint8)
+            image.write_png(os.path.join(seq, "rgb", f"{t}.png"),
+                            np.repeat(gray[..., None], 3, 2), PNG_FILTERS)
+            image.write_png(os.path.join(seq, "depth", f"{t}.png"),
+                            np.round(depth * 5000.0).astype(np.uint16), PNG_FILTERS)
+            fr.write(f"{ts[t]:.6f} rgb/{t}.png\n")
+            fd.write(f"{ts[t]:.6f} depth/{t}.png\n")
+    traj_eval.write_tum(os.path.join(seq, "groundtruth.txt"), gt.astype(np.float64), ts)
+    print(f"[tum-disk] wrote {len(frames)} RGB8 and {len(frames)} 16-bit depth PNGs (640x480) "
+          f"in {time.perf_counter() - t0:.2f} s")
+    out = os.path.join(tmp, "tum_out")
+    os.makedirs(out)
+    cli(["run", "--dataset", seq, "--format", "tum", "-c",
+         os.path.join(here, "configurations", "configuration_tum.yaml"),
+         "--output-kitti", os.path.join(out, "est_kitti.txt"),
+         "--output-tum", os.path.join(out, "est_tum.txt"),
+         "--timing-output", os.path.join(out, "timing.json")], "tum-disk")
+    with open(os.path.join(out, "timing.json")) as f:
+        rep = json.load(f)
+    metrics = json.loads(cli(["eval", "--format", "tum", "--estimate",
+                              os.path.join(out, "est_tum.txt"), "--ground-truth",
+                              os.path.join(seq, "groundtruth.txt")],
+                             "tum-disk").strip().splitlines()[-1])
+    print(f"[tum-disk] eval: {metrics} ({card})")
+    if metrics["n_poses"] != len(frames):
+        raise AssertionError(f"tum-disk: {metrics['n_poses']} poses associated")
+    check_run("tum-disk", rep, metrics["ate_rmse_m"], (18, 24),
+              {"K1": 0, "K2": 0, "K3": len(frames), "K4": 0})
+    return rep["run"]["kernel_launches"]
+
+
+def phase_disk(card):
+    """Phases 12-14 in one temporary directory, removed at the end."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    print(f"[disk] on this machine: cv2 "
+          f"{'present' if importlib.util.find_spec('cv2') else 'absent'}, matplotlib "
+          f"{'present' if importlib.util.find_spec('matplotlib') else 'absent'} (the port "
+          "decodes, rectifies and writes without either; --dump needs matplotlib)")
+    tmp = tempfile.mkdtemp(prefix="vslam_disk_")
+    try:
+        counts, est, decoded, cam, gt, ckpt, save_s = phase_kitti_disk(tmp, card)
+        launches = dict(counts)
+        for more in (phase_checkpoint(est, decoded, cam, gt, ckpt, save_s, card),
+                     phase_tum_disk(tmp, card)):
+            launches = {k: launches[k] + more[k] for k in launches}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -780,12 +1087,14 @@ def main():
     stats.update(phase_dense(frames[0], card))
     phase_k2_probe(card)
 
-    launches = drive_slice("k1-slice", cam, cfg, world.poses, frames,
-                           {"K1": N_FRAMES, "K2": 0, "K3": 0, "K4": 0}, LOCAL_MAPS,
+    print(f"[k1-slice] the JAX engine on a CPU: {JAX_CPU_K1_SLICE}")
+    launches = drive_slice("k1-slice", cam, cfg, world.poses[:K1_SLICE_FRAMES],
+                           frames[:K1_SLICE_FRAMES],
+                           {"K1": K1_SLICE_FRAMES, "K2": 0, "K3": 0, "K4": 0},
+                           within_15_percent(JAX_CPU_K1_SLICE["n_local_maps"]),
                            CPU_CHECK_FRAMES, card)
     for counts in (
-        config_slice("kitti-config", "kitti", KITTI_CAM, 64, 13.0, {"K2": 1, "K3": 2},
-                     (14, 18), 8, card),
+        phase_kitti_config(card),
         config_slice("euroc-config", "euroc", EUROC_CAM, 32, 4.0,
                      {"K2": 1, "K4": 2 * db.N_ROT_BANKS}, (13, 17), 4, card),
     ):
@@ -800,6 +1109,8 @@ def main():
     ):
         launches = {k: launches[k] + counts[k] for k in launches}
     phase_detectors(frames[0], card)
+    counts = phase_disk(card)
+    launches = {k: launches[k] + counts[k] for k in launches}
 
     sources = {"K1": ("fast_brief_frontend_pair", "fast_brief_frontend.cu",
                       "vslam_tpu/frontend/pallas_frontend.py:196")}

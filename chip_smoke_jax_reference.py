@@ -1,9 +1,10 @@
 """The JAX engine (vslam_tpu) on the CPU for chip_smoke.py's workloads
-that it holds to JAX's counts (JAX_CPU_CLOSED_LOOP, JAX_CPU_BA_CLOSED,
-JAX_CPU_TUM, JAX_CPU_XTION, JAX_CPU_KITTI_DOG):
+that it holds to JAX's counts (JAX_CPU_K1_SLICE, JAX_CPU_KITTI_CONFIG,
+JAX_CPU_CLOSED_LOOP, JAX_CPU_BA_CLOSED, JAX_CPU_TUM, JAX_CPU_XTION,
+JAX_CPU_KITTI_DOG):
 
-    python3 chip_smoke_jax_reference.py [closed] [ba-closed] [tum-config]
-        [xtion-config] [kitti-dog]
+    python3 chip_smoke_jax_reference.py [k1-slice] [kitti-config] [closed]
+        [ba-closed] [tum-config] [xtion-config] [kitti-dog]
 
 Each run uses chip_smoke.py's configuration and sequence, built with the
 JAX package's classes, on one CPU device (no sharded database search or
@@ -29,6 +30,7 @@ from vslam_tpu.eval import trajectory as traj_eval  # noqa: E402
 from vslam_tpu.io.config import ParameterCollection, load_config  # noqa: E402
 from vslam_tpu.ops import camera as cam_ops  # noqa: E402
 from vslam_tpu.system.engine import SlamEngine  # noqa: E402
+from vslam_tpu_torch.eval import workloads  # noqa: E402
 from vslam_tpu_torch.ops import camera as port_cam  # noqa: E402
 
 
@@ -38,21 +40,26 @@ def workload(name):
     if name in ("tum-config", "xtion-config"):
         cfg = load_config(os.path.join(here, "configurations",
                                        f"configuration_{name.split('-')[0]}.yaml"))
+        circle, n = ((chip_smoke.XTION_CIRCLE_FRAMES, chip_smoke.XTION_FRAMES)
+                     if name == "xtion-config"
+                     else (chip_smoke.TUM_FRAMES, chip_smoke.TUM_CONFIG_FRAMES))
         gt, frames = chip_smoke.tum_world(
-            port_cam.make_camera(**chip_smoke.TUM_CAM, device="cpu"),
-            chip_smoke.XTION_CIRCLE_FRAMES if name == "xtion-config" else chip_smoke.TUM_FRAMES)
+            port_cam.make_camera(**chip_smoke.TUM_CAM, device="cpu"), circle, n)
         return cam_ops.make_camera(**chip_smoke.TUM_CAM), cfg, gt, frames
-    if name == "kitti-dog":
-        cfg = chip_smoke.kitti_dog_config(load_config)
-        gt, frames = chip_smoke.kitti_dog_world(port_cam.make_camera(**chip_smoke.KITTI_CAM,
-                                                                     device="cpu"))
-        return cam_ops.make_camera(**chip_smoke.KITTI_CAM), cfg, gt, frames
-    cfg = chip_smoke.bench_config(ParameterCollection)
-    cfg = (chip_smoke.ba_closed_config(cfg) if name == "ba-closed"
-           else chip_smoke.closed_loop_config(cfg))
-    world, frames = chip_smoke.bench_world(port_cam.make_camera(**chip_smoke.KITTI_CAM,
-                                                                device="cpu"))
-    return cam_ops.make_camera(**chip_smoke.KITTI_CAM), cfg, world.poses, frames
+    if name in ("kitti-config", "kitti-dog"):
+        cfg = chip_smoke.kitti_config(load_config, "DOG" if name == "kitti-dog" else None)
+        gt, frames = chip_smoke.kitti_world(
+            port_cam.make_camera(**workloads.KITTI_CAM, device="cpu"),
+            chip_smoke.KITTI_SLICE_FRAMES)
+        return cam_ops.make_camera(**workloads.KITTI_CAM), cfg, gt, frames
+    cfg = workloads.bench_config(ParameterCollection)
+    n = chip_smoke.K1_SLICE_FRAMES if name == "k1-slice" else workloads.N_FRAMES
+    if name != "k1-slice":
+        cfg = (workloads.ba_closed_config(cfg) if name == "ba-closed"
+               else workloads.closed_loop_config(cfg))
+    world, frames = workloads.bench_world(port_cam.make_camera(**workloads.KITTI_CAM,
+                                                                device="cpu"), n)
+    return cam_ops.make_camera(**workloads.KITTI_CAM), cfg, world.poses[:n], frames
 
 
 def run(name):
@@ -73,6 +80,6 @@ def run(name):
 
 
 if __name__ == "__main__":
-    for name in sys.argv[1:] or ["closed", "ba-closed", "tum-config", "xtion-config",
-                                 "kitti-dog"]:
+    for name in sys.argv[1:] or ["k1-slice", "kitti-config", "closed", "ba-closed",
+                                 "tum-config", "xtion-config", "kitti-dog"]:
         run(name)

@@ -281,3 +281,44 @@ def test_float_detectors_and_orb256_on_the_card_match_the_cpu(detector):
     if kps["cuda"] == kps["cpu"]:
         n_diff = int(np.unpackbits((descs["cuda"] ^ descs["cpu"]).view(np.uint8)).sum())
         assert n_diff <= 1e-3 * descs["cpu"].size * 32
+
+
+@pytest.mark.cuda
+def test_cli_run_on_a_kitti_directory_on_the_card(tmp_path):
+    """`python -m vslam_tpu_torch run` (in process, no --device: the card)
+    on a 4-frame KITTI directory: K1 once a frame, finite poses that agree
+    with the same run on the CPU within 1e-3 m."""
+    _need_card()
+    import json
+
+    from vslam_tpu_torch.io.image import write_png
+    from vslam_tpu_torch.system import cli
+
+    cam = cam_ops.make_camera(fx=300.0, fy=300.0, cx=256.0, cy=96.0, baseline_m=0.4,
+                              rows=192, cols=512, device="cpu")
+    world = synthetic.make_world(cam, n_frames=4, n_points=1500, seed=40, step=0.3)
+    root = tmp_path / "seq"
+    for d in ("image_0", "image_1"):
+        (root / d).mkdir(parents=True)
+    for t in range(4):
+        il, ir, _ = synthetic.render_frame(world, t)
+        for d, img in (("image_0", il), ("image_1", ir)):
+            write_png(str(root / d / f"{t:06d}.png"), np.clip(img, 0, 255).astype(np.uint8),
+                      filters=(0, 4))
+    (root / "calib.txt").write_text("P0: 300 0 256 0 0 300 96 0 0 0 1 0\n"
+                                    f"P1: 300 0 256 {-300 * 0.4} 0 300 96 0 0 0 1 0\n")
+    est = {}
+    for device in ("cuda", "cpu"):
+        out = tmp_path / device
+        out.mkdir()
+        cli.main(["run", "--dataset", str(root), "--output-kitti", str(out / "est.txt"),
+                  "--timing-output", str(out / "timing.json")]
+                 + (["--device", "cpu"] if device == "cpu" else []))
+        rep = json.loads((out / "timing.json").read_text())
+        est[device] = traj_eval.read_kitti(str(out / "est.txt"))
+        assert rep["run"]["device"].startswith(device)
+        assert rep["run"]["kernel_launches"] == (
+            {"K1": 4, "K2": 0, "K3": 0, "K4": 0} if device == "cuda"
+            else {"K1": 0, "K2": 0, "K3": 0, "K4": 0})
+    assert est["cuda"].shape == (4, 4, 4) and np.isfinite(est["cuda"]).all()
+    assert np.abs(est["cuda"][:, :3, 3] - est["cpu"][:, :3, 3]).max() <= 1e-3

@@ -33,8 +33,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import vslam_tpu_torch.loop.relocalizer, vslam_tpu_torch.backend.pose_graph\n"
         "import vslam_tpu_torch.mapping.merging, vslam_tpu_torch.utils.log\n"
         "import vslam_tpu_torch.io.synthetic, vslam_tpu_torch.eval.trajectory\n"
+        "import vslam_tpu_torch.system.cli, vslam_tpu_torch.io.datasets\n"
+        "import vslam_tpu_torch.io.checkpoint, vslam_tpu_torch.viz.plots\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'vslam_tpu.'))\n"
-        "       or m == 'vslam_tpu']\n"
+        "       or m in ('vslam_tpu', 'cv2', 'matplotlib')]\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -44,12 +46,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_every_port_module_imports_with_jax_blocked():
     """Every module of vslam_tpu_torch imports in a process where importing
-    jax or vslam_tpu raises."""
+    jax, vslam_tpu, cv2 or matplotlib raises (cv2 and matplotlib are
+    optional: no module imports them at module level)."""
     code = (
         "import importlib, importlib.abc, pkgutil, sys\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'jaxlib', 'vslam_tpu'):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'vslam_tpu', 'cv2',\n"
+        "                                  'matplotlib'):\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import vslam_tpu_torch\n"
@@ -59,7 +63,11 @@ def test_every_port_module_imports_with_jax_blocked():
         "    importlib.import_module(n)\n"
         "assert {'vslam_tpu_torch.backend.ba', 'vslam_tpu_torch.system.ba_runner',\n"
         "        'vslam_tpu_torch.frontend.depth', 'vslam_tpu_torch.frontend.orb',\n"
-        "        'vslam_tpu_torch.frontend.detect'} <= set(names), names\n"
+        "        'vslam_tpu_torch.frontend.detect', 'vslam_tpu_torch.io.image',\n"
+        "        'vslam_tpu_torch.io.datasets', 'vslam_tpu_torch.io.rectification',\n"
+        "        'vslam_tpu_torch.io.g2o_io', 'vslam_tpu_torch.io.checkpoint',\n"
+        "        'vslam_tpu_torch.system.cli', 'vslam_tpu_torch.viz.plots',\n"
+        "        'vslam_tpu_torch.eval.workloads'} <= set(names), names\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -117,14 +125,12 @@ def test_entry_points_run_on_the_card_by_default(name):
 
 
 # The ROADMAP item each refusal names.
-_ITEM = {"aligner_type": "item 16", "use_fused_tracker": "not to port",
-         "enable_image_dump": "item 18"}
+_ITEM = {"aligner_type": "item 16", "use_fused_tracker": "not to port"}
 
 
 @pytest.mark.parametrize("group,key,value", [
     ("relocalization", "aligner_type", "FAST-ICP"),
     ("tracking", "use_fused_tracker", False),
-    ("visualization", "enable_image_dump", True),
 ])
 def test_unported_engine_configurations_raise(group, key, value):
     cfg = tconfig.ParameterCollection()  # closed loop: ported

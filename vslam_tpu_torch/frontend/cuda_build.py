@@ -1,12 +1,15 @@
-"""Build a CUDA source of the port with nvcc at first use and load it
-with ctypes.
+"""Build a C/CUDA source of the port at first use and load it with ctypes.
 
 Each `csrc/*.cu` file has a plain C interface; it is compiled for sm_90a
 into `build/vslam_tpu_torch/lib<stem>_<hash>.so` (the hash covers the
 source, every `csrc/*.cuh` header it may include, and the flags, so an
 edited source or header rebuilds) and loaded with ctypes.
 `CudaLibrary.start` begins the nvcc run in the background, so several
-sources compile at once; `load` waits for it.
+sources compile at once; `load` waits for it.  `HostLibrary` does the
+same for a host-only `csrc/*.cpp` source with the host compiler (g++).
+A build writes a per-process temporary file and renames it into place,
+so processes that build the same source at once do not collide; `load`
+is thread-safe.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -24,6 +28,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vslam_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 
 def _cuda_tool(name: str) -> str | None:
@@ -72,6 +77,8 @@ class CudaLibrary:
     `build_log` holds nvcc's output (register and shared-memory use, from
     -Xptxas -v) and `build_seconds` the time from `start` to the load."""
 
+    flags = NVCC_FLAGS
+
     def __init__(self, source: str):
         self.src = CSRC / source
         self.build_log = ""
@@ -79,12 +86,16 @@ class CudaLibrary:
         self._lib = None
         self._proc = None
         self._t0 = None
+        self._lock = threading.Lock()
+
+    def compiler(self) -> str:
+        return nvcc()
 
     def _target(self) -> Path:
         digest = hashlib.sha256(self.src.read_bytes())
         for header in sorted(CSRC.glob("*.cuh")):
             digest.update(header.name.encode() + header.read_bytes())
-        digest.update(" ".join(NVCC_FLAGS).encode())
+        digest.update(" ".join(self.flags).encode())
         return BUILD_DIR / f"lib{self.src.stem}_{digest.hexdigest()[:16]}.so"
 
     def start(self) -> "CudaLibrary":
@@ -97,27 +108,32 @@ class CudaLibrary:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             self._tmp = so.with_suffix(f".{os.getpid()}.tmp")
             self._proc = subprocess.Popen(
-                [nvcc(), *NVCC_FLAGS, "-o", str(self._tmp), str(self.src)],
+                [self.compiler(), *self.flags, "-o", str(self._tmp), str(self.src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
         return self
 
     def load(self) -> ctypes.CDLL:
-        """The loaded library; builds it first if needed (raises if nvcc fails)."""
+        """The loaded library; builds it first if needed (raises if the
+        compiler fails)."""
         if self._lib is not None:
             return self._lib
-        self.start()
-        so = self._target()
-        if self._proc is not None:
-            self.build_log = self._proc.communicate()[0]
-            failed = self._proc.returncode != 0
-            self._proc = None
-            if failed:
-                self._t0 = None
-                raise RuntimeError(f"nvcc failed for {self.src}:\n{self.build_log}")
-            os.replace(self._tmp, so)
-        self.build_seconds = time.perf_counter() - self._t0
-        self._lib = ctypes.CDLL(str(so))
+        with self._lock:
+            if self._lib is not None:
+                return self._lib
+            self.start()
+            so = self._target()
+            if self._proc is not None:
+                self.build_log = self._proc.communicate()[0]
+                failed = self._proc.returncode != 0
+                self._proc = None
+                if failed:
+                    self._t0 = None
+                    raise RuntimeError(f"{Path(self.compiler()).name} failed for "
+                                       f"{self.src}:\n{self.build_log}")
+                os.replace(self._tmp, so)
+            self.build_seconds = time.perf_counter() - self._t0
+            self._lib = ctypes.CDLL(str(so))
         return self._lib
 
     def sass(self) -> str:
@@ -129,3 +145,16 @@ class CudaLibrary:
         self.load()
         return subprocess.run([tool, "-sass", str(self._target())], capture_output=True,
                               text=True, check=True, timeout=300).stdout
+
+
+class HostLibrary(CudaLibrary):
+    """A host-only csrc/*.cpp source with a plain C interface, built with
+    the host compiler (g++, or $CXX) into the same cache."""
+
+    flags = HOST_FLAGS
+
+    def compiler(self) -> str:
+        path = shutil.which(os.environ.get("CXX", "g++"))
+        if path is None:
+            raise RuntimeError("no host C++ compiler found (g++ or $CXX)")
+        return path

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from vslam_tpu_torch.frontend.cuda_build import CSRC, CudaLibrary
-from vslam_tpu_torch.frontend.fast_brief import PATTERN, pack_brief_words
+from vslam_tpu_torch.frontend.fast_brief import K1, PATTERN, pack_brief_words
 from vslam_tpu_torch.frontend.orb import PATTERN_RADIUS, _make_pattern
 
 N_ROT_BANKS = 16
@@ -269,3 +269,8 @@ def dense_bit_planes_pattern(smooth: torch.Tensor, bank: int) -> torch.Tensor:
     if not 0 <= bank < N_ROT_BANKS:
         raise ValueError(f"rotation bank {bank} outside 0..{N_ROT_BANKS - 1}")
     return _planes(K4, smooth[None], 1 + bank)[0]
+
+
+def kernel_counters() -> dict:
+    """The launch counter of every kernel wrapper of the port, by kernel."""
+    return {"K1": K1, "K2": K2, "K3": K3, "K4": K4}

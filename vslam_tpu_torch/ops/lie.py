@@ -60,9 +60,17 @@ def exp_so3(w: torch.Tensor) -> torch.Tensor:
     return _eye3_like(W) + a[..., None, None] * W + b[..., None, None] * (W @ W)
 
 
-def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+def exact_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 square root, as XLA's: through f64 (exact
+    after the second rounding).  torch's own f32 sqrt on the CPU is not
+    correctly rounded (its AVX-512 path)."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def rot_to_quat(R: torch.Tensor, sqrt=torch.sqrt) -> torch.Tensor:
     """Rotation matrix -> unit quaternion (w, x, y, z) with w >= 0
-    (branch-free Shepperd selection, as in the JAX package)."""
+    (branch-free Shepperd selection, as in the JAX package).  The file
+    writers pass sqrt=exact_sqrt, so that their digits are XLA's."""
     m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
     m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
     m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
@@ -83,9 +91,28 @@ def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
     mags = torch.stack([qw2, qx2, qy2, qz2], dim=-1)
     best = torch.argmax(mags, dim=-1, keepdim=True)  # (..., 1)
     q = torch.gather(cand, -2, best[..., None].expand(*best.shape, 4))[..., 0, :]
-    denom = 2.0 * torch.sqrt(torch.clamp(torch.gather(mags, -1, best)[..., 0], min=_EPS))
+    denom = 2.0 * sqrt(torch.clamp(torch.gather(mags, -1, best)[..., 0], min=_EPS))
     q = q / denom[..., None]
     return q * torch.where(q[..., 0:1] < 0, -1.0, 1.0)
+
+
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (w, x, y, z) -> rotation matrix (a quaternion that
+    is not unit is normalized on the way)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    n = w * w + x * x + y * y + z * z
+    s = 2.0 / torch.clamp(n, min=_EPS)
+    wx, wy, wz = s * w * x, s * w * y, s * w * z
+    xx, xy, xz = s * x * x, s * x * y, s * x * z
+    yy, yz, zz = s * y * y, s * y * z, s * z * z
+    return torch.stack(
+        [
+            torch.stack([1.0 - (yy + zz), xy - wz, xz + wy], dim=-1),
+            torch.stack([xy + wz, 1.0 - (xx + zz), yz - wx], dim=-1),
+            torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)], dim=-1),
+        ],
+        dim=-2,
+    )
 
 
 def log_so3(R: torch.Tensor) -> torch.Tensor:

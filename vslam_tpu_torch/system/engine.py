@@ -20,6 +20,7 @@ until nothing is in flight.  Open loop
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -41,6 +42,9 @@ from vslam_tpu_torch.utils.device import DEFAULT_DEVICE
 # Odometry edges spanning a tracking break carry ~no information: the pose
 # graph, not the dead-reckoned edge, reattaches the map after a closure.
 BREAK_EDGE_WEIGHT = 1e-3
+# Left images kept for keyframe overlays: keyframe events lag the frames
+# by up to one drain.
+VIZ_RING_FRAMES = 128
 
 
 def _check_supported(cfg: ParameterCollection) -> None:
@@ -56,9 +60,6 @@ def _check_supported(cfg: ParameterCollection) -> None:
     if not cfg.tracking.use_fused_tracker:
         raise NotImplementedError(
             "the modular PoseTracker is not ported (ROADMAP: not to port)")
-    if cfg.visualization.enable_image_dump:
-        raise NotImplementedError(
-            "keyframe image dumps are not ported yet (ROADMAP Queue 1 item 18)")
 
 
 class SlamEngine:
@@ -101,6 +102,17 @@ class SlamEngine:
         # Snapshots of the current drain not registered yet: a bundle
         # adjustment run while registering an earlier one corrects them.
         self._unregistered: list[KeyframeSnapshot] = []
+        # Keyframe image dump (reference ImageViewer as files,
+        # image_viewer.cpp:84-155): a bounded ring of recent left images,
+        # so a keyframe event can still render its overlay.
+        self._viz_enabled = self.cfg.visualization.enable_image_dump
+        self._viz_dir = self.cfg.visualization.dump_directory
+        self._viz_ring: dict[int, np.ndarray] = {}
+        if self._viz_enabled:
+            from vslam_tpu_torch.viz import plots
+
+            plots.require_matplotlib()  # fail before the run, not at its first keyframe
+            os.makedirs(self._viz_dir, exist_ok=True)
         self._t_start = time.perf_counter()
         self._frame_times: list[float] = []
 
@@ -124,6 +136,10 @@ class SlamEngine:
         depth in meters); returns the tracker's last harvested T_world_cam
         (exact per frame on the CPU)."""
         t0 = time.perf_counter()
+        if self._viz_enabled:
+            idx = self.tracker._dispatched
+            self._viz_ring[idx] = img_l
+            self._viz_ring.pop(idx - VIZ_RING_FRAMES - 1, None)
         T = self.tracker.compute(img_l, img_r, odometry)
         self._consume_keyframe_events()
         self._frame_times.append(time.perf_counter() - t0)
@@ -230,10 +246,25 @@ class SlamEngine:
                               for b in breaks[self._breaks_consumed:])
             self._breaks_consumed = len(breaks)
             self.kf_odom_weight.append(BREAK_EDGE_WEIGHT if spans_break else 1.0)
+        if self._viz_enabled:
+            self._dump_overlay(snap)
         # Full BA runs on its frame cadence whether or not relocalization
         # is on (slam_assembly.cpp:558-568).
         self._maybe_run_bundle_adjustment(snap)
         return local_map
+
+    def _dump_overlay(self, snap: KeyframeSnapshot):
+        """The keyframe's framepoint overlay (image_viewer.cpp:84-155)."""
+        img = self._viz_ring.get(snap.frame_idx)
+        if img is None or snap.uv4 is None:
+            return
+        from vslam_tpu_torch.viz import plots
+
+        uv = np.asarray(snap.uv4)[:, :2]
+        plots.draw_frame_overlay(
+            img, uv, has_landmark=np.asarray(snap.slots) >= 0,
+            valid=np.isfinite(uv).all(axis=1),
+            path=os.path.join(self._viz_dir, f"overlay_{snap.frame_idx:06d}.png"))
 
     def _maybe_run_bundle_adjustment(self, snap: KeyframeSnapshot):
         """Windowed BA every number_of_frames_per_bundle_adjustment frames
