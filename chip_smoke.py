@@ -122,11 +122,43 @@ Phases (each raises on failure; the exit code is then non-zero):
                48 launches; its size and its save
                and load times.  Phases 12-14 also print whether cv2 and
                matplotlib are installed (the port needs neither).
-The JAX counts printed beside phases 6-11 come from
+ 15. k1-split — phase 6a's 64 frames with tracking.batch_frontend (the split
+               front-end): one K1 launch a 32-frame chunk over its 64 images
+               (2 launches at B = 64 and no other), 0 breaks, ATE <= 0.05 m,
+               local maps within +-15% of the JAX engine's split run on a CPU;
+               the first 8 frames within 1e-3 m of the CPU at the same chunk;
+               K1 at (64, 376, 1241) bit-equal to its plain version, timed;
+               ms/frame and peak memory beside phase 6a's;
+ 16. kitti-split — phase 6b's 32 frames with the split front-end: one K2 launch
+               over the chunk's 64 blurred images (B = 64) and K3 64, the same
+               checks; K2 at that shape bit-equal to its plain version, timed;
+ 17. fast-icp — phase 7's own closure ICP batches re-solved with FAST-ICP
+               (solve/anderson.py) on the card and on the CPU (the same
+               verdicts, accepted transforms within 1e-4) and GN ICP's verdicts (their
+               translation gap printed: two robust estimators); JAX's
+               GN-agreement problem on the card within 5e-3 m of GN ICP; the
+               host synchronizations of one batch (torch's sync debug mode),
+               ms a batch;
+ 18. chain-pg — optimize_pose_graph_chain on a 64-pose chain with three
+               closures, card against CPU within 1e-4, with and without
+               Levenberg damping; ms a call;
+ 19. sharded — two gloo ranks on the one card (this script with
+               --shard-worker): search_sharded_top2 and the relocalizer's
+               sharded query on phase 7's final database exact against the
+               one-device search, and bundle_adjust_sharded on phase 8's last
+               BA window against the one-device bundle_adjust (poses 1e-5,
+               chi2 1e-4 relative) and bit for bit against its two blocks
+               summed in one process (points: two f32 sum orders of this
+               window differ by up to ~1e-3 m); the points' distance from
+               an f64 solve printed beside the one-device BA's.
+The phases run in the order 1-5, 6a, 6b, 15, 16, 18, 6c, 7, 8, 9-14, 17,
+19: phases 15-16 next to the runs they are compared with.
+The JAX counts printed beside phases 6-11 and 15-16 come from
 chip_smoke_jax_reference.py.  The script then prints the kernel record
-(one JSON line: launches summed over the runs of phases 6-10 and 12-14,
+(one JSON line: launches summed over the runs of phases 6-10, 12-16,
 bit-equality, times, bound, share of the bound, shared-load floor,
-blocks per SM, loads a pixel; K3's times at 480x640), the card's name
+blocks per SM, loads a pixel; K3's times at 480x640; K1 and K2 at the
+split chunk's B = 64 as entries of their own), the card's name
 and power limit (nvidia-smi), and last {"ok": true, "device": {...}}.
 Kernel times are CUDA-event medians of the kernel alone (the card is kept
 busy while the host enqueues it; vslam_tpu_torch/frontend/kernel_timing.py).
@@ -175,13 +207,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def timed(kernel, plain, work, pixels, taps, card, label):
-    """The kernel's warm and L2-cold medians, the plain version's, and
-    the bound and floor they are held to, printed and returned."""
+def timed(kernel, plain, work, pixels, taps, card, label, plain_runs=20):
+    """The kernel's warm and L2-cold medians, the plain version's (over
+    plain_runs runs), and the bound and floor they are held to, printed
+    and returned."""
     from vslam_tpu_torch.frontend import kernel_timing as kt
 
     rec = {"ms": kt.cuda_ms(kernel), "ms_l2_cold": kt.cuda_ms(kernel, setup=kt.l2_flush("cuda")),
-           "plain_ms": kt.cuda_ms(plain)}
+           "plain_ms": kt.cuda_ms(plain, runs=plain_runs)}
     rec["bound_ms"], rec["bound_by"] = kt.bound(*work)
     rec["roofline_share"] = rec["bound_ms"] / rec["ms_l2_cold"]
     rec["smem_floor_ms"] = kt.smem_floor_ms(pixels, taps)
@@ -223,6 +256,12 @@ JAX_CPU_XTION = {"n_local_maps": 31, "n_closures": 0, "n_optimizations": 0,
 JAX_CPU_KITTI_DOG = {"n_local_maps": 8, "n_track_breaks": 0, "ate_m": 0.0139}
 JAX_CPU_K1_SLICE = {"n_local_maps": 21, "n_track_breaks": 0, "ate_m": 0.0043}
 JAX_CPU_KITTI_CONFIG = {"n_local_maps": 8, "n_track_breaks": 0, "ate_m": 0.0138}
+# Phases 15-16 step the split front-end in chunks of SPLIT_CHUNK frames
+# (the card's frames_per_chunk); JAX's counts at that chunk on a CPU
+# (chip_smoke_jax_reference.py k1-split kitti-split).
+SPLIT_CHUNK = 32
+JAX_CPU_K1_SPLIT = {"n_local_maps": 21, "n_track_breaks": 0, "ate_m": 0.0047}
+JAX_CPU_KITTI_SPLIT = {"n_local_maps": 8, "n_track_breaks": 0, "ate_m": 0.0183}
 FLOAT_DETECTORS = ("HARRIS", "GFTT", "DOG", "KAZE")
 CLOSURE_STAGES = ("relocalization", "reloc_vote_icp", "pose_graph_optimization",
                   "pg_solve", "pg_propagate", "landmark_merging")
@@ -297,6 +336,12 @@ def within_15_percent(ref: int):
 def reset_counts():
     for c in counters().values():
         c.launches = 0
+        c.batches.clear()
+
+
+def read_batches() -> dict:
+    """Launches by batch size B, by kernel (since reset_counts)."""
+    return {k: dict(c.batches) for k, c in counters().items() if c.batches}
 
 
 def read_counts() -> dict:
@@ -463,10 +508,12 @@ def phase_k2_probe(card):
     torch.cuda.synchronize()
 
 
-def run_engine(cam, cfg, frames, device, n_frames):
+def run_engine(cam, cfg, frames, device, n_frames, harvest_every=None):
     from vslam_tpu_torch.system.engine import SlamEngine
 
     engine = SlamEngine(cam, cfg, landmark_capacity=65536, device=device)
+    if harvest_every is not None:
+        engine.tracker.harvest_every = harvest_every
     times = []
     t0 = time.perf_counter()
     for left, right in frames[:n_frames]:
@@ -479,11 +526,18 @@ def run_engine(cam, cfg, frames, device, n_frames):
     return engine, traj, time.perf_counter() - t0, times
 
 
-def drive_slice(label, cam, cfg, gt_poses, frames, expect, local_maps, cpu_frames, card):
+# ms/frame over the run, peak device MiB and launches by batch size of
+# each drive_slice run, by label.
+RUN_MS, PEAK_MIB, BATCHES = {}, {}, {}
+
+
+def drive_slice(label, cam, cfg, gt_poses, frames, expect, local_maps, cpu_frames, card,
+                cpu_harvest=None):
     """One run on the card through engine.process, with the launch counts
     zeroed just before it and read just after; checks and prints it, then
-    compares its first frames with the same engine on the CPU.  Returns
-    the counts."""
+    compares its first frames with the same engine on the CPU (draining
+    every cpu_harvest frames when given: the split front-end's chunks are
+    the drains).  Returns the counts."""
     from vslam_tpu_torch.eval import trajectory as traj_eval
 
     n = len(frames)
@@ -491,6 +545,7 @@ def drive_slice(label, cam, cfg, gt_poses, frames, expect, local_maps, cpu_frame
     reset_counts()
     engine, traj, wall, times = run_engine(cam, cfg, frames, "cuda", n)
     counts = read_counts()
+    BATCHES[label] = read_batches()
     rep = engine.report()
     if traj.shape != (n, 4, 4) or not np.all(np.isfinite(traj)):
         raise AssertionError(f"{label}: trajectory shape {traj.shape} or non-finite poses")
@@ -502,6 +557,11 @@ def drive_slice(label, cam, cfg, gt_poses, frames, expect, local_maps, cpu_frame
           f"{rep['n_landmarks']} landmarks, {rep['n_recovered_landmarks']} recovered, "
           f"launches {counts}")
     ms_frame = 1e3 * wall / n
+    RUN_MS[label] = ms_frame
+    # The second half alone: past the first runs' warm-ups, and for the
+    # split front-end its second chunk whole (dispatched at its last frame).
+    RUN_MS[label + " 2nd half"] = 1e3 * sum(times[n // 2:]) / (n - n // 2)
+    PEAK_MIB[label] = torch.cuda.max_memory_allocated() / 2**20
     steady = 1e3 * statistics.median(times[min(8, n // 4):])
     print(f"[{label}] {ms_frame:.2f} ms/frame over the run ({1e3 / ms_frame:.2f} fps), "
           f"median {steady:.2f} ms/frame after the first frames, peak device memory "
@@ -515,7 +575,7 @@ def drive_slice(label, cam, cfg, gt_poses, frames, expect, local_maps, cpu_frame
     if not local_maps[0] <= rep["n_local_maps"] <= local_maps[1]:
         raise AssertionError(f"{label}: {rep['n_local_maps']} local maps outside {local_maps}")
 
-    _, traj_cpu, _, _ = run_engine(cam, cfg, frames, "cpu", cpu_frames)
+    _, traj_cpu, _, _ = run_engine(cam, cfg, frames, "cpu", cpu_frames, cpu_harvest)
     dev = np.abs(traj[:cpu_frames, :3, 3] - traj_cpu[:, :3, 3]).max()
     print(f"[{label}] first {cpu_frames} positions: card vs CPU max |diff| {dev:.2e} m")
     if not dev <= CPU_CHECK_TOL_M:
@@ -556,13 +616,17 @@ def phase_kitti_config(card):
                        within_15_percent(JAX_CPU_KITTI_CONFIG["n_local_maps"]), 4, card)
 
 
-def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card):
+def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card, record=None):
     """A closed-loop engine run on the card through tracker.prestage +
     process_prestaged, the launch counts zeroed just before it and read
     just after; checked against phase 7's limits.  With BA on it also
     requires >= 1 BA run and prints each BA problem's size and the BA
-    stage.  Returns the launch counts."""
+    stage.  Returns the launch counts.  `record` (a dict) receives the
+    inputs of every closure ICP batch ("icp": (data, mask, T0, config)),
+    the last BA window problem and its config ("ba") and the engine
+    ("engine"), for phases 17 and 19."""
     from vslam_tpu_torch.eval import trajectory as traj_eval
+    from vslam_tpu_torch.solve import aligners
     from vslam_tpu_torch.system import ba_runner
     from vslam_tpu_torch.system.engine import SlamEngine
     from vslam_tpu_torch.utils import log
@@ -573,14 +637,25 @@ def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card):
     handles = engine.tracker.prestage(frames)
     sizes = []  # (P, L) of each BA problem
     build = ba_runner.build_window_problem
+    icp_align = aligners.icp_align
+    if record is not None:
+        record.update(icp=[], engine=engine)
 
     def build_and_record(*args, **kwargs):
         built = build(*args, **kwargs)
         if built is not None:
             sizes.append((built[0].T_wc.shape[0], built[0].xyz.shape[0]))
+            if record is not None:
+                record["ba"] = (built[0], ba_runner.ba_config(engine))
         return built
 
+    def icp_and_record(data, mask, T0, config):
+        record["icp"].append((data, mask, T0, config))
+        return icp_align(data, mask, T0, config)
+
     ba_runner.build_window_problem = build_and_record
+    if record is not None:
+        aligners.icp_align = icp_and_record
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     log.chronometers.clear()
@@ -596,6 +671,7 @@ def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card):
         torch.cuda.synchronize()
     finally:
         ba_runner.build_window_problem = build
+        aligners.icp_align = icp_align
     wall = time.perf_counter() - t0
     counts = read_counts()
     rep = engine.report()
@@ -1069,12 +1145,486 @@ def phase_disk(card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 15-19: the split front-end, FAST-ICP, the chain pose graph and the
+# sharded database search and BA
+# ---------------------------------------------------------------------------
+
+CHAIN_POSES = 64
+CHAIN_TOL = 1e-4
+FAST_ICP_TOL = 1e-4
+FAST_ICP_GN_TOL_M = 5e-3  # JAX's tests/test_anderson.py test_fast_icp_matches_gn_icp
+SHARD_RANKS = 2
+SHARD_TIMEOUT_S = 300
+
+
+def split_config(cfg):
+    """A configuration with the split front-end on (tracking.batch_frontend);
+    the card's chunk is parallelism.frames_per_chunk = SPLIT_CHUNK frames."""
+    import copy
+
+    cfg = copy.deepcopy(cfg)
+    cfg.tracking.batch_frontend = True
+    cfg.parallelism.frames_per_chunk = SPLIT_CHUNK
+    return cfg
+
+
+def chunk_stack(frames):
+    """The 2k images of a chunk as the split front-end stacks them: (2k, H,
+    W) f32 of the uint8 frames, frame i's left at 2i and right at 2i+1."""
+    pairs = np.stack([np.stack(f) for f in frames]).astype(np.uint8).astype(np.float32)
+    return torch.from_numpy(pairs.reshape((-1,) + pairs.shape[2:])).cuda()
+
+
+def phase_k1_split(cam, cfg, world, frames, card):
+    """Phase 15: phase 6a's 64 frames with tracking.batch_frontend: K1 runs
+    once a 32-frame chunk over its 64 images (B = 64) and is held bit-equal
+    to its plain version at that shape; ms/frame beside phase 6a's."""
+    from vslam_tpu_torch.frontend import fast_brief as fb
+
+    print(f"[k1-split] the JAX engine on a CPU (chunks of {SPLIT_CHUNK}): {JAX_CPU_K1_SPLIT}")
+    n = K1_SLICE_FRAMES
+    counts = drive_slice("k1-split", cam, split_config(cfg), world.poses[:n], frames[:n],
+                         {"K1": n // SPLIT_CHUNK, "K2": 0, "K3": 0, "K4": 0},
+                         within_15_percent(JAX_CPU_K1_SPLIT["n_local_maps"]),
+                         CPU_CHECK_FRAMES, card, cpu_harvest=SPLIT_CHUNK)
+    batches = BATCHES["k1-split"]
+    print(f"[k1-split] launches by batch size {batches}; {RUN_MS['k1-split']:.2f} ms/frame "
+          f"against phase 6a's per-frame path {RUN_MS['k1-slice']:.2f} in this call (frames "
+          f"32-63 alone: {RUN_MS['k1-split 2nd half']:.2f} against "
+          f"{RUN_MS['k1-slice 2nd half']:.2f}; phase 6a is the call's first engine); peak "
+          f"device memory {PEAK_MIB['k1-split']:.1f} MiB against {PEAK_MIB['k1-slice']:.1f} "
+          f"({card})")
+    if batches != {"K1": {2 * SPLIT_CHUNK: n // SPLIT_CHUNK}}:
+        raise AssertionError(f"k1-split: launches by batch size {batches}")
+    imgs = chunk_stack(frames[:SPLIT_CHUNK])
+    t = torch.tensor(18.0, device="cuda")
+    err = 0.0
+    for thr in (18.0, 40.0):
+        t = torch.tensor(thr, device="cuda")
+        got = fb.fast_brief_frontend_pair(imgs, t)
+        ref = fb.fast_brief_frontend_pair_reference(imgs, t)
+        for label, a, b in zip(("planes", "score", "rowmax", "rowarg"), got, ref):
+            err = max(err, _require_equal(f"K1 {label} at B={imgs.shape[0]}", a, b))
+        del got, ref
+    print(f"[k1-split] K1 at {tuple(imgs.shape)} bit-equal to its plain version over every "
+          "image (thresholds 18, 40)")
+    from vslam_tpu_torch.frontend import kernel_timing as kt
+
+    rec = timed(lambda: fb.fast_brief_frontend_pair(imgs, t),
+                lambda: fb.fast_brief_frontend_pair_reference(imgs, t),
+                kt.k1_work(*imgs.shape), imgs.numel(), kt.distinct_taps(fb.PATTERN), card,
+                f"[k1-split] K1 median at {'x'.join(map(str, imgs.shape))} (plain: 3 runs)",
+                plain_runs=3)
+    rec.update(max_abs_err=err, shape="x".join(map(str, imgs.shape)),
+               launches=batches["K1"][2 * SPLIT_CHUNK])
+    return counts, rec
+
+
+def phase_kitti_split(card):
+    """Phase 16: phase 6b's 32 frames with the split front-end: the staged
+    path's level-0 planes of the chunk's 64 images in one K2 launch, held
+    bit-equal to its plain version at that shape."""
+    from vslam_tpu_torch.frontend import dense_brief as db
+    from vslam_tpu_torch.frontend import kernel_timing as kt
+    from vslam_tpu_torch.frontend import orb
+    from vslam_tpu_torch.io.config import load_config
+    from vslam_tpu_torch.ops import camera as cam_ops
+
+    cam = cam_ops.make_camera(**KITTI_CAM)
+    gt, frames = kitti_world(cam, KITTI_SLICE_FRAMES)
+    n = KITTI_SLICE_FRAMES
+    print(f"[kitti-split] the JAX engine on a CPU (chunks of {SPLIT_CHUNK}): "
+          f"{JAX_CPU_KITTI_SPLIT}")
+    counts = drive_slice("kitti-split", cam, split_config(kitti_config(load_config)), gt,
+                         frames, {"K1": 0, "K2": n // SPLIT_CHUNK, "K3": 2 * n, "K4": 0},
+                         within_15_percent(JAX_CPU_KITTI_SPLIT["n_local_maps"]), 4, card,
+                         cpu_harvest=SPLIT_CHUNK)
+    batches = BATCHES["kitti-split"]
+    print(f"[kitti-split] launches by batch size {batches}; {RUN_MS['kitti-split']:.2f} "
+          f"ms/frame against phase 6b's {RUN_MS['kitti-config']:.2f}; peak device memory "
+          f"{PEAK_MIB['kitti-split']:.1f} MiB against {PEAK_MIB['kitti-config']:.1f} ({card})")
+    if batches.get("K2") != {2 * SPLIT_CHUNK: n // SPLIT_CHUNK}:
+        raise AssertionError(f"kitti-split: launches by batch size {batches}")
+    smooth = torch.stack([orb.box_blur(im, 2) for im in chunk_stack(frames[:SPLIT_CHUNK])])
+    err = _require_equal(f"K2 at B={smooth.shape[0]}", db.dense_bit_planes_batch(smooth),
+                         db.dense_bit_planes_reference(smooth))
+    print(f"[kitti-split] K2 at {tuple(smooth.shape)} bit-equal to its plain version")
+    rec = timed(lambda: db.dense_bit_planes_batch(smooth),
+                lambda: db.dense_bit_planes_reference(smooth),
+                kt.dense_work(*smooth.shape), smooth.numel(), kt.distinct_taps(db.TABLES[0]),
+                card, f"[kitti-split] K2 median at {'x'.join(map(str, smooth.shape))} "
+                "(plain: 3 runs)", plain_runs=3)
+    rec.update(max_abs_err=err, shape="x".join(map(str, smooth.shape)),
+               launches=batches["K2"][2 * SPLIT_CHUNK])
+    return counts, rec
+
+
+def _icp_verdicts(res, mask, p):
+    n = mask.sum(-1).cpu().numpy()
+    inl = res.num_inliers.cpu().numpy()
+    return (res.converged.cpu().numpy() & (inl >= p.icp_minimum_number_of_inliers)
+            & (inl / np.maximum(n, 1) >= p.icp_minimum_inlier_ratio))
+
+
+def gn_match_problem(n=120, noise=0.005, seed=11):
+    """JAX's tests/test_anderson.py test_fast_icp_matches_gn_icp problem: 120
+    points in a 10 m cube, a fixed twist, 5 mm noise on the fixed set."""
+    from vslam_tpu_torch.ops import lie
+
+    rng = np.random.default_rng(seed)
+    T = lie.exp_se3(torch.tensor([0.4, -0.2, 0.3, 0.05, -0.08, 0.12])).numpy()
+    mov = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
+    fix = (mov @ T[:3, :3].T + T[:3, 3] + rng.normal(0, noise, (n, 3))).astype(np.float32)
+    return mov, fix
+
+
+def phase_fast_icp(record, card):
+    """Phase 17: phase 7's own closure ICP batches re-solved by FAST-ICP
+    (solve/anderson.fast_icp_align) on the card and on the CPU (the same
+    verdicts, accepted transforms within FAST_ICP_TOL), with GN ICP's verdicts
+    (aligners.icp_align); JAX's GN-agreement problem on the card within
+    FAST_ICP_GN_TOL_M of GN ICP.  On the closure batches the two robust
+    estimators need not meet that bound: FAST-ICP converges to the IRLS
+    fixed point (outliers kept at weight kernel / chi2), GN ICP's second
+    phase refits the inliers alone, and with ~0.25 m residuals at ~10 m
+    the two optima lie centimeters apart on the bench's closure batches
+    (3.6-7.4 cm on a CPU and on an H100); the gap is printed.  The host
+    synchronizations of one batch are counted by torch's sync debug
+    mode."""
+    import warnings
+
+    from vslam_tpu_torch.solve import aligners, anderson, gn
+
+    p = record["engine"].relocalizer.params
+    batches = record["icp"]
+    if not batches:
+        raise AssertionError("fast-icp: phase 7 dispatched no ICP batch")
+    n_cand = n_acc = 0
+    worst_cpu = worst_gn = worst_rej = 0.0
+    for data, mask, T0, config in batches:
+        fast = anderson.fast_icp_align(data, mask, T0, config)
+        cpu = anderson.fast_icp_align(aligners.ICPData(*(x.cpu() for x in data)), mask.cpu(),
+                                      T0.cpu(), config)
+        gn_res = aligners.icp_align(data, mask, T0, config)
+        v_fast, v_cpu, v_gn = (_icp_verdicts(r, mask, p) for r in (fast, cpu, gn_res))
+        # Transforms are compared where the candidate is accepted: on a
+        # rejected one (a wrong match, a handful of inliers) the IRLS
+        # iteration has no stable optimum, and the card's and the CPU's
+        # rounding walk it to different places (2.7e-3 apart on a
+        # 1-inlier candidate of this workload on an H100).
+        d_cpu = (fast.x.cpu() - cpu.x).abs().amax(dim=(1, 2)).numpy()
+        both = v_fast & v_gn
+        d_gn = (fast.x[:, :3, 3] - gn_res.x[:, :3, 3]).norm(dim=1).cpu().numpy()
+        n_cand += len(v_fast)
+        n_acc += int(v_fast.sum())
+        worst_rej = max(worst_rej, float(d_cpu[~v_fast].max(initial=0.0)))
+        if v_fast.any():
+            worst_cpu = max(worst_cpu, float(d_cpu[v_fast].max()))
+        if both.any():
+            worst_gn = max(worst_gn, float(d_gn[both].max()))
+        if not np.array_equal(v_fast, v_cpu) or worst_cpu > FAST_ICP_TOL:
+            raise AssertionError(f"fast-icp: card and CPU differ (verdicts {v_fast} / {v_cpu}, "
+                                 f"max |dT| {d_cpu.max():.2e})")
+        if not np.array_equal(v_fast, v_gn):
+            raise AssertionError(f"fast-icp: verdicts {v_fast}, GN ICP's {v_gn}")
+    mov, fix = (torch.from_numpy(a)[None].cuda() for a in gn_match_problem())
+    cfg = gn.GNConfig(kernel_max_error=0.5, min_num_inliers=20)
+    args = (aligners.ICPData(mov, fix, torch.ones(mov.shape[:2], device="cuda")),
+            torch.ones(mov.shape[:2], dtype=torch.bool, device="cuda"),
+            torch.eye(4, device="cuda")[None], cfg)
+    d_test = float((anderson.fast_icp_align(*args).x[0, :3, 3]
+                    - aligners.icp_align(*args).x[0, :3, 3]).norm())
+    if not d_test <= FAST_ICP_GN_TOL_M:
+        raise AssertionError(f"fast-icp: {d_test:.4f} m from GN ICP on JAX's problem")
+    data, mask, T0, config = batches[0]
+
+    def count_syncs(fn):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    syncs = count_syncs(lambda: anderson.fast_icp_align(data, mask, T0, config))
+    B = T0.shape[0]
+    m3 = torch.eye(3, device="cuda").repeat(B, 1, 1) + 0.1
+    m5 = torch.eye(5, device="cuda").repeat(B, 1, 1)
+    per_op = {"svd": count_syncs(lambda: torch.linalg.svd(m3)),
+              "det": count_syncs(lambda: torch.linalg.det(m3)),
+              "solve_ex": count_syncs(lambda: torch.linalg.solve_ex(m5, m5[..., 0]))}
+    ms_fast = _ms_per_call(lambda: anderson.fast_icp_align(data, mask, T0, config), runs=5)
+    ms_gn = _ms_per_call(lambda: aligners.icp_align(data, mask, T0, config), runs=5)
+    print(f"[fast-icp] {len(batches)} ICP batches of phase 7, {n_cand} candidates, {n_acc} "
+          f"accepted: FAST-ICP on the card and on the CPU give the same verdicts, accepted "
+          f"transforms within {worst_cpu:.2e} (rejected ones {worst_rej:.2e}); GN ICP the same "
+          f"verdicts, its translations {worst_gn:.4f} m "
+          f"from FAST-ICP's where both accept (two robust estimators); on JAX's GN-agreement "
+          f"problem {d_test:.2e} m (bound {FAST_ICP_GN_TOL_M}); a batch of {T0.shape[0]} x "
+          f"{mask.shape[1]}: {syncs} host synchronizations (one call each on its batch "
+          f"shapes: {per_op}; 30 rounds), "
+          f"{ms_fast:.2f} ms (GN ICP {ms_gn:.2f} ms, synchronized host clock) ({card})")
+
+
+def chain_problem(P=CHAIN_POSES, laps=1.2, radius=12.0, seed=5):
+    """A P-pose chain on 1.2 laps of a circle with systematic odometry
+    drift and three ground-truth closures from the second lap onto the
+    first (tests/test_torch_pose_graph.py's drifted circle at 64 poses)."""
+    from vslam_tpu_torch.ops import lie
+
+    rng = np.random.default_rng(seed)
+    angles = np.linspace(0, 2 * np.pi * laps, P)
+    gt = np.tile(np.eye(4, dtype=np.float32), (P, 1, 1))
+    c, s_ = np.cos(angles), np.sin(angles)
+    gt[:, 0, 0], gt[:, 0, 2], gt[:, 2, 0], gt[:, 2, 2] = c, s_, -s_, c
+    gt[:, :3, 3] = np.stack([radius * c, np.zeros(P), radius * s_], 1)
+    est = gt.copy()
+    odo = np.zeros((P - 1, 4, 4), np.float32)
+    for k in range(P - 1):
+        xi = np.zeros(6, np.float32)
+        xi[:3] = 1e-2 * (1 + 0.1 * rng.standard_normal(3))
+        xi[4] = 5e-3 * (1 + 0.1 * rng.standard_normal())
+        odo[k] = np.linalg.inv(gt[k]) @ gt[k + 1] @ lie.exp_se3(torch.from_numpy(xi)).numpy()
+        est[k + 1] = est[k] @ odo[k]
+    per_lap = int(P / laps)
+    clo = [(j - per_lap, j) for j in (per_lap + 1, per_lap + 3, P - 1)]
+    return gt, est, odo, clo
+
+
+def phase_chain(card):
+    """Phase 18: optimize_pose_graph_chain on a 64-pose chain with three
+    closures, on the card against the CPU, both damping modes."""
+    from vslam_tpu_torch.backend import pose_graph as pg
+
+    gt, est, odo, clo = chain_problem()
+    P, C = len(est), 8
+
+    def graph(device):
+        odo_T = np.tile(np.eye(4, dtype=np.float32), (P, 1, 1))
+        odo_T[:P - 1] = odo
+        clo_T = np.tile(np.eye(4, dtype=np.float32), (C, 1, 1))
+        ci = np.zeros(C, np.int64)
+        cj = np.zeros(C, np.int64)
+        for n, (i, j) in enumerate(clo):
+            ci[n], cj[n] = i, j
+            clo_T[n] = np.linalg.inv(gt[i]) @ gt[j]
+        t = lambda a: torch.from_numpy(np.asarray(a)).to(device)  # noqa: E731
+        return pg.ChainPoseGraph(
+            poses=t(est), odo_T=t(odo_T), odo_weight=t(np.r_[np.ones(P - 1), 0.0]
+                                                       .astype(np.float32)),
+            odo_valid=t(np.arange(P) < P - 1), clo_i=t(ci), clo_j=t(cj), clo_T=t(clo_T),
+            clo_weight=t(np.where(np.arange(C) < len(clo), 10.0, 0.0).astype(np.float32)),
+            clo_valid=t(np.arange(C) < len(clo)), pose_valid=t(np.ones(P, bool)))
+
+    before = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=1).max()
+    for levenberg in (False, True):
+        card_poses, card_chi2 = pg.optimize_pose_graph_chain(graph("cuda"), levenberg=levenberg)
+        cpu_poses, cpu_chi2 = pg.optimize_pose_graph_chain(graph("cpu"), levenberg=levenberg)
+        dev = float((card_poses.cpu() - cpu_poses).abs().max())
+        after = float(np.linalg.norm(card_poses.cpu().numpy()[:, :3, 3] - gt[:, :3, 3],
+                                     axis=1).max())
+        ms = _ms_per_call(lambda: pg.optimize_pose_graph_chain(graph("cuda"),
+                                                               levenberg=levenberg), runs=5)
+        print(f"[chain-pg] {P} poses, {len(clo)} closures, levenberg {levenberg}: card vs CPU "
+              f"max |diff| {dev:.2e}; drift {before:.3f} m -> {after:.3f} m; chi2 "
+              f"{float(card_chi2):.6g} (CPU {float(cpu_chi2):.6g}); {ms:.2f} ms a call, 10 "
+              f"rounds ({card})")
+        if not np.all(np.isfinite(card_poses.cpu().numpy())) or not dev <= CHAIN_TOL:
+            raise AssertionError(f"chain-pg: card and CPU differ by {dev}")
+        if not after < 0.5 * before:
+            raise AssertionError(f"chain-pg: drift {before} -> {after}")
+
+
+def shard_worker(rank, world, port, src, out):
+    """One rank of phase 19 (chip_smoke.py --shard-worker ...): its row
+    block of phase 7's database searched by search_sharded_top2 and by the
+    relocalizer's query, and its landmark block of phase 8's BA window,
+    every tensor on the card; the process group is gloo."""
+    from vslam_tpu_torch.backend import ba as ba_mod
+    from vslam_tpu_torch.loop import relocalizer as reloc
+    from vslam_tpu_torch.ops import camera as cam_ops
+    from vslam_tpu_torch.parallel import launch
+    from vslam_tpu_torch.parallel import mesh as mesh_mod
+    from vslam_tpu_torch.parallel import sharded_ba, sharded_search
+
+    launch.init(rank, world, port)
+    try:
+        mesh = mesh_mod.make_mesh()
+        a = {k: torch.from_numpy(v).cuda() for k, v in np.load(src).items()}
+        db, mid, q = a["db_desc"], a["db_map_id"], a["q"]
+        elig = (mid[None] >= 0) & (mid[None] <= a["bound"][:, None])
+        res = {"top2": torch.stack(sharded_search.search_sharded_top2(
+            q, mesh_mod.shard_rows(db, mesh), mesh_mod.shard_rows(elig, mesh, axis=1),
+            mesh)).cpu().numpy()}
+        none = torch.full((q.shape[0],), -1, dtype=torch.int32, device="cuda")
+        best, ok, _, _ = reloc._query_and_insert_many(
+            q[None], none, none, db, mid, a["bound"][:1], int(a["max_distance"]),
+            int(a["min_margin"]), db.shape[0], mesh=mesh)
+        res["reloc_best"], res["reloc_ok"] = best.cpu().numpy(), ok.cpu().numpy()
+        prob = ba_mod.BAProblem(**{k[3:]: a[k] for k in a if k.startswith("ba_")})
+        block, L = sharded_ba.shard_problem(prob, mesh)
+        config = ba_mod.BAConfig(iterations=int(a["iterations"]),
+                                 robust_chi2=float(a["robust_chi2"]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T, xyz, chi2 = sharded_ba.bundle_adjust_sharded(
+            cam_ops.make_camera(**KITTI_CAM), block, mesh, config)
+        torch.cuda.synchronize()
+        res["ba_seconds"] = np.asarray(time.perf_counter() - t0)
+        res["ba_T"], res["ba_chi2"] = T.cpu().numpy(), chi2.cpu().numpy()
+        res["ba_xyz"] = mesh_mod.all_gather_rows(xyz, mesh)[:L].cpu().numpy()
+        np.savez(f"{out}{rank}.npz", **res)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def blocks_in_one_process(cam, prob, config, ranks=SHARD_RANKS):
+    """bundle_adjust_sharded's arithmetic in one process: each rank's block
+    built as shard_problem gives it, the partial systems added in rank
+    order (a sum of two f32 operands does not depend on the order), the
+    replicated solve.  Returns (T_wc, xyz, chi2 history)."""
+    from vslam_tpu_torch.backend import ba as ba_mod
+    from vslam_tpu_torch.parallel import mesh as mesh_mod
+    from vslam_tpu_torch.parallel import sharded_ba
+
+    blocks = [sharded_ba.shard_problem(prob, mesh_mod.Mesh(r, ranks, None))[0]
+              for r in range(ranks)]
+    T, xs, chi2s = prob.T_wc, [b.xyz for b in blocks], []
+    for _ in range(config.iterations):
+        parts = [ba_mod.build_reduced_system(cam, T, b._replace(xyz=x), config)
+                 for b, x in zip(blocks, xs)]
+        flat = [torch.cat([p[0].reshape(-1), p[1].reshape(-1), p[5].reshape(1)]).cpu()
+                for p in parts]
+        flat = (flat[0] + flat[1] if ranks == 2 else sum(flat)).to(T.device)
+        n_S = parts[0][0].numel()
+        S = flat[:n_S].reshape(parts[0][0].shape)
+        b_S = flat[n_S:-1].reshape(parts[0][1].shape)
+        outs = [ba_mod.solve_reduced_and_backsub(T, b._replace(xyz=x), S, b_S, *p[2:5], config)
+                for b, x, p in zip(blocks, xs, parts)]
+        T, xs = outs[0][0], [o[1] for o in outs]
+        chi2s.append(flat[-1])
+    return T, torch.cat(xs)[:prob.xyz.shape[0]], torch.stack(chi2s)
+
+
+def phase_sharded(closed, ba_closed, card):
+    """Phase 19: SHARD_RANKS gloo ranks on the one card (NCCL refuses two
+    ranks on one device).  search_sharded_top2 and the relocalizer's
+    sharded query on phase 7's final database, each rank its row block,
+    exact against the one-device search; bundle_adjust_sharded on phase
+    8's last BA window against the one-device bundle_adjust (poses 1e-5,
+    chi2 1e-4 relative) and bit for bit against its two blocks summed in
+    one process (see below)."""
+    import shutil
+    import tempfile
+
+    from vslam_tpu_torch.backend import ba as ba_mod
+    from vslam_tpu_torch.loop import relocalizer as reloc
+    from vslam_tpu_torch.ops import hamming
+    from vslam_tpu_torch.parallel import launch
+
+    eng = closed["engine"]
+    rl = eng.relocalizer
+    prefix = rl._active_prefix()
+    maps = eng.world_map.local_maps[-4:]  # the newest local maps as queries
+    q = torch.cat([m.desc_dev for m in maps])
+    interspace = rl.params.preliminary_minimum_interspace_queries
+    bound = torch.repeat_interleave(torch.tensor([m.map_id - interspace for m in maps],
+                                                 dtype=torch.int32), rl.QUERY_CAP)
+    prob, config = ba_closed["ba"]
+    inputs = dict(db_desc=rl.db_desc[:prefix], db_map_id=rl.db_map_id[:prefix], q=q,
+                  bound=bound, max_distance=torch.tensor(rl.params.maximum_descriptor_distance),
+                  min_margin=torch.tensor(rl.params.minimum_second_best_margin),
+                  iterations=torch.tensor(config.iterations),
+                  robust_chi2=torch.tensor(config.robust_chi2),
+                  **{"ba_" + k: getattr(prob, k) for k in prob._fields})
+    tmp = tempfile.mkdtemp(prefix="vslam_shard_")
+    try:
+        src = os.path.join(tmp, "inputs.npz")
+        np.savez(src, **{k: v.cpu().numpy() for k, v in inputs.items()})
+        port = launch.free_port()
+        here = os.path.abspath(__file__)
+        t0 = time.perf_counter()
+        launch.run_ranks(lambda r: [sys.executable, here, "--shard-worker", str(r),
+                                    str(SHARD_RANKS), str(port), src,
+                                    os.path.join(tmp, "rank")], SHARD_RANKS, SHARD_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        outs = [dict(np.load(os.path.join(tmp, f"rank{r}.npz"))) for r in range(SHARD_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # The one-device search, brute force on the card: first-index arg-min
+    # and runner-up, a masked pair counted 511.
+    db = inputs["db_desc"]
+    mid = inputs["db_map_id"]
+    elig = (mid[None] >= 0) & (mid[None] <= bound.cuda()[:, None])
+    d = torch.where(elig, hamming.hamming_matrix_bits(q, db), 511)
+    best_d, best = hamming._min_first(d, 1)
+    cols = torch.arange(d.shape[1], dtype=torch.int32, device="cuda")
+    second = torch.where(cols[None] == best[:, None], 511, d).amin(dim=1)
+    want = torch.stack([best, best_d, second]).cpu().numpy()
+    none = torch.full((q.shape[0],), -1, dtype=torch.int32, device="cuda")
+    r_best, r_ok, _, _ = reloc._query_and_insert_many(
+        q[None], none, none, db, mid, bound[:1].cuda(), rl.params.maximum_descriptor_distance,
+        rl.params.minimum_second_best_margin, prefix)
+    T1, xyz1, chi1 = (t.cpu().numpy() for t in ba_mod.bundle_adjust(eng.cam, prob, config))
+    # The same solve in f64: the f32 one-device BA's own error on this window.
+    f64 = {k: getattr(prob, k).double() for k in ("T_wc", "xyz", "obs_uv4", "obs_weight",
+                                                  "odo_T", "odo_weight", "odo_info")}
+    cam64 = eng.cam._replace(K=eng.cam.K.double(), baseline_m=eng.cam.baseline_m.double(),
+                             T_cam_robot=eng.cam.T_cam_robot.double())
+    xyz64 = ba_mod.bundle_adjust(cam64, prob._replace(**f64), config)[1].cpu().numpy()
+    err_one = np.linalg.norm(xyz1 - xyz64, axis=1).max()
+    T2, xyz2, chi2 = (t.cpu().numpy() for t in blocks_in_one_process(eng.cam, prob, config))
+    for r, out in enumerate(outs):
+        if not np.array_equal(out["top2"], want):
+            raise AssertionError(f"sharded: rank {r}'s search differs from the one-device "
+                                 f"search in {int((out['top2'] != want).sum())} entries")
+        if not (np.array_equal(out["reloc_best"][0], r_best[0].cpu().numpy())
+                and np.array_equal(out["reloc_ok"][0], r_ok[0].cpu().numpy())):
+            raise AssertionError(f"sharded: rank {r}'s relocalizer query differs")
+        dT = np.abs(out["ba_T"] - T1).max()
+        dc = np.abs(out["ba_chi2"] / chi1 - 1).max()
+        # Points are held bit for bit to the same blocks summed in one
+        # process, not to 1e-4 m of the one-device BA: on this window two
+        # f32 sum orders of the same solve are 1e-4 to 8e-4 m apart (the
+        # one-device BA itself is 1.0e-4 m from an f64 solve on an H100
+        # and 4.2e-4 m on a CPU: far landmarks).
+        same = all(np.array_equal(out[k], v) for k, v in
+                   (("ba_T", T2), ("ba_xyz", xyz2), ("ba_chi2", chi2)))
+        if not (dT <= 1e-5 and dc <= 1e-4 and same):
+            raise AssertionError(f"sharded: rank {r}'s BA poses {dT:.2e} and chi2 {dc:.2e} "
+                                 f"relative from the one-device BA; bit-equal to its blocks "
+                                 f"summed in one process: {same}")
+    n_ok = int(r_ok.sum())
+    print(f"[sharded] {SHARD_RANKS} gloo ranks on one card, {wall:.1f} s for both processes: "
+          f"search_sharded_top2 of {q.shape[0]} queries over phase 7's {prefix} database rows "
+          f"({rl.n_rows} live) exact against the one-device search on every rank, the "
+          f"relocalizer's sharded query too ({n_ok} rows pass its gates); BA on phase 8's "
+          f"window (P {prob.T_wc.shape[0]}, L {prob.xyz.shape[0]}): poses within "
+          f"{np.abs(outs[0]['ba_T'] - T1).max():.2e}, points within "
+          f"{np.abs(outs[0]['ba_xyz'] - xyz1).max():.2e} m, chi2 within "
+          f"{np.abs(outs[0]['ba_chi2'] / chi1 - 1).max():.2e} relative of the one-device BA; "
+          f"points {np.linalg.norm(outs[0]['ba_xyz'] - xyz64, axis=1).max():.2e} m from an f64 "
+          f"solve (one device {err_one:.2e} m), bit-equal to the two blocks summed in one "
+          f"process; "
+          f"{float(outs[0]['ba_seconds']):.3f} s a sharded solve ({card})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(1)
     import vslam_tpu_torch  # noqa: F401  (the port, from this checkout)
     from vslam_tpu_torch.frontend import dense_brief as db
+
+    if sys.argv[1:2] == ["--shard-worker"]:  # one rank of phase 19
+        rank, world, port, src, out = sys.argv[2:7]
+        shard_worker(int(rank), int(world), int(port), src, out)
+        return
 
     card = card_line()
     print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1093,30 +1643,39 @@ def main():
                            {"K1": K1_SLICE_FRAMES, "K2": 0, "K3": 0, "K4": 0},
                            within_15_percent(JAX_CPU_K1_SLICE["n_local_maps"]),
                            CPU_CHECK_FRAMES, card)
+    counts = phase_kitti_config(card)
+    launches = {k: launches[k] + counts[k] for k in launches}
+    # Phases 15-16 next to the per-frame runs they are compared with.
+    chunk_stats = {}
+    for phase, key in ((lambda: phase_k1_split(cam, cfg, world, frames, card), "K1"),
+                       (lambda: phase_kitti_split(card), "K2")):
+        counts, chunk_stats[key] = phase()
+        launches = {k: launches[k] + counts[k] for k in launches}
+    phase_chain(card)
+    closed, ba_closed = {}, {}
     for counts in (
-        phase_kitti_config(card),
         config_slice("euroc-config", "euroc", EUROC_CAM, 32, 4.0,
                      {"K2": 1, "K4": 2 * db.N_ROT_BANKS}, (13, 17), 4, card),
+        phase_closed_loop("closed", cam, closed_loop_config(cfg), world, frames,
+                          JAX_CPU_CLOSED_LOOP, card, record=closed),
+        phase_closed_loop("ba-closed", cam, ba_closed_config(cfg), world, frames,
+                          JAX_CPU_BA_CLOSED, card, record=ba_closed),
     ):
         launches = {k: launches[k] + counts[k] for k in launches}
-    for counts in (
-        phase_closed_loop("closed", cam, closed_loop_config(cfg), world, frames,
-                          JAX_CPU_CLOSED_LOOP, card),
-        phase_closed_loop("ba-closed", cam, ba_closed_config(cfg), world, frames,
-                          JAX_CPU_BA_CLOSED, card),
-        phase_tum(card),
-        phase_xtion(card),
-    ):
+    for counts in (phase_tum(card), phase_xtion(card)):
         launches = {k: launches[k] + counts[k] for k in launches}
     phase_detectors(frames[0], card)
     counts = phase_disk(card)
     launches = {k: launches[k] + counts[k] for k in launches}
+    # Phases 17 and 19 last, on phases 7-8's records.
+    phase_fast_icp(closed, card)
+    phase_sharded(closed, ba_closed, card)
 
     sources = {"K1": ("fast_brief_frontend_pair", "fast_brief_frontend.cu",
                       "vslam_tpu/frontend/pallas_frontend.py:196")}
     for name, entry in (("K2", db.K2), ("K3", db.K3), ("K4", db.K4)):
         sources[name] = (entry.name, "dense_brief.cu", entry.replaces)
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": fn,
         "route": "cuda",
         "source": f"vslam_tpu_torch/csrc/{src}",
@@ -1127,7 +1686,15 @@ def main():
         "library_ms": None,
         **stats[k],
         **facts[k],
-    } for k, (fn, src, replaces) in sources.items()]}))
+    } for k, (fn, src, replaces) in sources.items()]
+    # The split front-end's chunk-sized launches (phases 15-16), their own
+    # entries: launches at that shape, its times and bound.
+    for k, rec in chunk_stats.items():
+        fn, src, replaces = sources[k]
+        kernels.append({"name": f"{fn} (split chunk, B={2 * SPLIT_CHUNK})", "route": "cuda",
+                        "source": f"vslam_tpu_torch/csrc/{src}", "replaces": replaces,
+                        "library_ms": None, **rec, **facts[k]})
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,15 +1,19 @@
 """The JAX engine (vslam_tpu) on the CPU for chip_smoke.py's workloads
 that it holds to JAX's counts (JAX_CPU_K1_SLICE, JAX_CPU_KITTI_CONFIG,
 JAX_CPU_CLOSED_LOOP, JAX_CPU_BA_CLOSED, JAX_CPU_TUM, JAX_CPU_XTION,
-JAX_CPU_KITTI_DOG):
+JAX_CPU_KITTI_DOG, JAX_CPU_K1_SPLIT, JAX_CPU_KITTI_SPLIT):
 
     python3 chip_smoke_jax_reference.py [k1-slice] [kitti-config] [closed]
-        [ba-closed] [tum-config] [xtion-config] [kitti-dog]
+        [ba-closed] [tum-config] [xtion-config] [kitti-dog] [k1-split]
+        [kitti-split]
 
 Each run uses chip_smoke.py's configuration and sequence, built with the
 JAX package's classes, on one CPU device (no sharded database search or
-BA), frame by frame; it prints one JSON line of counts per workload.  At
-KITTI resolution a run takes about 1-2 s a frame.
+BA), frame by frame; it prints one JSON line of counts per workload.  The
+split runs (k1-split, kitti-split: k1-slice and kitti-config with
+tracking.batch_frontend) step chunks of 32 frames through
+make_chunk_step_split, as the card does (the JAX tracker's chunk on a CPU
+is one frame).  At KITTI resolution a run takes about 1-2 s a frame.
 """
 
 import json
@@ -62,11 +66,21 @@ def workload(name):
     return cam_ops.make_camera(**workloads.KITTI_CAM), cfg, world.poses[:n], frames
 
 
+SPLIT = {"k1-split": "k1-slice", "kitti-split": "kitti-config"}
+
+
 def run(name):
-    cam, cfg, gt, frames = workload(name)
+    cam, cfg, gt, frames = workload(SPLIT.get(name, name))
     cfg.parallelism.shard_descriptor_db = False
     cfg.parallelism.shard_landmarks = False
+    if name in SPLIT:
+        cfg.tracking.batch_frontend = True
     engine = SlamEngine(cam, cfg, landmark_capacity=65536)
+    if name in SPLIT:  # the card's chunk: 32 frames a make_chunk_step_split call
+        C = chip_smoke.SPLIT_CHUNK
+        tr = engine.tracker
+        tr.chunk_size = tr.harvest_every = C
+        tr._odom_identity = jax.device_put(np.tile(np.eye(4, dtype=np.float32), (C, 1, 1)))
     for left, right in frames:
         engine.process(left, right)
     traj = np.asarray(engine.trajectory)
@@ -81,5 +95,6 @@ def run(name):
 
 if __name__ == "__main__":
     for name in sys.argv[1:] or ["k1-slice", "kitti-config", "closed", "ba-closed",
-                                 "tum-config", "xtion-config", "kitti-dog"]:
+                                 "tum-config", "xtion-config", "kitti-dog", "k1-split",
+                                 "kitti-split"]:
         run(name)

@@ -322,3 +322,65 @@ def test_cli_run_on_a_kitti_directory_on_the_card(tmp_path):
             else {"K1": 0, "K2": 0, "K3": 0, "K4": 0})
     assert est["cuda"].shape == (4, 4, 4) and np.isfinite(est["cuda"]).all()
     assert np.abs(est["cuda"][:, :3, 3] - est["cpu"][:, :3, 3]).max() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["k1", "staged"])
+def test_split_chunk_front_end_on_the_card_matches_the_cpu(route):
+    """frame.frontend_chunk over 4 frames at 192 x 512: one K1 launch at
+    B = 8 (route k1) or one K2 launch at B = 8 (staged, 2 octaves), and
+    every output equal to the CPU's; p_cam within rtol 1e-6."""
+    _need_card()
+    from vslam_tpu_torch.mapping import frame
+
+    cam = cam_ops.make_camera(fx=300.0, fy=300.0, cx=256.0, cy=96.0, baseline_m=0.4,
+                              rows=192, cols=512, device="cpu")
+    world = synthetic.make_world(cam, n_frames=4, n_points=1500, seed=42, step=0.45)
+    chunk = torch.from_numpy(np.stack([np.stack(synthetic.render_frame(world, t)[:2])
+                                       for t in range(4)]).astype(np.uint8)).float()
+    kw = dict(capacity=256, bin_size=16, border=20, want_planes=True,
+              octaves=1 if route == "k1" else 2)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        fb.K1.batches.clear()
+        db.K2.batches.clear()
+        outs[device] = frame.frontend_chunk(cam_ops.to_device(cam, device), chunk.to(device),
+                                            torch.tensor(15.0, device=device), **kw)
+        if device == "cuda":
+            assert (fb.K1.batches if route == "k1" else db.K2.batches) == {8: 1}
+    (fg, *rest_g), (fc, *rest_c) = outs["cuda"], outs["cpu"]
+    for name in ("uv4", "desc", "valid", "reliable", "track_len", "landmark_slot"):
+        assert torch.equal(getattr(fg, name).cpu(), getattr(fc, name)), name
+    torch.testing.assert_close(fg.p_cam.cpu(), fc.p_cam, rtol=1e-6, atol=0.0)
+    for a, b in zip(rest_g, rest_c):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_fast_icp_on_the_card_matches_the_cpu():
+    """A batch of 4 outlier-laden point-set problems through FAST-ICP:
+    transforms within 1e-4 of the CPU's, inlier counts and verdicts equal."""
+    _need_card()
+    from vslam_tpu_torch.ops import lie
+    from vslam_tpu_torch.solve import aligners, anderson, gn
+
+    rng = np.random.default_rng(3)
+    xi = (torch.tensor([[0.4, -0.2, 0.3, 0.05, -0.08, 0.12]])
+          * torch.from_numpy(rng.uniform(0.2, 1.0, (4, 1)).astype(np.float32)))
+    T = lie.exp_se3(xi).numpy()
+    mov = rng.uniform(-5, 5, (4, 120, 3)).astype(np.float32)
+    fix = np.einsum("bij,bnj->bni", T[:, :3, :3], mov) + T[:, None, :3, 3]
+    fix[:, :20] += rng.uniform(3, 8, (4, 20, 3))
+    cfg = gn.GNConfig(kernel_max_error=0.5, min_num_inliers=20)
+    res = {}
+    for device in ("cuda", "cpu"):
+        data = aligners.ICPData(torch.from_numpy(mov).to(device),
+                                torch.from_numpy(fix.astype(np.float32)).to(device),
+                                torch.ones(4, 120, device=device))
+        res[device] = anderson.fast_icp_align(data, torch.ones(4, 120, dtype=torch.bool,
+                                                               device=device),
+                                              torch.eye(4, device=device).repeat(4, 1, 1), cfg)
+    torch.testing.assert_close(res["cuda"].x.cpu(), res["cpu"].x, rtol=0.0, atol=1e-4)
+    assert torch.equal(res["cuda"].num_inliers.cpu(), res["cpu"].num_inliers)
+    assert torch.equal(res["cuda"].converged.cpu(), res["cpu"].converged)
+    assert bool(res["cpu"].converged.all())

@@ -124,8 +124,9 @@ def test_entry_points_run_on_the_card_by_default(name):
             call()
 
 
-# The ROADMAP item each refusal names.
-_ITEM = {"aligner_type": "item 16", "use_fused_tracker": "not to port"}
+# The ROADMAP item each refusal names; None: ported since (FAST-ICP,
+# ROADMAP item 16), so the engine constructs.
+_ITEM = {"aligner_type": None, "use_fused_tracker": "not to port"}
 
 
 @pytest.mark.parametrize("group,key,value", [
@@ -135,6 +136,10 @@ _ITEM = {"aligner_type": "item 16", "use_fused_tracker": "not to port"}
 def test_unported_engine_configurations_raise(group, key, value):
     cfg = tconfig.ParameterCollection()  # closed loop: ported
     setattr(getattr(cfg, group), key, value)
+    if _ITEM[key] is None:
+        eng = SlamEngine(CAM, cfg, landmark_capacity=1024, device="cpu")
+        assert eng.relocalizer.params.aligner_type == value
+        return
     with pytest.raises(NotImplementedError, match=_ITEM[key]):
         SlamEngine(CAM, cfg, landmark_capacity=1024, device="cpu")
 
@@ -172,10 +177,12 @@ def test_ba_and_rgbd_engines_construct():
     ("tracking", "batch_frontend", True),
 ])
 def test_unported_tracker_modes_raise(group, key, value):
+    """No tracker mode is left unported: the split front-end (ROADMAP item
+    15) builds a tracker that buffers its frames into chunks."""
     cfg = _open_loop()
     setattr(getattr(cfg, group), key, value)
-    with pytest.raises(NotImplementedError):
-        FusedPoseTracker(CAM, cfg, landmark_capacity=1024, device="cpu")
+    tracker = FusedPoseTracker(CAM, cfg, landmark_capacity=1024, device="cpu")
+    assert tracker.split and tracker.n_frames_in == 0
 
 
 def test_reference_configurations_load():

@@ -10,6 +10,10 @@ super-edges, the junction graph is solved by dense damped Gauss-Newton
 (optimize_pose_graph) and the interior poses receive the geodesic blend of
 their segment ends' corrections.
 
+The chain solver of the JAX package (optimize_pose_graph_chain: odometry
+chain + closures solved in increment space by Woodbury) is here too; only
+tests and the chip smoke call it.
+
 The JAX package pads the junction graph and the pose list to power-of-two
 compile buckets; padded vertices are decoupled (no edges, a 1e12
 diagonal), so the port solves at the true size and gets the same answer.
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from vslam_tpu_torch.ops import lie
+from vslam_tpu_torch.solve import gn
 from vslam_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -106,6 +111,166 @@ def optimize_pose_graph(graph: PoseGraph, iterations: int = 10, damping: float =
             # total_chi2 is the chi2 of the incoming iterate: a
             # non-improving one is rejected and the next linearization
             # restarts from the best iterate with raised damping.
+            improved = total_chi2 < best_chi2
+            best_poses = torch.where(improved, poses, best_poses)
+            best_chi2 = torch.minimum(total_chi2, best_chi2)
+            mu = torch.clamp(torch.where(improved, mu * 0.5, mu * 4.0), damping, 1e2)
+            poses = torch.where(improved, new_poses, best_poses)
+        else:
+            poses = new_poses
+    if levenberg:
+        return best_poses, best_chi2
+    return poses, total_chi2
+
+
+# ---------------------------------------------------------------------------
+# Chain + closure solver in increment space (the JAX package's
+# optimize_pose_graph_chain; its tests and the chip smoke call it, the
+# engine keeps the hierarchical solver, as the JAX engine does)
+# ---------------------------------------------------------------------------
+#
+# The edge residual log(T_ij^-1 T_i^-1 T_j) is invariant under a common
+# left perturbation of both endpoints, so Ji = -Jj.  In chain increments
+# u_k = dx_k - dx_{k-1} every odometry edge (k, k+1) depends on u_{k+1}
+# alone (a block-diagonal Hessian D) and a closure (i, j) on the signed
+# sum of u over (min(i,j), max(i,j)].  The system (D + R^T R) u = -b is
+# solved by Woodbury: batched 6x6 inverses of D and one (6C x 6C)
+# capacitance system, then dx = cumsum(u).  The gauge is fixed by the
+# damping on u_0, which has no data term.
+
+
+class ChainPoseGraph(NamedTuple):
+    """Chain-structured pose graph: odometry edges (k, k+1) + closures."""
+
+    poses: torch.Tensor  # (P, 4, 4)
+    odo_T: torch.Tensor  # (P, 4, 4); row k = measured T_{k,k+1} (row P-1 pad)
+    odo_weight: torch.Tensor  # (P,) f32 (break-aware weights; row P-1 pad)
+    odo_valid: torch.Tensor  # (P,) bool; True on rows k with a (k, k+1) edge
+    clo_i: torch.Tensor  # (C,) int64
+    clo_j: torch.Tensor  # (C,) int64
+    clo_T: torch.Tensor  # (C, 4, 4)
+    clo_weight: torch.Tensor  # (C,)
+    clo_valid: torch.Tensor  # (C,) bool
+    pose_valid: torch.Tensor  # (P,) bool
+
+
+def _pcg_spd(A: torch.Tensor, b: torch.Tensor, iterations: int, tol: float = 1e-6):
+    """Jacobi-preconditioned conjugate gradients for a small SPD system,
+    iterations rounds with no host read: once the residual norm is at or
+    below tol * |b| the system is frozen (x, r, p stop changing), where
+    the JAX package's while_loop stops."""
+    dinv = 1.0 / torch.clamp(torch.diagonal(A), min=1e-12)
+    bnorm = torch.linalg.vector_norm(b)
+    x = torch.zeros_like(b)
+    r = b
+    p = dinv * b
+    rz = r @ p
+    running = torch.ones((), dtype=torch.bool, device=b.device)
+    for _ in range(iterations):
+        running = running & (torch.linalg.vector_norm(r) > tol * bnorm)
+        Ap = A @ p
+        alpha = rz / torch.clamp(p @ Ap, min=1e-30)
+        x_n = x + alpha * p
+        r_n = r - alpha * Ap
+        z = dinv * r_n
+        rz_n = r_n @ z
+        p_n = z + rz_n / torch.clamp(rz, min=1e-30) * p
+        x = torch.where(running, x_n, x)
+        r = torch.where(running, r_n, r)
+        p = torch.where(running, p_n, p)
+        rz = torch.where(running, rz_n, rz)
+    return x
+
+
+def _edge_residual_jac_j(poses, i, j, T_ij):
+    """Residuals and the closed-form Jacobians wrt the left tangent of
+    pose j only, batched over edges (wrt pose i it is the negation)."""
+    Q = lie.inverse(T_ij) @ lie.inverse(poses[i])
+    r = lie.log_se3(Q @ poses[j])
+    return r, lie.jl_inv_se3(r) @ lie.adjoint_se3(Q)
+
+
+def _robust_w(chi2, robust_kernel_chi2):
+    return torch.where(chi2 > robust_kernel_chi2,
+                       robust_kernel_chi2 / torch.clamp(chi2, min=1e-12), 1.0)
+
+
+def optimize_pose_graph_chain(graph: ChainPoseGraph, iterations: int = 10,
+                              damping: float = 1e-3, robust_kernel_chi2: float = 1.0,
+                              levenberg: bool = False):
+    """Chain + Woodbury Gauss-Newton in increment space; returns (optimized
+    poses (P, 4, 4), final chi2).  The objective of optimize_pose_graph
+    restricted to chain odometry edges (the damping acts on increments);
+    O(P * C) work a round.  The capacitance system is factorized by
+    Cholesky while 6C <= 1536 and solved by _pcg_spd above that.  A
+    failed factorization (cholesky_ex info != 0) counts as a non-finite
+    step: the poses are kept.  levenberg=True: adaptive damping with the
+    best iterate carried, as optimize_pose_graph."""
+    P = graph.poses.shape[0]
+    C = graph.clo_i.shape[0]
+    dev, dt = graph.poses.device, graph.poses.dtype
+    ks = torch.arange(P, device=dev)
+    odo_j = torch.clamp(ks + 1, max=P - 1)
+    eye6 = torch.eye(6, dtype=dt, device=dev)
+    lo = torch.minimum(graph.clo_i, graph.clo_j)
+    hi = torch.maximum(graph.clo_i, graph.clo_j)
+    sgn = torch.where(graph.clo_j >= graph.clo_i, 1.0, -1.0).to(dt)
+    # Signed interval indicator sm[c, m] = s_c * [lo_c < m <= hi_c].
+    sm = sgn[:, None] * ((ks[None, :] > lo[:, None]) & (ks[None, :] <= hi[:, None])).to(dt)
+
+    poses = graph.poses
+    mu = torch.tensor(damping, dtype=dt, device=dev)
+    best_poses = poses
+    best_chi2 = torch.tensor(float("inf"), dtype=dt, device=dev)
+    total_chi2 = best_chi2
+    for _ in range(iterations):
+        # Odometry (chain) edges: edge k acts on u_{k+1}, block-diagonal.
+        r_o, J_o = _edge_residual_jac_j(poses, ks, odo_j, graph.odo_T)
+        chi2_o = torch.sum(r_o * r_o, dim=1)
+        w_o = _robust_w(chi2_o, robust_kernel_chi2) * graph.odo_weight * graph.odo_valid
+        He = torch.einsum("eri,e,erj->eij", J_o, w_o, J_o)
+        be = torch.einsum("eri,e,er->ei", J_o, w_o, r_o)
+        # The damping pins u_0 (the gauge) and regularizes every
+        # increment; padded poses see only the damping (their increments
+        # are 0), so they move rigidly with the last real pose.
+        D = torch.cat([torch.zeros((1, 6, 6), dtype=dt, device=dev), He[:-1]]) + mu * eye6
+        b = torch.cat([torch.zeros((1, 6), dtype=dt, device=dev), be[:-1]])
+
+        # Closure edges: signed interval rows.
+        r_c, J_c = _edge_residual_jac_j(poses, graph.clo_i, graph.clo_j, graph.clo_T)
+        chi2_c = torch.sum(r_c * r_c, dim=1)
+        w_c = _robust_w(chi2_c, robust_kernel_chi2) * graph.clo_weight * graph.clo_valid
+        sw = torch.sqrt(torch.clamp(w_c, min=0.0))
+        Jtr = torch.einsum("cri,cr->ci", J_c, w_c[:, None] * r_c)
+        b = b + torch.einsum("cp,ci->pi", sm, Jtr)
+
+        # Woodbury with the block-diagonal D.
+        Dinv = gn.inv6(D)
+        y = torch.einsum("pij,pj->pi", Dinv, b)
+        JT = sw[:, None, None] * J_c.transpose(-1, -2)  # sqrt(w) J^T
+        Z = torch.einsum("cp,pij,cjk->pcik", sm, Dinv, JT)  # T^-1 R^T on intervals
+        RJ = sw[:, None, None] * J_c
+        Ry = torch.einsum("cri,ci->cr", RJ, torch.einsum("cp,pi->ci", sm, y)).reshape(C * 6)
+        Zsum = torch.einsum("cp,pdik->cdik", sm, Z)
+        M = (torch.eye(C * 6, dtype=dt, device=dev)
+             + torch.einsum("cri,cdik->crdk", RJ, Zsum).reshape(C * 6, C * 6))
+        if C * 6 <= 1536:
+            L, info = torch.linalg.cholesky_ex(M)
+            lam = torch.cholesky_solve(Ry[:, None], L)[:, 0]
+            factored = info == 0
+        else:
+            lam = _pcg_spd(M, Ry, iterations=min(6 * C, 384))
+            factored = torch.ones((), dtype=torch.bool, device=dev)
+        u = -(y - torch.einsum("pcik,ck->pi", Z, lam.reshape(C, 6)))
+        dx = torch.cumsum(u, dim=0)  # back to pose space
+
+        norm = torch.linalg.vector_norm(dx, dim=1, keepdim=True)
+        dx = dx * torch.clamp(1.0 / torch.clamp(norm, min=1e-12), max=1.0)
+        ok = torch.all(torch.isfinite(dx)) & factored
+        new_poses = torch.where(
+            ok, lie.orthonormalize_transform(lie.exp_se3(dx) @ poses), poses)
+        total_chi2 = torch.sum(chi2_o * w_o) + torch.sum(chi2_c * w_c)
+        if levenberg:
             improved = total_chi2 < best_chi2
             best_poses = torch.where(improved, poses, best_poses)
             best_chi2 = torch.minimum(total_chi2, best_chi2)

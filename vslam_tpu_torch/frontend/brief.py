@@ -30,11 +30,16 @@ def dense_planes(img: torch.Tensor) -> torch.Tensor:
     return dense_brief.dense_bit_planes(box_blur(img, 2))
 
 
+def dense_planes_batch(imgs: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) raw images -> (B, 8, H, W) int32 planes of their blurs,
+    one K2 launch (a stereo pair, or a split chunk's 2k images).  Kept
+    for landmark recovery, which re-describes arbitrary pixel positions."""
+    return dense_brief.dense_bit_planes_batch(torch.stack([box_blur(im, 2) for im in imgs]))
+
+
 def dense_planes_pair(img_l: torch.Tensor, img_r: torch.Tensor) -> torch.Tensor:
-    """Stereo pair -> (2, 8, H, W) int32 planes, one K2 launch.  Kept for
-    landmark recovery, which re-describes arbitrary pixel positions."""
-    return dense_brief.dense_bit_planes_batch(
-        torch.stack([box_blur(img_l, 2), box_blur(img_r, 2)]))
+    """Stereo pair -> (2, 8, H, W) int32 planes, one K2 launch."""
+    return dense_planes_batch(torch.stack([img_l, img_r]))
 
 
 def describe_dense(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:

@@ -23,7 +23,8 @@ A CPU tensor runs the plain version; a CUDA tensor launches the kernel
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from collections import Counter
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
@@ -162,11 +163,13 @@ def dense_bit_planes_reference(smooth: torch.Tensor, table: int = 0) -> torch.Te
 @dataclass
 class EntryPoint:
     """One wrapper of the kernel: `launches` goes up by one each time the
-    wrapper launches the CUDA kernel, and nowhere else."""
+    wrapper launches the CUDA kernel, and nowhere else (`batches` counts
+    the same launches by batch size B)."""
 
     name: str
     replaces: str
     launches: int = 0
+    batches: Counter = field(default_factory=Counter)
 
 
 K2 = EntryPoint("dense_bit_planes_batch", "vslam_tpu/frontend/pallas_brief.py:176")
@@ -247,6 +250,7 @@ def _planes(entry: EntryPoint, smooth: torch.Tensor, table: int) -> torch.Tensor
     if smooth.device.type == "cuda":
         planes = KERNEL.launch(smooth.to(torch.float32).contiguous(), table)
         entry.launches += 1
+        entry.batches[smooth.shape[0]] += 1
         return planes
     if smooth.device.type != "cpu":
         raise ValueError(f"dense BRIEF: unsupported device {smooth.device}")

@@ -24,6 +24,7 @@ the two.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import NamedTuple
 
 import numpy as np
@@ -184,6 +185,7 @@ class FastBriefKernel:
 
     def __init__(self):
         self.launches = 0
+        self.batches = Counter()  # the same launches by batch size B
         self.library = CudaLibrary("fast_brief_frontend.cu")
 
     def build(self):
@@ -232,6 +234,7 @@ class FastBriefKernel:
         if err != 0:
             raise RuntimeError(f"K1 launch failed: cudaError {err}")
         self.launches += 1
+        self.batches[B] += 1
         return planes, score, rowmax, rowarg
 
 
@@ -251,7 +254,10 @@ def fast_brief_frontend_pair(
     imgs: (B, H, W) f32 raw images; threshold: f32 scalar tensor (FAST).
     Returns (planes (B, 8, H, W) int32, score (B, H, W) f32 NMS'd,
     rowmax (B, n_bands, Wo) f32, rowarg (B, n_bands, Wo) int32).
-    A CPU tensor runs the plain version; a CUDA tensor launches K1."""
+    A CPU tensor runs the plain version; a CUDA tensor launches K1.  B is
+    at most 65535, the extent of the kernel's grid in z, on both."""
+    if not 1 <= imgs.shape[0] <= 65535:
+        raise ValueError(f"K1: batch {imgs.shape[0]} outside 1..65535 (the grid's z extent)")
     threshold = torch.as_tensor(threshold, dtype=torch.float32, device=imgs.device)
     if imgs.device.type == "cuda":
         return K1.launch(imgs.contiguous(), threshold, arc_len, border, bin_size)

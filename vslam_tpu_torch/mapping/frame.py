@@ -95,32 +95,76 @@ def _add_delta(arr: torch.Tensor, tgt: torch.Tensor, use: torch.Tensor, val):
     return arr.index_add(0, tgt, delta)
 
 
-def _pyramid_descriptors(img_l, img_r, kl, kr, capacity, octaves):
-    """Per-octave dense-BRIEF description: each octave's static slice of
-    the keypoints gathers from the planes of its own pyramid level (K2
-    for level 0 of both images, K3 for each image at each level >= 1); at
-    one octave this is the plain level-0 lookup.
-    Returns (dl (K, 8), dr (K, 8), level-0 planes (2, 8, H, W))."""
-    planes0 = brief.dense_planes_pair(img_l, img_r)
-    dl_parts, dr_parts = [], []
-    lvl_l, lvl_r = img_l, img_r
-    start = 0
+def _pyramid_descriptors(img, kp, planes0, capacity, octaves):
+    """Per-octave dense-BRIEF description of one image: each octave's
+    static slice of the keypoints gathers from the planes of its own
+    pyramid level (the given level-0 planes, then K3 at each level >= 1);
+    at one octave this is the plain level-0 lookup.  Returns (K, 8)."""
+    parts, lvl, start = [], img, 0
     for o, cap_o in enumerate(detect.octave_capacities(capacity, octaves)):
         if o == 0:
-            pl_l, pl_r = planes0[0], planes0[1]
+            pl = planes0
         else:
-            lvl_l = detect.downsample2(lvl_l)
-            lvl_r = detect.downsample2(lvl_r)
-            pl_l = brief.dense_planes(lvl_l)
-            pl_r = brief.dense_planes(lvl_r)
+            lvl = detect.downsample2(lvl)
+            pl = brief.dense_planes(lvl)
         s = float(1 << o)
         sl = slice(start, start + cap_o)
-        dl_parts.append(brief.gather_descriptors(
-            pl_l, lvl_l.shape, (kl.uv[sl] - (s - 1.0) / 2.0) / s))
-        dr_parts.append(brief.gather_descriptors(
-            pl_r, lvl_r.shape, (kr.uv[sl] - (s - 1.0) / 2.0) / s))
+        parts.append(brief.gather_descriptors(pl, lvl.shape,
+                                              (kp.uv[sl] - (s - 1.0) / 2.0) / s))
         start += cap_o
-    return torch.cat(dl_parts), torch.cat(dr_parts), planes0
+    return torch.cat(parts)
+
+
+def _uses_k1(descriptor, detector, octaves, border) -> bool:
+    """BRIEF256 at one octave with a FAST-family detector and border >= 16
+    runs the fused kernel K1 (exact only >= 16 px from the edge)."""
+    return (descriptor == "BRIEF256" and octaves == 1 and border >= 16
+            and detector.upper() in _FAST_DETECTORS)
+
+
+def _stereo_detect_describe(imgs, threshold, capacity, bin_size, border, descriptor,
+                            detector, want_planes, octaves):
+    """Detection and description of a stack of stereo pairs.
+
+    imgs: (2k, H, W) f32, frame i's left image at 2i and right at 2i+1.
+    Batched where a kernel takes a stack: K1 runs once over all 2k images
+    and its band tail once over B = 2k; the staged path's level-0 planes
+    are one K2 launch over the 2k blurred images.  Per image, in a loop,
+    because no batched form exists: the staged detectors (FAST pyramid
+    and the float detectors), pyramid levels >= 1 (K3), BRIEF256R's
+    rotated banks (K4) and the ORB256 gather.
+    Returns (keypoints [2k], descriptors [2k], level-0 planes (k, 2, 8, H,
+    W) or None for ORB256, and for BRIEF256R without want_planes)."""
+    n, H, W = imgs.shape
+    if _uses_k1(descriptor, detector, octaves, border):
+        planes, score, rowmax, rowarg = fast_brief.fast_brief_frontend_pair(
+            imgs, threshold, arc_len=12 if detector.upper() == "FAST12" else 9,
+            border=border, bin_size=bin_size,
+        )
+        if bin_size == fast_brief.BAND:
+            uv, sc, va = fast_brief.keypoints_from_band_reduction(
+                rowmax, rowarg, H, W, bin_size, capacity)
+            kps = [fast_brief.Keypoints(uv[b], sc[b], va[b]) for b in range(n)]
+        else:
+            kps = [fast_brief.Keypoints(*detect.keypoints_from_score(
+                score[b], bin_size, capacity, border)) for b in range(n)]
+        descs = [brief.gather_descriptors(planes[b], (H, W), kps[b].uv) for b in range(n)]
+        return kps, descs, planes.view(n // 2, 2, 8, H, W)
+    kps = [detect.detect_keypoints(imgs[b], threshold, bin_size, capacity, border,
+                                   detector, octaves=octaves) for b in range(n)]
+    planes = None
+    if descriptor == "BRIEF256" or (descriptor == "BRIEF256R" and want_planes):
+        planes = brief.dense_planes_batch(imgs)
+    if descriptor == "ORB256":
+        descs = [orb.describe(imgs[b], kps[b].uv) for b in range(n)]
+    elif descriptor == "BRIEF256R":
+        # Rotated-bank descriptors; landmark recovery re-describes from
+        # the upright level-0 planes, as the JAX package does.
+        descs = [brief.describe_dense_rotated(imgs[b], kps[b].uv) for b in range(n)]
+    else:
+        descs = [_pyramid_descriptors(imgs[b], kps[b], planes[b], capacity, octaves)
+                 for b in range(n)]
+    return kps, descs, None if planes is None else planes.view(n // 2, 2, 8, H, W)
 
 
 def stereo_frontend_core(
@@ -151,50 +195,72 @@ def stereo_frontend_core(
     images (2, 8, H, W) are returned too, for landmark recovery (None
     for ORB256, whose recovery re-describes from the images).
     Returns (FrameState, n_keypoints_left, n_framepoints[, planes])."""
-    d_up = detector.upper()
-    H, W = img_l.shape
-    if (descriptor == "BRIEF256" and octaves == 1 and border >= 16
-            and d_up in _FAST_DETECTORS):
-        planes, score, rowmax, rowarg = fast_brief.fast_brief_frontend_pair(
-            torch.stack([img_l, img_r]).to(torch.float32), threshold,
-            arc_len=12 if d_up == "FAST12" else 9, border=border, bin_size=bin_size,
-        )
-        if bin_size == fast_brief.BAND:
-            uv, sc, va = fast_brief.keypoints_from_band_reduction(
-                rowmax, rowarg, H, W, bin_size, capacity)
-            kl = fast_brief.Keypoints(uv[0], sc[0], va[0])
-            kr = fast_brief.Keypoints(uv[1], sc[1], va[1])
-        else:
-            kl = fast_brief.Keypoints(*detect.keypoints_from_score(
-                score[0], bin_size, capacity, border))
-            kr = fast_brief.Keypoints(*detect.keypoints_from_score(
-                score[1], bin_size, capacity, border))
-        dl = brief.gather_descriptors(planes[0], (H, W), kl.uv)
-        dr = brief.gather_descriptors(planes[1], (H, W), kr.uv)
-    else:
-        kl = detect.detect_keypoints(img_l, threshold, bin_size, capacity, border,
-                                     detector, octaves=octaves)
-        kr = detect.detect_keypoints(img_r, threshold, bin_size, capacity, border,
-                                     detector, octaves=octaves)
-        planes = None
-        if descriptor == "ORB256":
-            dl = orb.describe(img_l, kl.uv)
-            dr = orb.describe(img_r, kr.uv)
-        elif descriptor == "BRIEF256R":
-            # Rotated-bank descriptors; landmark recovery re-describes from
-            # the upright level-0 planes, as the JAX package does.
-            dl = brief.describe_dense_rotated(img_l, kl.uv)
-            dr = brief.describe_dense_rotated(img_r, kr.uv)
-            if want_planes:
-                planes = brief.dense_planes_pair(img_l, img_r)
-        else:
-            dl, dr, planes = _pyramid_descriptors(img_l, img_r, kl, kr, capacity,
-                                                  octaves)
+    kps, descs, planes = _stereo_detect_describe(
+        torch.stack([img_l, img_r]).to(torch.float32), threshold, capacity, bin_size,
+        border, descriptor, detector, want_planes, octaves)
     return _stereo_frontend_tail(
-        cam, kl, kr, dl, dr, planes if want_planes else None,
+        cam, kps[0], kps[1], descs[0], descs[1],
+        planes[0] if want_planes and planes is not None else None,
         max_hamming_stereo, epipolar_tol, min_disparity, max_disparity,
         capacity, want_planes,
     )
+
+
+def frontend_chunk(
+    cam: cam_ops.CameraParams,
+    chunk: torch.Tensor,
+    threshold: torch.Tensor,
+    *,
+    mode: str = "stereo",
+    max_hamming_stereo=60,
+    epipolar_tol=1.5,
+    min_disparity=1.0,
+    max_disparity=200.0,
+    min_depth=0.3,
+    max_depth=10.0,
+    capacity: int = 1024,
+    bin_size: int = 16,
+    border: int = 20,
+    descriptor: str = "BRIEF256",
+    detector: str = "FAST",
+    want_planes: bool = False,
+    octaves: int = 1,
+):
+    """The front-end of a whole chunk at one detector threshold (the
+    split pipeline's batched half, the JAX package's vmap of
+    `_frontend_one`).
+
+    chunk: (k, 2, H, W) f32 -- stereo pairs, or in depth mode the
+    intensity image and the registered depth in meters.  Returns the k
+    per-frame results of stereo_frontend_core / process_depth_frame at
+    `threshold`, stacked on a leading axis: (FrameState with (k, ...)
+    fields, n_kp (k,), n_fp (k,), planes (k, 2, 8, H, W) stereo, (k, 8,
+    H, W) RGB-D, or None).  The stereo detection and description are
+    batched as _stereo_detect_describe says; the match and compaction
+    tail, and every step of an RGB-D frame (FAST, K3 at each level, the
+    depth gather), loop over the frames."""
+    k = chunk.shape[0]
+    if mode == "stereo":
+        H, W = chunk.shape[2:]
+        kps, descs, planes = _stereo_detect_describe(
+            chunk.reshape(2 * k, H, W), threshold, capacity, bin_size, border,
+            descriptor, detector, want_planes, octaves)
+        outs = [_stereo_frontend_tail(
+            cam, kps[2 * i], kps[2 * i + 1], descs[2 * i], descs[2 * i + 1], None,
+            max_hamming_stereo, epipolar_tol, min_disparity, max_disparity,
+            capacity, False) for i in range(k)]
+    else:
+        outs = [process_depth_frame(
+            cam, chunk[i, 0], chunk[i, 1], threshold, min_depth, max_depth,
+            capacity=capacity, bin_size=bin_size, border=border, descriptor=descriptor,
+            detector=detector, want_planes=want_planes, octaves=octaves)
+            for i in range(k)]
+        planes = torch.stack([o[3] for o in outs]) if want_planes and outs[0][3] is not None \
+            else None
+    frames = FrameState(*(torch.stack(f) for f in zip(*(o[0] for o in outs))))
+    n_kp = torch.stack([o[1] for o in outs])
+    n_fp = torch.stack([o[2] for o in outs])
+    return frames, n_kp, n_fp, planes if want_planes else None
 
 
 def _stereo_frontend_tail(cam, kl, kr, dl, dr, planes, max_hamming_stereo,

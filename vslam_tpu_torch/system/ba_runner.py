@@ -1,5 +1,5 @@
 """Windowed full bundle adjustment inside the live SLAM loop (port of
-vslam_tpu/system/ba_runner.py, one device).
+vslam_tpu/system/ba_runner.py).
 
 Every `number_of_frames_per_bundle_adjustment` frames the reference
 re-optimizes recent keyframe poses and landmark positions
@@ -8,7 +8,8 @@ graph_optimizer.cpp:319-409, 459-488).  The factor graph is assembled on
 the host from the keyframe snapshots the tracker harvests (each LocalMap
 carries the f32 stereo observation [uL, vL, uR, vR] of every snapshotted
 landmark: one BA measurement row), solved by backend/ba.py on the
-engine's device, and scattered back into the landmark table and the
+engine's device (or landmark-sharded by parallel/sharded_ba.py over the
+engine's process group), and scattered back into the landmark table and the
 keyframe / trajectory bookkeeping.
 
 Against the JAX runner: the landmark count is the true one (JAX pads it
@@ -24,6 +25,8 @@ import torch
 
 from vslam_tpu_torch.backend import ba as ba_mod
 from vslam_tpu_torch.mapping import landmarks as lm_mod
+from vslam_tpu_torch.parallel import mesh as mesh_mod
+from vslam_tpu_torch.parallel import sharded_ba
 
 # The window covers the last WINDOW keyframes; each landmark keeps up to
 # OMAX observations (its most recent ones).
@@ -152,6 +155,19 @@ def ba_config(engine, iterations: int | None = None) -> ba_mod.BAConfig:
     )
 
 
+def solve_window(engine, prob: ba_mod.BAProblem, config: ba_mod.BAConfig):
+    """Solve a window problem: on one device, or with the engine's
+    landmark mesh (parallelism.shard_landmarks under a process group of
+    more than one rank) landmark-sharded, every rank its block, the
+    blocks gathered back.  Returns (T_wc, xyz)."""
+    mesh = engine.landmark_mesh
+    if mesh is None:
+        return ba_mod.bundle_adjust(engine.cam, prob, config)[:2]
+    block, L = sharded_ba.shard_problem(prob, mesh)
+    T_opt, xyz_block, _ = sharded_ba.bundle_adjust_sharded(engine.cam, block, mesh, config)
+    return T_opt, mesh_mod.all_gather_rows(xyz_block, mesh)[:L]
+
+
 def run_windowed_ba(engine, iterations: int | None = None) -> np.ndarray | None:
     """Build and solve the windowed problem, write the landmarks back and
     propagate the pose corrections.  Returns the correction applied to the
@@ -161,7 +177,7 @@ def run_windowed_ba(engine, iterations: int | None = None) -> np.ndarray | None:
     if built is None:
         return None
     prob, kf_ids, slots = built
-    T_opt, xyz_opt, _ = ba_mod.bundle_adjust(engine.cam, prob, ba_config(engine, iterations))
+    T_opt, xyz_opt = solve_window(engine, prob, ba_config(engine, iterations))
     T_opt = T_opt.cpu().numpy()
     if not (np.all(np.isfinite(T_opt)) and bool(torch.isfinite(xyz_opt).all())):
         return None

@@ -16,6 +16,9 @@ drain after that and become closures — pose-graph optimization, rigid
 back-propagation of the corrections, landmark merging.  flush() resolves
 until nothing is in flight.  Open loop
 (command_line.option_disable_relocalization) only fills the database.
+Under a torch.distributed process group every rank runs the engine on
+the same frames; the database search and the windowed BA are then
+row-sharded over the ranks (parallel/).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from vslam_tpu_torch.mapping import merging
 from vslam_tpu_torch.system import ba_runner
 from vslam_tpu_torch.mapping.local_maps import WorldMap
 from vslam_tpu_torch.ops import camera as cam_ops
+from vslam_tpu_torch.parallel import mesh as mesh_mod
 from vslam_tpu_torch.tracking import fused
 from vslam_tpu_torch.tracking.tracker import FusedPoseTracker, KeyframeSnapshot
 from vslam_tpu_torch.utils import log
@@ -78,10 +82,22 @@ class SlamEngine:
             min_degrees=wm.minimum_degrees_rotated_for_local_map,
             min_frames=wm.minimum_number_of_frames_for_local_map,
         )
+        # Under an initialized torch.distributed process group of more than
+        # one rank every rank runs this engine on the same frames (SPMD),
+        # and the database search and the windowed BA shard their rows over
+        # the ranks (parallel/); mesh_shape (1,) takes every rank, a larger
+        # shape caps the count, as in the JAX engine.
+        par = self.cfg.parallelism
+        mesh = None
+        if par.shard_descriptor_db or par.shard_landmarks:
+            n_mesh = int(np.prod(par.mesh_shape))
+            mesh = mesh_mod.make_mesh(None if n_mesh <= 1 else n_mesh)
+        self.mesh = mesh
+        self.landmark_mesh = mesh if par.shard_landmarks else None
         # One query row per snapshot row: the snapshot width.
         self.relocalizer = Relocalizer(
             self.cfg.relocalization, query_cap=self.tracker.state.kf_desc.shape[1],
-            device=self.device)
+            device=self.device, mesh=mesh if par.shard_descriptor_db else None)
         self.relocalizer.ring_provider = self._ring_provider
         self.open_loop = self.cfg.command_line.option_disable_relocalization
         # Pose-graph bookkeeping: one vertex per local-map keyframe.
@@ -137,7 +153,7 @@ class SlamEngine:
         (exact per frame on the CPU)."""
         t0 = time.perf_counter()
         if self._viz_enabled:
-            idx = self.tracker._dispatched
+            idx = self.tracker.n_frames_in
             self._viz_ring[idx] = img_l
             self._viz_ring.pop(idx - VIZ_RING_FRAMES - 1, None)
         T = self.tracker.compute(img_l, img_r, odometry)

@@ -17,6 +17,11 @@ eviction sweep (one read each per frame).  Everything else stays on the
 device.  The keyframe snapshot rings and the result ring are updated in
 place (they are large and only ever appended to); every other field of
 the state is replaced.
+
+The split pipeline (tracking.batch_frontend, chunk_step_split) runs the
+front-end of a whole chunk at once -- one K1 launch over its 2C images,
+or one K2 launch for the staged path's level-0 planes -- and then the
+same tail per frame.
 """
 
 from __future__ import annotations
@@ -71,8 +76,8 @@ RING_W = 28
 
 class FusedParams(NamedTuple):
     """Static parameters of the per-frame step (the JAX package's
-    FusedParams without the split front-end's switch; same names and
-    defaults)."""
+    FusedParams without the split front-end's switch, which is the
+    tracker's; same names and defaults)."""
 
     capacity: int = 1024
     bin_size: int = 16
@@ -487,6 +492,66 @@ def _step_tail(cam, params: FusedParams, state: TrackerState, cur, n_kp, n_fp,
         free_list=free_list,
         free_count=free_count,
     )
+
+
+def _chunk_images(cam, params: FusedParams, chunk: torch.Tensor, depth_calib=None):
+    """(k, 2, H, W) frames as the front-end and the tails read them: f32,
+    and in depth mode the depth registered and filtered frame by frame
+    (the registration has no batched form)."""
+    imgs = chunk.to(torch.float32)
+    if params.mode != "depth":
+        return imgs
+    return torch.stack([
+        torch.stack([f[0], _register_depth_input(cam, params, f[1], depth_calib)])
+        for f in imgs])
+
+
+def chunk_front_end(cam, params: FusedParams, threshold: torch.Tensor, imgs: torch.Tensor):
+    """The front-end of k frames at one threshold (frame_mod.frontend_chunk):
+    (FrameState with (k, ...) fields, n_kp (k,), n_fp (k,), planes or
+    None); imgs from _chunk_images."""
+    return frame_mod.frontend_chunk(
+        cam, imgs, threshold, mode=params.mode,
+        max_hamming_stereo=params.max_hamming_stereo, epipolar_tol=params.epipolar_tol,
+        min_disparity=params.min_disparity, max_disparity=params.max_disparity,
+        min_depth=params.min_depth, max_depth=params.max_depth,
+        capacity=params.capacity, bin_size=params.bin_size, border=params.border,
+        descriptor=params.descriptor, detector=params.detector,
+        want_planes=params.enable_recovery and params.descriptor != "ORB256",
+        octaves=params.octaves,
+    )
+
+
+def track_step(cam, params: FusedParams, state: TrackerState, frames_b, n_kp_b, n_fp_b,
+               planes_b, imgs: torch.Tensor, idx: int, motion_model_on: bool,
+               T_odom=None) -> TrackerState:
+    """The split pipeline's sequential half: frame idx of a precomputed
+    chunk front-end through the tracking and mapping tail, the same
+    _step_tail as step() (the JAX package's make_track_step)."""
+    cur = frame_mod.FrameState(*(f[idx] for f in frames_b))
+    planes = None if planes_b is None else planes_b[idx]
+    return _step_tail(cam, params, state, cur, n_kp_b[idx], n_fp_b[idx], planes,
+                      imgs[idx, 0], imgs[idx, 1], motion_model_on, T_odom)
+
+
+def chunk_step_split(cam, params: FusedParams, state: TrackerState, chunk: torch.Tensor,
+                     k: int, motion_model_on: bool, odom_chunk=None, depth_calib=None,
+                     threshold=None) -> TrackerState:
+    """The split (chunk-batched) step of the JAX package's
+    make_chunk_step_split: the front-end of frames 0..k-1 of chunk (C, 2,
+    H, W) in one batched call at the detector threshold of the chunk's
+    start (state.threshold unless `threshold` is given), then the k
+    sequential tails.  The thresholds the tails compute are seen by the
+    next chunk only -- the one intended difference from k step() calls.
+    Padded rows of a tail chunk (k < C) are not computed.  odom_chunk:
+    (C, 4, 4) per-frame motion guesses T_cur_prev, or None."""
+    imgs = _chunk_images(cam, params, chunk[:k], depth_calib)
+    front = chunk_front_end(cam, params, state.threshold if threshold is None else threshold,
+                            imgs)
+    for i in range(k):
+        state = track_step(cam, params, state, *front, imgs, i, motion_model_on,
+                           None if odom_chunk is None else odom_chunk[i])
+    return state
 
 
 def step(cam, params: FusedParams, state: TrackerState, imgs: torch.Tensor,

@@ -174,14 +174,18 @@ class FusedPoseTracker:
 
     Poses and statistics are written by the step into a device result
     ring and read back every `harvest_every` frames: every frame on the
-    CPU, every `parallelism.frames_per_chunk` frames on CUDA."""
+    CPU, every `parallelism.frames_per_chunk` frames on CUDA.
+
+    With tracking.batch_frontend (the split pipeline) frames are buffered
+    on the device into chunks of `harvest_every` frames, counted from the
+    first frame (frames cC .. cC + C - 1), and each chunk goes through
+    fused.chunk_step_split: one batched front-end at the detector
+    threshold of the chunk's first frame, then the per-frame tails.  A
+    flush dispatches a partial chunk; the rest of that chunk keeps its
+    threshold, so a flush does not change the results."""
 
     def __init__(self, cam: cam_ops.CameraParams, config: ParameterCollection,
                  landmark_capacity: int = 65536, device=DEFAULT_DEVICE):
-        if config.tracking.batch_frontend:
-            raise NotImplementedError(
-                "the split (batched) front-end is not ported yet "
-                "(ROADMAP Queue 1 item 15)")
         self.device = resolve_device(device)
         self.cam = cam_ops.to_device(cam, self.device)
         self.params = params_from_config(self.cam, config, self.device)
@@ -199,6 +203,10 @@ class FusedPoseTracker:
                             or config.command_line.option_use_odometry)
         self.harvest_every = (max(int(config.parallelism.frames_per_chunk), 1)
                               if self.device.type == "cuda" else 1)
+        self.split = bool(tr.batch_frontend)
+        self._buf: list[torch.Tensor] = []  # split: device frames awaiting their chunk
+        self._odom_buf: list = []
+        self._chunk_threshold = None  # split: the current chunk's detector threshold
         self.trajectory: list[np.ndarray] = []
         self.stats = TrackerStats()
         self.allocator = _AllocatorView(self)
@@ -230,9 +238,17 @@ class FusedPoseTracker:
         frames behind on CUDA — flush() first for exact state)."""
         t0 = time.perf_counter()
         pair = torch.from_numpy(np.stack([img_l, img_r]).astype(self._frame_dtype))
-        self._step(pair.to(self.device), odometry)
+        if self.split:
+            self._buffer(pair.to(self.device)[None], [odometry])
+        else:
+            self._step(pair.to(self.device), odometry)
         self.stats.add_time("frame_step", time.perf_counter() - t0)
         return self._last_pose
+
+    @property
+    def n_frames_in(self) -> int:
+        """Frames received so far: dispatched, or buffered for a chunk."""
+        return self._dispatched + len(self._buf)
 
     def prestage(self, frame_pairs) -> list:
         """Upload every frame ahead of the loop (dataset playback) in one
@@ -247,17 +263,49 @@ class FusedPoseTracker:
     def compute_prestaged(self, staged: torch.Tensor) -> np.ndarray:
         """Step the frames of one prestaged handle (see prestage())."""
         t0 = time.perf_counter()
-        for pair in staged:
-            self._step(pair, None)
+        if self.split:
+            self._buffer(staged, [None] * len(staged))
+        else:
+            for pair in staged:
+                self._step(pair, None)
         self.stats.add_time("frame_step", time.perf_counter() - t0)
         return self._last_pose
 
+    def _odometry(self, odometry) -> torch.Tensor:
+        return torch.as_tensor(
+            np.eye(4, dtype=np.float32) if odometry is None
+            else np.asarray(odometry, np.float32), device=self.device)
+
+    def _buffer(self, frames: torch.Tensor, odometry: list):
+        """Split pipeline: queue device frames; dispatch each chunk as it
+        fills."""
+        for pair, odo in zip(frames, odometry):
+            self._buf.append(pair)
+            self._odom_buf.append(odo)
+            if self.n_frames_in % self.harvest_every == 0:
+                self._dispatch_chunk()
+
+    def _dispatch_chunk(self):
+        """Step the buffered frames as one chunk (chunk_step_split), then
+        drain if harvest_every frames are unharvested."""
+        k = len(self._buf)
+        if k == 0:
+            return
+        if self._dispatched % self.harvest_every == 0 or self._chunk_threshold is None:
+            self._chunk_threshold = self.state.threshold  # a chunk starts here
+        odom = (torch.stack([self._odometry(o) for o in self._odom_buf])
+                if self.odometry_on else None)
+        chunk = torch.stack(self._buf)
+        self._buf, self._odom_buf = [], []
+        self.state = fused.chunk_step_split(
+            self.cam, self.params, self.state, chunk, k, self.motion_model_on, odom,
+            self.depth_calib, threshold=self._chunk_threshold)
+        self._dispatched += k
+        if self._dispatched - self._harvested >= self.harvest_every:
+            self._drain()
+
     def _step(self, imgs: torch.Tensor, odometry):
-        T_odom = None
-        if self.odometry_on:
-            T_odom = torch.as_tensor(
-                np.eye(4, dtype=np.float32) if odometry is None
-                else np.asarray(odometry, np.float32), device=self.device)
+        T_odom = self._odometry(odometry) if self.odometry_on else None
         self.state = fused.step(self.cam, self.params, self.state, imgs,
                                 self.motion_model_on, T_odom, self.depth_calib)
         self._dispatched += 1
@@ -362,5 +410,7 @@ class FusedPoseTracker:
         self._pending_corrections.append((self._dispatched, C))
 
     def flush(self):
-        """Harvest every stepped frame (call before reading final state)."""
+        """Step any buffered frames (split: a partial chunk) and harvest
+        every stepped frame (call before reading final state)."""
+        self._dispatch_chunk()
         self._drain()
