@@ -44,10 +44,11 @@ Phases (each raises on failure; the exit code is then non-zero):
                   0 breaks, ATE <= 0.05 m, local maps within +-15% of the
                   JAX engine's on a CPU;
                c. configuration_euroc.yaml (BRIEF256R) at EuRoC's 752x480
-                  and intrinsics on a 32-frame 4 m circle; K4 32 and K2 1
-                  launches per frame, K1 and K3 0, 0 breaks, ATE <= 0.05 m,
-                  13-17 local maps;
-               each slice's first frames (8, 4, 4) agree with the same
+                  and intrinsics on the first 16 frames of a 32-frame 4 m
+                  circle; K4 32 and K2 1 launches per frame, K1 and K3 0,
+                  0 breaks, ATE <= 0.05 m, local maps within +-15% of the
+                  JAX engine's on a CPU;
+               each slice's first frames (8, 4, 2) agree with the same
                engine on the CPU within 1e-3 m;
   7. closed  — SlamEngine in closed-loop mode (relocalization, closure
                ICP, pose graph, landmark merging; BA off), the workload
@@ -88,7 +89,8 @@ Phases (each raises on failure; the exit code is then non-zero):
                of the keypoints in common, ms per call on the card; ORB256
                describe of its FAST keypoints on the card against the CPU,
                <= 0.1% of the bits differing; then configuration_kitti.yaml
-               with detector_type DOG, open loop, on phase 6b's 32 frames: 0 breaks, ATE <= 0.05 m, local maps
+               with detector_type DOG, open loop, on phase 6b's 32 frames:
+               0 breaks, ATE <= 0.05 m, local maps
                within +-15% of the JAX engine's on a CPU, the first 4
                frames within 1e-3 m of the CPU.
  12. kitti-disk — phase 6b's whole 64-frame circle written as a KITTI odometry
@@ -122,9 +124,9 @@ Phases (each raises on failure; the exit code is then non-zero):
                48 launches; its size and its save
                and load times.  Phases 12-14 also print whether cv2 and
                matplotlib are installed (the port needs neither).
- 15. k1-split — phase 6a's 64 frames with tracking.batch_frontend (the split
-               front-end): one K1 launch a 32-frame chunk over its 64 images
-               (2 launches at B = 64 and no other), 0 breaks, ATE <= 0.05 m,
+ 15. k1-split — phase 6a's first 32 frames with tracking.batch_frontend (the
+               split front-end): one K1 launch for the 32-frame chunk over
+               its 64 images (B = 64) and no other, 0 breaks, ATE <= 0.05 m,
                local maps within +-15% of the JAX engine's split run on a CPU;
                the first 8 frames within 1e-3 m of the CPU at the same chunk;
                K1 at (64, 376, 1241) bit-equal to its plain version, timed;
@@ -151,14 +153,24 @@ Phases (each raises on failure; the exit code is then non-zero):
                summed in one process (points: two f32 sum orders of this
                window differ by up to ~1e-3 m); the points' distance from
                an f64 solve printed beside the one-device BA's.
-The phases run in the order 1-5, 6a, 6b, 15, 16, 18, 6c, 7, 8, 9-14, 17,
-19: phases 15-16 next to the runs they are compared with.
-The JAX counts printed beside phases 6-11 and 15-16 come from
-chip_smoke_jax_reference.py.  The script then prints the kernel record
-(one JSON line: launches summed over the runs of phases 6-10, 12-16,
-bit-equality, times, bound, share of the bound, shared-load floor,
-blocks per SM, loads a pixel; K3's times at 480x640; K1 and K2 at the
-split chunk's B = 64 as entries of their own), the card's name
+ 20. modular-closed — phase 7's workload with tracking.use_fused_tracker
+               false: the modular PoseTracker stepped through engine.process
+               frame by frame, keyframes and closures resolved synchronously
+               after every frame; launch counts zeroed just before and read
+               just after: 128 K1 and no K2/K3/K4 launches, 0 breaks, ATE
+               <= 0.05 m, local maps within +-15% of the JAX modular engine's
+               on a CPU, >= 1 closure, its optimization count (0: JAX's
+               three closures pass the residual gate), > 0 merged
+               landmarks; ms/frame, peak device memory and the closure
+               stages' timings.
+The phases run in the order 1-5, 6a, 6b, 15, 16, 18, 6c, 7, 8, 20, 9-14,
+17, 19: phases 15-16 next to the runs they are compared with.
+The JAX counts printed beside phases 6-11, 15-16 and 20 come from
+chip_smoke_jax_reference.py.  The script then prints its wall time, the
+kernel record (one JSON line: launches summed over the runs of phases
+6-10, 12-16 and 20, bit-equality, times, bound, share of the bound,
+shared-load floor, blocks per SM, loads a pixel; K3's times at 480x640;
+K1 and K2 at the split chunk's B = 64 as entries of their own), the card's name
 and power limit (nvidia-smi), and last {"ok": true, "device": {...}}.
 Kernel times are CUDA-event medians of the kernel alone (the card is kept
 busy while the host enqueues it; vslam_tpu_torch/frontend/kernel_timing.py).
@@ -197,6 +209,12 @@ CPU_CHECK_TOL_M = 1e-3
 # sensor.yaml files).
 EUROC_CAM = dict(fx=458.654, fy=457.296, cx=367.215, cy=248.375, baseline_m=0.110,
                  rows=480, cols=752)
+EUROC_CIRCLE_FRAMES = 32
+# Cut when phase 20 took the smoke past 900 s on a slow host: the split
+# K1 run takes one 32-frame chunk (it took two), euroc-config the first
+# half of its circle (it ran all 32 frames).
+SPLIT_K1_FRAMES = 32
+EUROC_FRAMES = 16
 
 
 def card_line() -> str:
@@ -260,8 +278,18 @@ JAX_CPU_KITTI_CONFIG = {"n_local_maps": 8, "n_track_breaks": 0, "ate_m": 0.0138}
 # (the card's frames_per_chunk); JAX's counts at that chunk on a CPU
 # (chip_smoke_jax_reference.py k1-split kitti-split).
 SPLIT_CHUNK = 32
-JAX_CPU_K1_SPLIT = {"n_local_maps": 21, "n_track_breaks": 0, "ate_m": 0.0047}
+JAX_CPU_K1_SPLIT = {"n_local_maps": 10, "n_track_breaks": 0, "ate_m": 0.0035}
 JAX_CPU_KITTI_SPLIT = {"n_local_maps": 8, "n_track_breaks": 0, "ate_m": 0.0183}
+# Phase 6c's EUROC_FRAMES frames (chip_smoke_jax_reference.py euroc-config).
+JAX_CPU_EUROC = {"n_local_maps": 7, "n_track_breaks": 0, "ate_m": 0.0318}
+# Phase 20: phase 7's workload on the JAX package's modular engine
+# (tracking.use_fused_tracker false), frame by frame on a CPU
+# (chip_smoke_jax_reference.py modular-closed).  Its three closures all
+# agree with the estimate within the residual gate (0.10 m, 0.5 deg), so
+# no pose-graph optimization runs: the phase is held to that count.
+JAX_CPU_MODULAR_CLOSED = {"n_local_maps": 42, "n_closures": 3, "n_optimizations": 0,
+                          "n_merged_landmarks": 69, "n_track_breaks": 0, "ate_m": 0.0112,
+                          "db_rows": 7149, "closures": [(39, 0), (40, 0), (41, 0)]}
 FLOAT_DETECTORS = ("HARRIS", "GFTT", "DOG", "KAZE")
 CLOSURE_STAGES = ("relocalization", "reloc_vote_icp", "pose_graph_optimization",
                   "pg_solve", "pg_propagate", "landmark_merging")
@@ -316,17 +344,23 @@ def kitti_config(load_config, detector=None):
     return cfg
 
 
-def kitti_world(cam, n_frames):
-    """Phase 6b's world (7,000 points, seed 0) on its 64-frame 13 m
-    circle, cut to its first n_frames frames.  Returns (ground-truth
+def circle_slice(cam, circle_frames, radius, n_frames):
+    """A world of 7,000 points (seed 0) on a circle of circle_frames
+    frames, cut to its first n_frames frames.  Returns (ground-truth
     poses, stereo frames)."""
     from vslam_tpu_torch.io import synthetic
 
     world = synthetic.make_world(
         cam, n_points=7000, seed=0,
-        poses=synthetic.circle_trajectory(KITTI_CIRCLE_FRAMES, radius=13.0))
+        poses=synthetic.circle_trajectory(circle_frames, radius=radius))
     return (world.poses[:n_frames],
             [synthetic.render_frame(world, t)[:2] for t in range(n_frames)])
+
+
+def kitti_world(cam, n_frames):
+    """Phase 6b's world on its 64-frame 13 m circle, cut to its first
+    n_frames frames."""
+    return circle_slice(cam, KITTI_CIRCLE_FRAMES, 13.0, n_frames)
 
 
 def within_15_percent(ref: int):
@@ -583,10 +617,10 @@ def drive_slice(label, cam, cfg, gt_poses, frames, expect, local_maps, cpu_frame
     return counts
 
 
-def config_slice(label, name, cam_args, n_frames, radius, per_frame, local_maps,
-                 cpu_frames, card):
-    """A shipped configuration, open loop, on a synthetic circle."""
-    from vslam_tpu_torch.io import synthetic
+def config_slice(label, name, cam_args, n_frames, circle_frames, radius, per_frame,
+                 local_maps, cpu_frames, card):
+    """A shipped configuration, open loop, on the first n_frames frames of
+    a synthetic circle."""
     from vslam_tpu_torch.io.config import load_config
     from vslam_tpu_torch.ops import camera as cam_ops
 
@@ -594,12 +628,9 @@ def config_slice(label, name, cam_args, n_frames, radius, per_frame, local_maps,
     cfg = load_config(os.path.join(here, "configurations", f"configuration_{name}.yaml"))
     cfg.command_line.option_disable_relocalization = True
     cam = cam_ops.make_camera(**cam_args)
-    world = synthetic.make_world(cam, n_points=7000, seed=0,
-                                 poses=synthetic.circle_trajectory(n_frames, radius=radius))
-    frames = [synthetic.render_frame(world, t)[:2] for t in range(n_frames)]
+    gt, frames = circle_slice(cam, circle_frames, radius, n_frames)
     expect = {k: per_frame.get(k, 0) * n_frames for k in counters()}
-    return drive_slice(label, cam, cfg, world.poses, frames, expect, local_maps,
-                       cpu_frames, card)
+    return drive_slice(label, cam, cfg, gt, frames, expect, local_maps, cpu_frames, card)
 
 
 def phase_kitti_config(card):
@@ -713,6 +744,75 @@ def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card, record=None
                              f"{rep['n_merged_landmarks']} merged landmarks")
     if ba_on and not rep["n_ba_runs"] >= 1:
         raise AssertionError(f"{label}: bundle adjustment never ran")
+    return counts
+
+
+def phase_modular_closed(cam, cfg, world, frames, card):
+    """Phase 20: the closed loop on the modular tracker, through
+    engine.process frame by frame (the modular engine has no prestaged
+    playback), the launch counts zeroed just before and read just after.
+    Returns the launch counts."""
+    from vslam_tpu_torch.eval import trajectory as traj_eval
+    from vslam_tpu_torch.system.engine import SlamEngine
+    from vslam_tpu_torch.tracking.tracker import PoseTracker
+    from vslam_tpu_torch.utils import log
+
+    label, n, ref = "modular-closed", len(frames), JAX_CPU_MODULAR_CLOSED
+    cfg = closed_loop_config(cfg)
+    cfg.tracking.use_fused_tracker = False
+    engine = SlamEngine(cam, cfg, landmark_capacity=65536, device="cuda")
+    if not isinstance(engine.tracker, PoseTracker):
+        raise AssertionError(f"{label}: the engine built {type(engine.tracker).__name__}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log.chronometers.clear()
+    reset_counts()
+    times = []
+    t0 = time.perf_counter()
+    for left, right in frames:
+        t1 = time.perf_counter()
+        engine.process(left, right)
+        times.append(time.perf_counter() - t1)
+    traj = engine.trajectory
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    rep = engine.report()
+    if traj.shape != (n, 4, 4) or not np.all(np.isfinite(traj)):
+        raise AssertionError(f"{label}: trajectory shape {traj.shape} or non-finite poses")
+    rmse, _, _ = traj_eval.ate_rmse(traj, world.poses[:n])
+    got = {k: rep[k] for k in ref if k in rep}
+    got.update(ate_m=round(float(rmse), 4), db_rows=engine.relocalizer.n_rows,
+               closures=[(c.query_id, c.reference_id) for c in engine.world_map.closures])
+    print(f"[{label}] {n} frames, card: {got}")
+    print(f"[{label}] {n} frames, the JAX modular engine on a CPU: {ref}")
+    print(f"[{label}] launches {counts}, {rep['n_landmarks']} landmarks")
+    ms_frame = 1e3 * wall / n
+    RUN_MS[label] = ms_frame
+    print(f"[{label}] {ms_frame:.2f} ms/frame over the run ({1e3 / ms_frame:.2f} fps), "
+          f"median {1e3 * statistics.median(times[n // 8:]):.2f} ms/frame after the first "
+          f"{n // 8}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card})")
+    table = rep["stage_table"]
+    for stage in CLOSURE_STAGES:
+        row = table.get(stage, {"seconds": 0.0, "calls": 0})
+        print(f"[{label}] stage {stage:24s} {row['seconds']:8.4f} s in {row['calls']} calls")
+    for stage, sec in rep["stage_seconds"].items():
+        print(f"[{label}] tracker stage {stage:12s} {sec:8.4f} s")
+    if counts != {"K1": n, "K2": 0, "K3": 0, "K4": 0}:
+        raise AssertionError(f"{label}: launches {counts}, expected {n} K1 only")
+    if rep["n_track_breaks"] != 0:
+        raise AssertionError(f"{label}: {rep['n_track_breaks']} tracking breaks")
+    if not rmse <= ATE_LIMIT_M:
+        raise AssertionError(f"{label}: ATE {rmse:.4f} m > {ATE_LIMIT_M} m")
+    lo, hi = within_15_percent(ref["n_local_maps"])
+    if not lo <= rep["n_local_maps"] <= hi:
+        raise AssertionError(f"{label}: {rep['n_local_maps']} local maps outside {(lo, hi)}")
+    if not (rep["n_closures"] >= 1 and rep["n_optimizations"] == ref["n_optimizations"]
+            and rep["n_merged_landmarks"] > 0):
+        raise AssertionError(f"{label}: {rep['n_closures']} closures, "
+                             f"{rep['n_optimizations']} optimizations, "
+                             f"{rep['n_merged_landmarks']} merged landmarks")
     return counts
 
 
@@ -1183,16 +1283,16 @@ def phase_k1_split(cam, cfg, world, frames, card):
     from vslam_tpu_torch.frontend import fast_brief as fb
 
     print(f"[k1-split] the JAX engine on a CPU (chunks of {SPLIT_CHUNK}): {JAX_CPU_K1_SPLIT}")
-    n = K1_SLICE_FRAMES
+    n = SPLIT_K1_FRAMES
     counts = drive_slice("k1-split", cam, split_config(cfg), world.poses[:n], frames[:n],
                          {"K1": n // SPLIT_CHUNK, "K2": 0, "K3": 0, "K4": 0},
                          within_15_percent(JAX_CPU_K1_SPLIT["n_local_maps"]),
                          CPU_CHECK_FRAMES, card, cpu_harvest=SPLIT_CHUNK)
     batches = BATCHES["k1-split"]
     print(f"[k1-split] launches by batch size {batches}; {RUN_MS['k1-split']:.2f} ms/frame "
-          f"against phase 6a's per-frame path {RUN_MS['k1-slice']:.2f} in this call (frames "
-          f"32-63 alone: {RUN_MS['k1-split 2nd half']:.2f} against "
-          f"{RUN_MS['k1-slice 2nd half']:.2f}; phase 6a is the call's first engine); peak "
+          f"over its {n} frames against phase 6a's per-frame path {RUN_MS['k1-slice']:.2f} "
+          f"over 64 in this call (phase 6a is the call's first engine; its frames 32-63 "
+          f"alone: {RUN_MS['k1-slice 2nd half']:.2f}); peak "
           f"device memory {PEAK_MIB['k1-split']:.1f} MiB against {PEAK_MIB['k1-slice']:.1f} "
           f"({card})")
     if batches != {"K1": {2 * SPLIT_CHUNK: n // SPLIT_CHUNK}}:
@@ -1626,6 +1726,7 @@ def main():
         shard_worker(int(rank), int(world), int(port), src, out)
         return
 
+    t_start = time.perf_counter()
     card = card_line()
     print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
@@ -1654,12 +1755,14 @@ def main():
     phase_chain(card)
     closed, ba_closed = {}, {}
     for counts in (
-        config_slice("euroc-config", "euroc", EUROC_CAM, 32, 4.0,
-                     {"K2": 1, "K4": 2 * db.N_ROT_BANKS}, (13, 17), 4, card),
+        config_slice("euroc-config", "euroc", EUROC_CAM, EUROC_FRAMES, EUROC_CIRCLE_FRAMES,
+                     4.0, {"K2": 1, "K4": 2 * db.N_ROT_BANKS},
+                     within_15_percent(JAX_CPU_EUROC["n_local_maps"]), 2, card),
         phase_closed_loop("closed", cam, closed_loop_config(cfg), world, frames,
                           JAX_CPU_CLOSED_LOOP, card, record=closed),
         phase_closed_loop("ba-closed", cam, ba_closed_config(cfg), world, frames,
                           JAX_CPU_BA_CLOSED, card, record=ba_closed),
+        phase_modular_closed(cam, cfg, world, frames, card),
     ):
         launches = {k: launches[k] + counts[k] for k in launches}
     for counts in (phase_tum(card), phase_xtion(card)):
@@ -1694,6 +1797,8 @@ def main():
         kernels.append({"name": f"{fn} (split chunk, B={2 * SPLIT_CHUNK})", "route": "cuda",
                         "source": f"vslam_tpu_torch/csrc/{src}", "replaces": replaces,
                         "library_ms": None, **rec, **facts[k]})
+    print(f"[smoke] {time.perf_counter() - t_start:.1f} s from the start to the kernel "
+          f"record, the builds included ({card})")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

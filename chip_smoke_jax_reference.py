@@ -1,11 +1,12 @@
 """The JAX engine (vslam_tpu) on the CPU for chip_smoke.py's workloads
 that it holds to JAX's counts (JAX_CPU_K1_SLICE, JAX_CPU_KITTI_CONFIG,
 JAX_CPU_CLOSED_LOOP, JAX_CPU_BA_CLOSED, JAX_CPU_TUM, JAX_CPU_XTION,
-JAX_CPU_KITTI_DOG, JAX_CPU_K1_SPLIT, JAX_CPU_KITTI_SPLIT):
+JAX_CPU_KITTI_DOG, JAX_CPU_K1_SPLIT, JAX_CPU_KITTI_SPLIT,
+JAX_CPU_MODULAR_CLOSED, JAX_CPU_EUROC):
 
     python3 chip_smoke_jax_reference.py [k1-slice] [kitti-config] [closed]
         [ba-closed] [tum-config] [xtion-config] [kitti-dog] [k1-split]
-        [kitti-split]
+        [kitti-split] [modular-closed] [euroc-config]
 
 Each run uses chip_smoke.py's configuration and sequence, built with the
 JAX package's classes, on one CPU device (no sharded database search or
@@ -13,7 +14,9 @@ BA), frame by frame; it prints one JSON line of counts per workload.  The
 split runs (k1-split, kitti-split: k1-slice and kitti-config with
 tracking.batch_frontend) step chunks of 32 frames through
 make_chunk_step_split, as the card does (the JAX tracker's chunk on a CPU
-is one frame).  At KITTI resolution a run takes about 1-2 s a frame.
+is one frame).  modular-closed is closed with tracking.use_fused_tracker
+false: the modular PoseTracker and the engine's synchronous keyframe
+path.  At KITTI resolution a run takes about 1-2 s a frame.
 """
 
 import json
@@ -56,9 +59,17 @@ def workload(name):
             port_cam.make_camera(**workloads.KITTI_CAM, device="cpu"),
             chip_smoke.KITTI_SLICE_FRAMES)
         return cam_ops.make_camera(**workloads.KITTI_CAM), cfg, gt, frames
+    if name == "euroc-config":
+        cfg = load_config(os.path.join(here, "configurations", "configuration_euroc.yaml"))
+        cfg.command_line.option_disable_relocalization = True
+        gt, frames = chip_smoke.circle_slice(
+            port_cam.make_camera(**chip_smoke.EUROC_CAM, device="cpu"),
+            chip_smoke.EUROC_CIRCLE_FRAMES, 4.0, chip_smoke.EUROC_FRAMES)
+        return cam_ops.make_camera(**chip_smoke.EUROC_CAM), cfg, gt, frames
     cfg = workloads.bench_config(ParameterCollection)
-    n = chip_smoke.K1_SLICE_FRAMES if name == "k1-slice" else workloads.N_FRAMES
-    if name != "k1-slice":
+    n = {"k1-slice": chip_smoke.K1_SLICE_FRAMES,
+         "k1-split": chip_smoke.SPLIT_K1_FRAMES}.get(name, workloads.N_FRAMES)
+    if name not in ("k1-slice", "k1-split"):
         cfg = (workloads.ba_closed_config(cfg) if name == "ba-closed"
                else workloads.closed_loop_config(cfg))
     world, frames = workloads.bench_world(port_cam.make_camera(**workloads.KITTI_CAM,
@@ -66,15 +77,21 @@ def workload(name):
     return cam_ops.make_camera(**workloads.KITTI_CAM), cfg, world.poses[:n], frames
 
 
-SPLIT = {"k1-split": "k1-slice", "kitti-split": "kitti-config"}
+# Workloads that are another's sequence and configuration with one key
+# changed: the split front-end, or the modular tracker.
+BASE = {"kitti-split": "kitti-config", "modular-closed": "closed"}
+SPLIT = ("k1-split", "kitti-split")
+MODULAR = ("modular-closed",)
 
 
 def run(name):
-    cam, cfg, gt, frames = workload(SPLIT.get(name, name))
+    cam, cfg, gt, frames = workload(BASE.get(name, name))
     cfg.parallelism.shard_descriptor_db = False
     cfg.parallelism.shard_landmarks = False
     if name in SPLIT:
         cfg.tracking.batch_frontend = True
+    if name in MODULAR:
+        cfg.tracking.use_fused_tracker = False
     engine = SlamEngine(cam, cfg, landmark_capacity=65536)
     if name in SPLIT:  # the card's chunk: 32 frames a make_chunk_step_split call
         C = chip_smoke.SPLIT_CHUNK
@@ -96,5 +113,5 @@ def run(name):
 if __name__ == "__main__":
     for name in sys.argv[1:] or ["k1-slice", "kitti-config", "closed", "ba-closed",
                                  "tum-config", "xtion-config", "kitti-dog", "k1-split",
-                                 "kitti-split"]:
+                                 "kitti-split", "modular-closed", "euroc-config"]:
         run(name)

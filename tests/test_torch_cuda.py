@@ -172,6 +172,93 @@ def test_closed_loop_runs_on_the_card():
     assert reps[0]["n_local_maps"] == reps[1]["n_local_maps"]
 
 
+@pytest.mark.cuda
+def test_modular_tracker_on_the_card_matches_the_cpu():
+    """The modular PoseTracker (tracking.use_fused_tracker: false) for 8
+    frames at 192 x 512, border 16 (K1): on the card every integer of
+    every frame (keypoints, threshold, status, breaks, allocations) is the
+    CPU's and every position within 1e-4 m, and K1 launches once a frame."""
+    _need_card()
+    from vslam_tpu_torch.tracking.tracker import PoseTracker
+
+    cam = cam_ops.make_camera(fx=300.0, fy=300.0, cx=256.0, cy=96.0, baseline_m=0.4,
+                              rows=192, cols=512, device="cpu")
+    world = synthetic.make_world(cam, n_frames=8, n_points=1500, seed=5, step=0.4)
+    frames = [synthetic.render_frame(world, t)[:2] for t in range(8)]
+    runs = []
+    for device in ("cuda", "cpu"):
+        cfg = ParameterCollection()
+        cfg.framepoint_generation.capacity = 256
+        cfg.framepoint_generation.border_pixels = 16
+        tracker = PoseTracker(cam, cfg, landmark_capacity=4096, device=device)
+        before, rows, n_kp = fb.K1.launches, [], 0
+        for f in frames:
+            tracker.compute(*f)
+            rows.append((tracker.stats.n_keypoints - n_kp, tracker.controller.threshold,
+                         tracker.status, tracker.stats.n_breaks,
+                         tracker.allocator.num_allocated))
+            n_kp = tracker.stats.n_keypoints
+        assert fb.K1.launches - before == (len(frames) if device == "cuda" else 0)
+        runs.append((rows, np.stack(tracker.trajectory)))
+    assert runs[0][0] == runs[1][0] and runs[0][0][-1][4] > 100
+    assert np.abs(runs[0][1][:, :3, 3] - runs[1][1][:, :3, 3]).max() <= 1e-4
+
+
+def _modular_engine_run(device, kind):
+    """The modular engine (tracking.use_fused_tracker: false) on a small
+    sequence: "rgbd" -- 12 RGB-D frames at 192 x 320, closed loop; "ba" --
+    tests/test_torch_ba_engine.py's corridor (36 frames at 160 x 320,
+    border 12, BA every 8 frames, open loop).  Returns (report,
+    trajectory)."""
+    cfg = ParameterCollection()
+    cfg.tracking.use_fused_tracker = False
+    if kind == "rgbd":
+        cam = cam_ops.make_camera(fx=300.0, fy=300.0, cx=160.0, cy=96.0, baseline_m=0.075,
+                                  rows=192, cols=320, device="cpu")
+        world = synthetic.make_world(cam, n_frames=12, n_points=2500, seed=7, step=0.3)
+        frames = [synthetic.render_depth_frame(world, t) for t in range(12)]
+        cfg.command_line.tracker_mode = "RGB_DEPTH"
+        cfg.framepoint_generation.capacity = 256
+        cfg.framepoint_generation.bin_size_pixels = 10
+        cfg.framepoint_generation.maximum_depth_meters = 30.0
+        cfg.world_map.minimum_number_of_frames_for_local_map = 2
+    else:
+        cam = cam_ops.make_camera(fx=400.0, fy=400.0, cx=160.0, cy=80.0, baseline_m=0.3,
+                                  rows=160, cols=320, device="cpu")
+        world = synthetic.make_world(cam, n_frames=36, n_points=2500, seed=8, step=0.4,
+                                     turn_rate=0.004)
+        frames = [synthetic.render_frame(world, t)[:2] for t in range(36)]
+        cfg.framepoint_generation.capacity = 256
+        cfg.framepoint_generation.bin_size_pixels = 10
+        cfg.framepoint_generation.border_pixels = 12
+        cfg.local_map.minimum_number_of_landmarks = 20
+        cfg.world_map.minimum_distance_traveled_for_local_map = 0.6
+        cfg.world_map.minimum_number_of_frames_for_local_map = 2
+        cfg.command_line.option_disable_relocalization = True
+        cfg.graph_optimization.enable_full_bundle_adjustment = True
+        cfg.graph_optimization.number_of_frames_per_bundle_adjustment = 8
+    engine = SlamEngine(cam, cfg, landmark_capacity=8192, device=device)
+    for f in frames:
+        engine.process(*f)
+    return engine.report(), engine.trajectory
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rgbd", "ba"])
+def test_modular_engine_on_the_card_matches_the_cpu(kind):
+    """The modular engine, RGB-D closed loop and stereo with BA, on the
+    card and the CPU: the same local maps, BA runs and breaks (0), every
+    position within 1e-3 m (nothing is in flight: both resolve keyframes
+    after every frame)."""
+    _need_card()
+    (rep_c, traj_c), (rep_p, traj_p) = (_modular_engine_run(d, kind) for d in ("cuda", "cpu"))
+    for k in ("n_local_maps", "n_ba_runs", "n_track_breaks", "n_closures"):
+        assert rep_c[k] == rep_p[k], (k, rep_c[k], rep_p[k])
+    assert rep_c["n_track_breaks"] == 0 and rep_c["n_local_maps"] >= 3
+    assert (rep_c["n_ba_runs"] >= 2) == (kind == "ba")
+    assert np.abs(traj_c[:, :3, 3] - traj_p[:, :3, 3]).max() <= 1e-3
+
+
 def _ba_problem(device, seed=0, P=6, L=256, O=4):
     """A random BA window (cameras 0.3 m apart, landmarks 5-15 m ahead,
     0.5 px noise, a few 30 px outliers, masked slots, odometry factors)."""

@@ -1,5 +1,5 @@
 """The port's boundaries: no jax import, no silent fallback, and explicit
-NotImplementedError for what the port does not cover."""
+configurations an earlier slice refused now run."""
 
 import os
 import subprocess
@@ -13,7 +13,7 @@ from vslam_tpu_torch.io import config as tconfig
 from vslam_tpu_torch.io import from_jax
 from vslam_tpu_torch.ops import camera as tcam
 from vslam_tpu_torch.system.engine import SlamEngine
-from vslam_tpu_torch.tracking.tracker import FusedPoseTracker
+from vslam_tpu_torch.tracking.tracker import FusedPoseTracker, PoseTracker
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CAM = tcam.make_camera(fx=300, fy=300, cx=256, cy=96, baseline_m=0.4, rows=192, cols=512,
@@ -124,9 +124,12 @@ def test_entry_points_run_on_the_card_by_default(name):
             call()
 
 
-# The ROADMAP item each refusal names; None: ported since (FAST-ICP,
-# ROADMAP item 16), so the engine constructs.
-_ITEM = {"aligner_type": None, "use_fused_tracker": "not to port"}
+# Configurations an earlier slice refused, ported since (FAST-ICP, ROADMAP
+# item 16; the modular tracker, item 19), with what shows the engine took it.
+_TAKEN = {
+    "aligner_type": lambda eng: eng.relocalizer.params.aligner_type == "FAST-ICP",
+    "use_fused_tracker": lambda eng: isinstance(eng.tracker, PoseTracker),
+}
 
 
 @pytest.mark.parametrize("group,key,value", [
@@ -134,14 +137,16 @@ _ITEM = {"aligner_type": None, "use_fused_tracker": "not to port"}
     ("tracking", "use_fused_tracker", False),
 ])
 def test_unported_engine_configurations_raise(group, key, value):
+    """No configuration of this list raises any more: the engine constructs
+    with it and steps one frame."""
     cfg = tconfig.ParameterCollection()  # closed loop: ported
     setattr(getattr(cfg, group), key, value)
-    if _ITEM[key] is None:
-        eng = SlamEngine(CAM, cfg, landmark_capacity=1024, device="cpu")
-        assert eng.relocalizer.params.aligner_type == value
-        return
-    with pytest.raises(NotImplementedError, match=_ITEM[key]):
-        SlamEngine(CAM, cfg, landmark_capacity=1024, device="cpu")
+    eng = SlamEngine(CAM, cfg, landmark_capacity=1024, device="cpu")
+    assert _TAKEN[key](eng)
+    img = np.random.default_rng(0).uniform(0, 255, (192, 512)).astype(np.float32)
+    T = eng.process(img, img)
+    assert T.shape == (4, 4) and np.isfinite(T).all()
+    assert eng.report()["total_frames"] == 1
 
 
 def test_closed_loop_engine_constructs():

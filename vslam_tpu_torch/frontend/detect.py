@@ -395,3 +395,25 @@ def detect_keypoints(img: torch.Tensor, threshold: torch.Tensor, bin_size: int =
         octs.append(torch.full((cap_o,), o, dtype=torch.int32, device=img.device))
     return Keypoints(uv=torch.cat(uvs), score=torch.cat(scores),
                      valid=torch.cat(valids), octave=torch.cat(octs))
+
+
+class ThresholdController:
+    """Host-side delta-proportional detector threshold controller (the
+    modular tracker's; base_framepoint_generator.cpp:355-459): one
+    controller for the whole image, the per-step change clamped, the
+    threshold clamped to [minimum, maximum].  Python floats, as the JAX
+    package's."""
+
+    def __init__(self, initial: float = 20.0, target_count: int = 700,
+                 max_change: float = 10.0, minimum: float = 5.0, maximum: float = 100.0):
+        self.threshold = float(initial)
+        self.target = int(target_count)
+        self.max_change = float(max_change)
+        self.min = float(minimum)
+        self.max = float(maximum)
+
+    def update(self, detected_count: int) -> float:
+        err = (detected_count - self.target) / max(self.target, 1)
+        delta = float(np.clip(err * self.max_change, -self.max_change, self.max_change))
+        self.threshold = float(np.clip(self.threshold + delta, self.min, self.max))
+        return self.threshold

@@ -1,5 +1,5 @@
 """Map-state checkpoint / resume (port of vslam_tpu/io/checkpoint.py,
-format version 2, for the fused tracker).
+format version 2, for the fused and the modular tracker).
 
 A checkpoint captures the SLAM state — landmark table, slot allocator,
 tracker pose / motion / adaptive state, keyframe local maps and
@@ -8,8 +8,9 @@ record.  The relocalizer database is not stored: it is a function of the
 local maps, rebuilt by re-adding them in map-id order.  The layout is the
 JAX package's: descriptors are stored as uint32 (the port carries the same
 bits as int32), so a checkpoint written by either package loads into the
-other.  The tracker's fields are read from and written to its device
-TrackerState; the engine is flushed before saving.
+other.  The fused tracker's fields are read from and written to its
+device TrackerState, and the engine is flushed before saving; the modular
+tracker's live on the host (its slot free list is the allocator's).
 """
 
 from __future__ import annotations
@@ -34,15 +35,32 @@ def _u32(a: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(a, np.int32).view(np.uint32)
 
 
+def _tracker_fields(engine):
+    """(T_world_cam, last_motion, free slots, meta fields) of the engine's
+    tracker, fused or modular."""
+    tracker = engine.tracker
+    if not engine.fused:
+        al = tracker.allocator
+        return (tracker.T_world_cam, tracker.last_motion, np.asarray(al._free, np.int32),
+                {"frame_idx": tracker.frame_idx, "radius_px": tracker.radius_px,
+                 "desc_gate": tracker.desc_gate, "threshold": tracker.controller.threshold,
+                 "allocator_next": al._next, "allocator_free": [int(v) for v in al._free]})
+    st = tracker.state
+    return (_host(st.T_world_cam), _host(st.last_motion),
+            _host(st.free_list[:int(st.free_count)]),
+            {"frame_idx": int(st.frame_idx), "radius_px": float(st.radius_px),
+             "desc_gate": float(st.desc_gate), "threshold": float(st.threshold),
+             "allocator_next": int(st.next_slot), "allocator_free": []})
+
+
 def save_checkpoint(engine, path: str) -> None:
     # Harvest every stepped frame, register its keyframes and resolve the
     # closure work in flight: the file then holds a local map for every
     # keyframe the device made (the card harvests every 32 frames).
     engine._flush_tracker()
     tracker = engine.tracker
-    st = tracker.state
-    table = st.table
-    fc = int(st.free_count)
+    table = tracker.table
+    T_world_cam, last_motion, free_slots, fields = _tracker_fields(engine)
     maps = engine.world_map.local_maps
     arrays = {
         "table_xyz_w": _host(table.xyz_w),
@@ -53,14 +71,14 @@ def save_checkpoint(engine, path: str) -> None:
         "table_valid": _host(table.valid),
         "table_origin_kf": _host(table.origin_kf),
         "table_protected": _host(table.protected),
-        "T_world_cam": _host(st.T_world_cam),
-        "last_motion": _host(st.last_motion),
+        "T_world_cam": T_world_cam,
+        "last_motion": last_motion,
         "trajectory": (np.stack(tracker.trajectory) if tracker.trajectory
                        else np.zeros((0, 4, 4))),
         "kf_poses": np.stack(engine.kf_poses) if engine.kf_poses else np.zeros((0, 4, 4)),
         "kf_odometry": (np.stack(engine.kf_odometry) if engine.kf_odometry
                         else np.zeros((0, 4, 4))),
-        "free_slots": _host(st.free_list[:fc]),
+        "free_slots": free_slots,
         # Local maps flattened, with per-map counts in the meta record.
         "lm_slots": (np.concatenate([m.landmark_slots for m in maps]) if maps
                      else np.zeros(0, np.int32)),
@@ -74,13 +92,8 @@ def save_checkpoint(engine, path: str) -> None:
     }
     meta = {
         "version": FORMAT_VERSION,
-        "frame_idx": int(st.frame_idx),
         "status": tracker.status,
-        "radius_px": float(st.radius_px),
-        "desc_gate": float(st.desc_gate),
-        "threshold": float(st.threshold),
-        "allocator_next": int(st.next_slot),
-        "allocator_free": [],
+        **fields,
         "local_maps": [{"map_id": m.map_id, "keyframe_index": m.keyframe_index,
                         "n": len(m.landmark_slots)} for m in maps],
         "closure_edges": [{"i": int(i), "j": int(j), "T": np.asarray(T).tolist()}
@@ -102,9 +115,8 @@ def load_checkpoint(engine, path: str) -> None:
     if meta["version"] != FORMAT_VERSION:
         raise ValueError(f"checkpoint version {meta['version']} != {FORMAT_VERSION}")
     tracker = engine.tracker
-    st = tracker.state
     dev = tracker.device
-    cap = st.table.capacity
+    cap = tracker.table.capacity
     stored = data["table_xyz_w"].shape[0]
     if stored != cap:
         raise ValueError(f"landmark capacity mismatch: checkpoint {stored}, engine {cap}")
@@ -126,8 +138,37 @@ def load_checkpoint(engine, path: str) -> None:
         protected=on_dev("table_protected", torch.bool),
     )
     n_maps = len(meta["local_maps"])
-    last_kf = (data["lm_kf_poses"][-1] if n_maps else np.eye(4)).astype(np.float32)
+    frame_idx = int(meta["frame_idx"])
     free_slots = data["free_slots"].astype(np.int32)
+    if engine.fused:
+        _load_fused_tracker(tracker, data, meta, table, n_maps, free_slots)
+    else:
+        tracker.table = table
+        tracker.T_world_cam = data["T_world_cam"].astype(np.float32)
+        tracker.last_motion = data["last_motion"].astype(np.float32)
+        tracker.frame_idx = frame_idx
+        tracker.status = meta.get("status", LOCALIZING)
+        tracker.radius_px = meta["radius_px"]
+        tracker.desc_gate = meta["desc_gate"]
+        tracker.controller.threshold = meta["threshold"]
+        tracker.allocator._next = meta["allocator_next"]
+        tracker.allocator._free = [int(v) for v in free_slots]
+        tracker.prev_frame = None  # the next frame re-seeds tracking (Localizing)
+        tracker.kf_count = n_maps
+        tracker._break_frames = []
+    tracker.trajectory = [T.astype(np.float32) for T in data["trajectory"]]
+    tracker.stats.n_frames = frame_idx
+    _load_engine(engine, data, meta)
+
+
+def _load_fused_tracker(tracker, data, meta, table, n_maps, free_slots):
+    st = tracker.state
+    dev = tracker.device
+
+    def on_dev(name):
+        return torch.from_numpy(np.ascontiguousarray(data[name])).to(dev, torch.float32)
+
+    last_kf = (data["lm_kf_poses"][-1] if n_maps else np.eye(4)).astype(np.float32)
     F = st.free_list.shape[0]
     fc = min(len(free_slots), F)
     free_list = torch.zeros(F, dtype=torch.int32, device=dev)
@@ -139,8 +180,8 @@ def load_checkpoint(engine, path: str) -> None:
     frame_idx = int(meta["frame_idx"])
     tracker.state = st._replace(
         table=table,
-        T_world_cam=on_dev("T_world_cam", torch.float32),
-        last_motion=on_dev("last_motion", torch.float32),
+        T_world_cam=on_dev("T_world_cam"),
+        last_motion=on_dev("last_motion"),
         radius_px=scalar(meta["radius_px"], st.radius_px),
         desc_gate=scalar(meta["desc_gate"], st.desc_gate),
         threshold=scalar(meta["threshold"], st.threshold),
@@ -160,12 +201,14 @@ def load_checkpoint(engine, path: str) -> None:
     tracker._pending_keyframes = []
     tracker._pending_corrections = []
     tracker._break_frames = []
-    tracker.trajectory = [T.astype(np.float32) for T in data["trajectory"]]
-    tracker._last_pose = (tracker.trajectory[-1] if tracker.trajectory
+    tracker._last_pose = (data["trajectory"][-1].astype(np.float32) if len(data["trajectory"])
                           else np.eye(4, dtype=np.float32))
     tracker._last_status = meta.get("status", LOCALIZING)
-    tracker.stats.n_frames = frame_idx
 
+
+def _load_engine(engine, data, meta):
+    """The engine's pose-graph bookkeeping and local maps, and the
+    relocalizer database rebuilt from them."""
     engine.kf_poses = [T.astype(np.float32) for T in data["kf_poses"]]
     engine.kf_odometry = [T.astype(np.float32) for T in data["kf_odometry"]]
     engine.kf_frame_indices = list(meta["kf_frame_indices"])

@@ -178,6 +178,39 @@ def render_stressed(world: SyntheticWorld, frame_idx: int, roll_rad: float = 0.0
     return img_l, img_r, p_cam
 
 
+def render_photo_plane(photo: np.ndarray, cam, T_wc: np.ndarray, plane_z: float = 6.0,
+                       meters_per_pixel: float = 0.01):
+    """An exact-ground-truth stereo pair of a photograph mounted on the
+    world plane z = plane_z: real texture statistics with exact geometry.
+
+    photo: (Hp, Wp) grayscale; the patch is centred on the z axis and
+    spans (Wp, Hp) * meters_per_pixel meters.  Returns (img_l, img_r) f32
+    (cam.rows, cam.cols), bilinear samples of the photo clamped at its
+    edge; rays that point away from the plane see flat gray (128)."""
+    from scipy import ndimage
+
+    Hp, Wp = photo.shape
+    H, W = cam.rows, cam.cols
+    K = np.asarray(cam.K.detach().cpu().numpy(), np.float64)
+    T = np.asarray(T_wc, np.float64)
+    R, t = T[:3, :3], T[:3, 3]
+    uu, vv = np.meshgrid(np.arange(W, dtype=np.float64), np.arange(H, dtype=np.float64))
+    rays_cam = np.stack([uu, vv, np.ones_like(uu)], axis=-1) @ np.linalg.inv(K).T
+
+    def eye(offset_x):
+        o = t + R @ np.array([offset_x, 0.0, 0.0])
+        d = rays_cam @ R.T  # world-frame ray directions
+        dz = d[..., 2]
+        s = (plane_z - o[2]) / np.where(np.abs(dz) < 1e-9, 1e-9, dz)
+        ix = (o[0] + s * d[..., 0]) / meters_per_pixel + Wp / 2.0
+        iy = (o[1] + s * d[..., 1]) / meters_per_pixel + Hp / 2.0
+        img = ndimage.map_coordinates(photo.astype(np.float32), [iy, ix], order=1,
+                                      mode="nearest")
+        return np.where(s > 0.1, img, 128.0).astype(np.float32)
+
+    return eye(0.0), eye(float(cam.baseline_m))
+
+
 def render_depth_frame(world: SyntheticWorld, frame_idx: int):
     """Render (intensity, depth_m) for RGB-D mode: the left image of
     render_frame, and a depth map exact on the rendered patches (nearest

@@ -206,6 +206,33 @@ def stereo_frontend_core(
     )
 
 
+def process_stereo_pair(
+    cam: cam_ops.CameraParams,
+    img_l: torch.Tensor,
+    img_r: torch.Tensor,
+    threshold: torch.Tensor,
+    max_hamming_stereo,
+    epipolar_tol,
+    min_disparity,
+    max_disparity,
+    capacity: int = 1024,
+    bin_size: int = 16,
+    border: int = 20,
+    descriptor: str = "BRIEF256",
+    detector: str = "FAST",
+    octaves: int = 1,
+):
+    """The modular tracker's stereo front-end for one pair: the front-end
+    of stereo_frontend_core without the planes.
+    Returns (FrameState, n_keypoints_left, n_framepoints)."""
+    return stereo_frontend_core(
+        cam, img_l, img_r, threshold, max_hamming_stereo, epipolar_tol,
+        min_disparity, max_disparity, capacity=capacity, bin_size=bin_size,
+        border=border, descriptor=descriptor, detector=detector,
+        want_planes=False, octaves=octaves,
+    )
+
+
 def frontend_chunk(
     cam: cam_ops.CameraParams,
     chunk: torch.Tensor,

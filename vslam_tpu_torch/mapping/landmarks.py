@@ -1,14 +1,16 @@
-"""Device-resident landmark table (port of the slice's part of
-vslam_tpu/mapping/landmarks.py): fixed-capacity SoA columns with batched
-information-form GN updates and the pose graph's rigid corrections."""
+"""Device-resident landmark table (port of vslam_tpu/mapping/landmarks.py):
+fixed-capacity SoA columns with batched information-form GN updates, the
+pose graph's rigid corrections, and the modular tracker's host-side slot
+allocator."""
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from vslam_tpu_torch.mapping.frame import _put_rows
+from vslam_tpu_torch.mapping.frame import _add_delta, _put_rows
 from vslam_tpu_torch.ops import camera as cam_ops
 from vslam_tpu_torch.ops import lie
 from vslam_tpu_torch.solve import aligners
@@ -121,28 +123,81 @@ def spawn_and_update_observed(
         xyz_n, H_n, _, _ = aligners.update_landmarks_uvd(
             cam, base_xyz, base_H, T_world_cam, uv4[:, :3], obs)
 
-    def add(col, new, mask):
-        m = mask.reshape((-1,) + (1,) * (col.dim() - 1))
-        cur = col[tgt]
-        return col.index_add(0, tgt, torch.where(m, new - cur, torch.zeros_like(cur)))
-
     seen_t = table.last_seen[tgt]
     new_seen = torch.where(obs, torch.maximum(seen_t, frame_idx), seen_t)
     valid_t = table.valid[tgt]
     prot_t = table.protected[tgt]
+    every = torch.ones_like(obs)
     return LandmarkTable(
-        xyz_w=add(table.xyz_w, xyz_n, obs),
-        H_acc=add(table.H_acc, H_n, obs),
+        xyz_w=_add_delta(table.xyz_w, tgt, obs, xyz_n),
+        H_acc=_add_delta(table.H_acc, tgt, obs, H_n),
         desc=_put_rows(table.desc, tgt, obs, desc),
-        n_updates=add(table.n_updates, base_nup + 1, obs),
-        last_seen=add(table.last_seen, new_seen, torch.ones_like(obs)),
-        valid=add(table.valid.to(torch.int32), (valid_t | obs).to(torch.int32),
-                  torch.ones_like(obs)) > 0,
-        origin_kf=add(table.origin_kf, torch.where(fresh, origin_kf, table.origin_kf[tgt]),
-                      obs),
-        protected=add(table.protected.to(torch.int32),
-                      (prot_t & ~(fresh & obs)).to(torch.int32),
-                      torch.ones_like(obs)) > 0,
+        n_updates=_add_delta(table.n_updates, tgt, obs, base_nup + 1),
+        last_seen=_add_delta(table.last_seen, tgt, every, new_seen),
+        valid=_add_delta(table.valid.to(torch.int32), tgt, every,
+                         (valid_t | obs).to(torch.int32)) > 0,
+        origin_kf=_add_delta(table.origin_kf, tgt, obs,
+                             torch.where(fresh, origin_kf, table.origin_kf[tgt])),
+        protected=_add_delta(table.protected.to(torch.int32), tgt, every,
+                             (prot_t & ~(fresh & obs)).to(torch.int32)) > 0,
+    )
+
+
+def spawn_landmarks(table: LandmarkTable, new_slots: torch.Tensor, xyz_w: torch.Tensor,
+                    desc: torch.Tensor, frame_idx, origin_kf=0) -> LandmarkTable:
+    """The modular tracker's spawn: initialize the slots new_slots (-1 =
+    unused row) at xyz_w with n_updates 1, no information, the given
+    origin local map, unprotected.  The allocator hands out distinct
+    slots; unused rows alias slot 0 and add zero, as the JAX package's
+    predicated add-delta scatters do."""
+    use = new_slots >= 0
+    tgt = torch.where(use, new_slots, 0).to(torch.int64)
+    i32 = dict(dtype=torch.int32, device=tgt.device)
+    seen_t = table.last_seen[tgt]
+    return table._replace(
+        xyz_w=_add_delta(table.xyz_w, tgt, use, xyz_w),
+        H_acc=_add_delta(table.H_acc, tgt, use, 0.0),
+        desc=_put_rows(table.desc, tgt, use, desc),
+        n_updates=_add_delta(table.n_updates, tgt, use, 1),
+        last_seen=_add_delta(table.last_seen, tgt, use,
+                             torch.maximum(seen_t, torch.as_tensor(frame_idx, **i32))),
+        valid=_put_rows(table.valid, tgt, use, True),
+        origin_kf=_add_delta(table.origin_kf, tgt, use, torch.as_tensor(origin_kf, **i32)),
+        protected=_put_rows(table.protected, tgt, use, False),
+    )
+
+
+def update_observed(cam: cam_ops.CameraParams, table: LandmarkTable,
+                    T_world_cam: torch.Tensor, slots: torch.Tensor, uv4: torch.Tensor,
+                    desc: torch.Tensor, point_valid: torch.Tensor, frame_idx,
+                    mode: str = "stereo", min_forced_updates: int = 0,
+                    min_meas_for_opt: int = 0,
+                    max_t_err_depth_ratio: float = 0.0) -> LandmarkTable:
+    """The modular tracker's batched GN refinement of every valid landmark
+    observed this frame: gather the K observed rows, one information-form
+    step each (stereo [uL, vL, uR, vR] or depth [u, v, z]), scatter back
+    with the descriptor and counters refreshed.  spawn_landmarks followed
+    by this equals spawn_and_update_observed."""
+    obs = point_valid & (slots >= 0)
+    tgt = torch.where(obs, slots, 0).to(torch.int64)
+    obs = obs & table.valid[tgt]
+    xyz_g, H_g, n_up_g = table.xyz_w[tgt], table.H_acc[tgt], table.n_updates[tgt]
+    if mode == "stereo":
+        xyz_n, H_n, _, _ = aligners.update_landmarks(
+            cam, xyz_g, H_g, T_world_cam, uv4, obs, n_updates=n_up_g,
+            min_forced_updates=min_forced_updates, min_meas_for_opt=min_meas_for_opt,
+            max_t_err_depth_ratio=max_t_err_depth_ratio)
+    else:
+        xyz_n, H_n, _, _ = aligners.update_landmarks_uvd(
+            cam, xyz_g, H_g, T_world_cam, uv4[:, :3], obs)
+    seen_t = table.last_seen[tgt]
+    fi = torch.as_tensor(frame_idx, dtype=torch.int32, device=tgt.device)
+    return table._replace(
+        xyz_w=_add_delta(table.xyz_w, tgt, obs, xyz_n),
+        H_acc=_add_delta(table.H_acc, tgt, obs, H_n),
+        desc=_put_rows(table.desc, tgt, obs, desc),
+        n_updates=_add_delta(table.n_updates, tgt, obs, n_up_g + 1),
+        last_seen=_add_delta(table.last_seen, tgt, obs, torch.maximum(seen_t, fi)),
     )
 
 
@@ -153,6 +208,33 @@ def scatter_xyz(table: LandmarkTable, slots: torch.Tensor, xyz_new: torch.Tensor
     with use set must be distinct.  The JAX package's predicated add-delta
     scatter: unused rows alias slot 0 and add zero."""
     tgt = torch.where(use, slots, 0).to(torch.int64)
-    cur = table.xyz_w[tgt]
-    delta = torch.where(use[:, None], xyz_new - cur, torch.zeros_like(cur))
-    return table._replace(xyz_w=table.xyz_w.index_add(0, tgt, delta))
+    return table._replace(xyz_w=_add_delta(table.xyz_w, tgt, use, xyz_new))
+
+
+class SlotAllocator:
+    """Host-side free list over table slots for the modular tracker
+    (world_map.cpp:74-92): LIFO reuse of released slots, then fresh slots
+    in order, then -1 once the table is full."""
+
+    def __init__(self, capacity: int):
+        self.capacity = capacity
+        self._next = 0
+        self._free: list[int] = []
+
+    def allocate(self, n: int) -> np.ndarray:
+        out = []
+        while n > 0 and self._free:
+            out.append(self._free.pop())
+            n -= 1
+        take = min(n, self.capacity - self._next)
+        out.extend(range(self._next, self._next + take))
+        self._next += take
+        out.extend([-1] * (n - take))
+        return np.asarray(out, np.int32)
+
+    def release(self, slots) -> None:
+        self._free.extend(int(s) for s in np.asarray(slots) if s >= 0)
+
+    @property
+    def num_allocated(self) -> int:
+        return self._next - len(self._free)

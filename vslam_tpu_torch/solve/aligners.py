@@ -1,10 +1,16 @@
 """Pose solvers (stereo UV, RGB-D UVD, closure ICP) and the batched
 landmark refinements (port of vslam_tpu/solve/aligners.py).
 
-All use closed-form Jacobians.  Each `lax.while_loop` of the JAX solver
-becomes a Python loop to the iteration cap whose state is frozen, by a
-per-solve `active` flag, once the loop condition fails: the result is the
-while-loop's, and the loop needs no host sync to decide when to stop.
+The production solvers (stereo_uv_align_fast, uvd_align, icp_align and
+the landmark refinements) use closed-form Jacobians.  The residual
+factories (make_stereo_uv_residual, make_uvd_residual, make_icp_residual)
+and stereo_uv_align instantiate the generic engine gn.gauss_newton with
+Jacobians by forward-mode autodiff through the left SE(3) tangent, as the
+JAX package does everywhere: the reference the closed forms are held to.
+Each `lax.while_loop` of the JAX solver becomes a Python loop to the
+iteration cap whose state is frozen, by a per-solve `active` flag, once
+the loop condition fails: the result is the while-loop's, and the loop
+needs no host sync to decide when to stop.
 """
 
 from __future__ import annotations
@@ -24,6 +30,52 @@ class StereoUVData(NamedTuple):
     p_prev: torch.Tensor  # (N, 3) points in the previous camera frame
     meas: torch.Tensor  # (N, 4) measured [uL, vL, uR, vR] in the current frame
     weight: torch.Tensor  # (N,) e.g. 1 + log(n_updates) for landmarks
+
+
+def _local_residual(r_of_T, T: torch.Tensor):
+    """A residual and its Jacobian wrt the left-multiplicative se(3)
+    tangent at T: r(exp(dx) T) and its forward-mode derivative at dx = 0."""
+    zero = torch.zeros(6, dtype=T.dtype, device=T.device)
+
+    def r_of_dx(dx):
+        # The twist rides a batch of one: forward-mode through a 0-d
+        # tensor times a Python float gives an f64 tangent (torch.func).
+        return r_of_T(lie.exp_se3(dx[None])[0] @ T)
+
+    return r_of_dx(zero), torch.func.jacfwd(r_of_dx)(zero)
+
+
+def make_stereo_uv_residual(cam: cam_ops.CameraParams):
+    """(residual_fn, diag_fn) of the stereo reprojection for
+    gn.gauss_newton: r = [uL, vL, uR, vR](T p_prev) - meas, information
+    weight x the inverse-depth emphasis of near points
+    (stereouv_aligner.cpp:57-61) on the diagonal."""
+
+    def residual_fn(T, datum):
+        def r_of_T(Tx):
+            uv_l, uv_r, _ = cam_ops.project_stereo(cam, lie.transform_points(Tx, datum.p_prev))
+            return torch.cat([uv_l, uv_r], dim=-1) - datum.meas
+
+        return _local_residual(r_of_T, T)
+
+    def diag_fn(T, datum, r):
+        z = lie.transform_points(T, datum.p_prev)[2]
+        depth_w = torch.clamp(10.0 / torch.clamp(z, min=0.1), 0.2, 2.0)
+        return datum.weight * depth_w * torch.ones_like(r)
+
+    return residual_fn, diag_fn
+
+
+def stereo_uv_align(cam: cam_ops.CameraParams, data: StereoUVData, mask: torch.Tensor,
+                    T0: torch.Tensor, config: gn.GNConfig = gn.GNConfig()) -> gn.GNResult:
+    """T_cur_prev from stereo reprojections by the generic engine (the
+    reference stereo_uv_align_fast is checked against).  Points behind the
+    camera under the initial guess are left out, as the reference skips
+    them in linearize."""
+    residual_fn, diag_fn = make_stereo_uv_residual(cam)
+    mask = mask & (lie.transform_points(T0, data.p_prev)[:, 2] > 0.01)
+    return gn.gauss_newton(residual_fn, T0, data, mask, config,
+                           retract=gn.se3_retract, diag_fn=diag_fn)
 
 
 def _stereo_r_J_analytic(cam: cam_ops.CameraParams, p: torch.Tensor,
@@ -52,13 +104,6 @@ def _stereo_r_J_analytic(cam: cam_ops.CameraParams, p: torch.Tensor,
     # d r / d w = -Jp @ skew(p): row-wise a @ skew(p) = cross(a, p).
     Jw = -torch.linalg.cross(Jp, p[..., None, :].expand_as(Jp), dim=-1)
     return r, torch.cat([Jp, Jw], dim=-1), z
-
-
-def _keep_going(prev_chi2, chi2, step, it, first_rounds, config):
-    rel = torch.abs(prev_chi2 - chi2) / torch.clamp(chi2, min=1e-12)
-    return (it < first_rounds) | (rel > config.tolerance) | (
-        step > config.step_tolerance
-    )
 
 
 def stereo_uv_align_fast(
@@ -106,7 +151,7 @@ def stereo_uv_align_fast(
     it = torch.zeros((), dtype=torch.int32, device=dev)
     inl, step = mask, inf
     for _ in range(config.max_iterations):
-        active = _keep_going(prev, chi2, step, it, 2, config)
+        active = gn.keep_going(prev, chi2, step, it, 2, config)
         T2, new_chi2, inl2, step2 = one_round(T, all_true)
         T = torch.where(active, T2, T)
         prev = torch.where(active, chi2, prev)
@@ -121,7 +166,7 @@ def stereo_uv_align_fast(
     prev, step = inf, inf
     it = torch.zeros((), dtype=torch.int32, device=dev)
     for _ in range(config.refine_iterations):
-        active = _keep_going(prev, chi2, step, it, 1, config)
+        active = gn.keep_going(prev, chi2, step, it, 1, config)
         T2, new_chi2, inl2, step2 = one_round(T, inl)
         keep = torch.sum(inl2) >= config.min_num_inliers
         upd = active & keep
@@ -144,77 +189,29 @@ def stereo_uv_align_fast(
     )
 
 
-def _two_phase_batched(linearize, T0: torch.Tensor, mask: torch.Tensor,
-                       config: gn.GNConfig) -> gn.GNResult:
-    """The JAX package's generic robust two-phase gauss_newton over B
-    problems at once: robust GN to convergence, then inlier-only rounds
-    that reject a collapse of the inlier set.  linearize(T, extra_mask)
-    gives (H (B,6,6), b (B,6), total chi2 (B,), inliers (B,N)) with
-    extra_mask ANDed into mask.  num_inliers counts the inlier set carried
-    out of the refinement phase."""
-    B, dev = T0.shape[0], T0.device
-
-    def one_round(T, extra_mask):
-        H, b, total, inliers = linearize(T, extra_mask)
-        dx = gn.solve_normal_equations(H, b, config.damping)
-        norm = torch.linalg.vector_norm(dx, dim=-1)
-        dx = dx * torch.clamp(config.max_step_norm / torch.clamp(norm, min=1e-12),
-                              max=1.0)[:, None]
-        ok = torch.all(torch.isfinite(dx), dim=-1)
-        T_new = torch.where(ok[:, None, None], gn.se3_retract(T, dx), T)
-        return T_new, total, inliers, torch.where(ok, norm, 0.0)
-
-    inf = torch.full((B,), float("inf"), device=dev)
-    all_true = torch.ones_like(mask)
-
-    # Phase 1: robust GN over all measurements.
-    T, prev, chi2 = T0, inf, torch.full((B,), 1e30, device=dev)
-    it = torch.zeros(B, dtype=torch.int32, device=dev)
-    inl, step = mask, inf
-    for _ in range(config.max_iterations):
-        active = _keep_going(prev, chi2, step, it, 2, config)
-        T2, new_chi2, inl2, step2 = one_round(T, all_true)
-        T = torch.where(active[:, None, None], T2, T)
-        prev = torch.where(active, chi2, prev)
-        chi2 = torch.where(active, new_chi2, chi2)
-        inl = torch.where(active[:, None], inl2, inl)
-        step = torch.where(active, step2, step)
-        it = it + active.to(torch.int32)
-    iters = it
-
-    # Phase 2: inlier-only refinement with collapse rejection.
-    prev, step = inf, inf
-    it = torch.zeros(B, dtype=torch.int32, device=dev)
-    for _ in range(config.refine_iterations):
-        active = _keep_going(prev, chi2, step, it, 1, config)
-        T2, new_chi2, inl2, step2 = one_round(T, inl)
-        keep = torch.sum(inl2, dim=-1) >= config.min_num_inliers
-        upd = active & keep
-        T = torch.where(upd[:, None, None], T2, T)
-        prev = torch.where(active, chi2, prev)
-        chi2 = torch.where(upd, new_chi2, chi2)
-        inl = torch.where(upd[:, None], inl2, inl)
-        step = torch.where(active, torch.where(keep, step2, 0.0), step)
-        it = it + active.to(torch.int32)
-
-    num_inliers = torch.sum(inl, dim=-1).to(torch.int32)
-    _, _, final_chi2, _ = linearize(T, inl)
-    return gn.GNResult(
-        x=T,
-        chi2=final_chi2 / torch.clamp(num_inliers.to(torch.float32), min=1.0),
-        num_inliers=num_inliers,
-        num_iterations=iters,
-        inlier_mask=inl,
-        converged=num_inliers >= config.min_num_inliers,
-    )
-
-
 class ICPData(NamedTuple):
     """Point-to-point closure verification data, leading dims (B, N)."""
 
     p_moving: torch.Tensor  # (B, N, 3) points in the query keyframe frame
     p_fixed: torch.Tensor  # (B, N, 3) corresponding reference-frame points
     weight: torch.Tensor  # (B, N) per-correspondence information
+
+
+def make_icp_residual():
+    """(residual_fn, diag_fn) of point-to-point ICP for gn.gauss_newton:
+    r = T p_moving - p_fixed, the correspondence weight on the diagonal
+    (xyz_aligner.cpp:13-40).  Takes one problem's (N, ...) data."""
+
+    def residual_fn(T, datum):
+        def r_of_T(Tx):
+            return lie.transform_points(Tx, datum.p_moving) - datum.p_fixed
+
+        return _local_residual(r_of_T, T)
+
+    def diag_fn(T, datum, r):
+        return datum.weight * torch.ones_like(r)
+
+    return residual_fn, diag_fn
 
 
 def icp_align(data: ICPData, mask: torch.Tensor, T0: torch.Tensor,
@@ -243,7 +240,7 @@ def icp_align(data: ICPData, mask: torch.Tensor, T0: torch.Tensor,
         inliers = (chi2 <= kernel) & mask & extra_mask
         return H, b, torch.sum(chi2 * w_eff, dim=-1), inliers
 
-    return _two_phase_batched(linearize, T0, mask, config)
+    return gn.two_phase(linearize, T0, mask, config)
 
 
 class UVDData(NamedTuple):
@@ -253,6 +250,25 @@ class UVDData(NamedTuple):
     meas: torch.Tensor  # (N, 3) measured [u, v, depth_m]
     weight: torch.Tensor  # (N,)
     depth_reliable: torch.Tensor  # (N,) bool; unreliable -> uv only
+
+
+def make_uvd_residual(cam: cam_ops.CameraParams, depth_info_weight: float = 10.0):
+    """(residual_fn, diag_fn) of the RGB-D [u, v, depth] residual for
+    gn.gauss_newton; the depth channel carries depth_info_weight where the
+    depth is reliable and nothing where it is not (uvd_aligner.cpp:55-61)."""
+
+    def residual_fn(T, datum):
+        def r_of_T(Tx):
+            uv, z = cam_ops.project(cam, lie.transform_points(Tx, datum.p_prev))
+            return torch.cat([uv, z[None]], dim=-1) - datum.meas
+
+        return _local_residual(r_of_T, T)
+
+    def diag_fn(T, datum, r):
+        dw = torch.where(datum.depth_reliable, depth_info_weight, 0.0)
+        return torch.stack([datum.weight, datum.weight, datum.weight * dw]).to(r.dtype)
+
+    return residual_fn, diag_fn
 
 
 def uvd_align(cam: cam_ops.CameraParams, data: UVDData, mask: torch.Tensor,
@@ -291,7 +307,7 @@ def uvd_align(cam: cam_ops.CameraParams, data: UVDData, mask: torch.Tensor,
         inliers = (chi2 <= kernel) & mask & extra_mask[0]
         return H[None], b[None], torch.sum(chi2 * w_eff)[None], inliers[None]
 
-    res = _two_phase_batched(linearize, T0[None], mask[None], config)
+    res = gn.two_phase(linearize, T0[None], mask[None], config)
     return gn.GNResult(*(f[0] for f in res))
 
 

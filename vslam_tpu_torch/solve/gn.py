@@ -1,10 +1,20 @@
-"""Closed-form small solves and the Gauss-Newton configuration (port of
-vslam_tpu/solve/gn.py; the generic autodiff engine is not ported — the
-slice's solvers use analytic Jacobians, solve/aligners.py)."""
+"""The robust Gauss-Newton engine, its configuration and the closed-form
+small solves (port of vslam_tpu/solve/gn.py).
+
+`gauss_newton` is the JAX package's generic engine: per-measurement
+residuals with forward-mode Jacobians (torch.func.jacfwd, mapped over the
+measurements by torch.func.vmap), the reference's clamping robust kernel,
+robust rounds to convergence, then inlier-only refinement rounds.  It is
+the reference the closed-form solvers of solve/aligners.py are checked
+against; those share its two-phase loop (`two_phase`).  Each
+`lax.while_loop` of the JAX engine is a Python loop to the iteration cap
+whose state is frozen, by a per-problem `active` flag, once the loop
+condition fails: the result is the while-loop's, and the loop needs no
+host sync to decide when to stop."""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -94,3 +104,123 @@ def solve_normal_equations(H: torch.Tensor, b: torch.Tensor, damping) -> torch.T
 def se3_retract(T: torch.Tensor, dx: torch.Tensor) -> torch.Tensor:
     """Left-multiplicative SE(3) update with re-orthonormalization."""
     return lie.orthonormalize_transform(lie.exp_se3(dx) @ T)
+
+
+
+def _robust_weights(chi2: torch.Tensor, kernel) -> torch.Tensor:
+    """Reference clamping kernel: weight kernel / chi2 beyond the kernel
+    (stereouv_aligner.cpp:127-134)."""
+    return torch.where(chi2 > kernel, kernel / torch.clamp(chi2, min=1e-12), 1.0)
+
+
+def keep_going(prev_chi2, chi2, step, it, first_rounds, config):
+    rel = torch.abs(prev_chi2 - chi2) / torch.clamp(chi2, min=1e-12)
+    return (it < first_rounds) | (rel > config.tolerance) | (
+        step > config.step_tolerance
+    )
+
+
+def two_phase(linearize, x0: torch.Tensor, mask: torch.Tensor, config: GNConfig,
+              retract: Callable = None) -> GNResult:
+    """The JAX package's two-phase robust gauss_newton loop over B problems
+    at once: robust GN to convergence, then inlier-only rounds that reject
+    a collapse of the inlier set.  linearize(x, extra_mask) gives (H
+    (B,D,D), b (B,D), total chi2 (B,), inliers (B,N)) with extra_mask ANDed
+    into mask; retract(x, dx) updates the (B, ...) states (default: SE(3)
+    left multiplication).  num_inliers counts the inlier set carried out
+    of the refinement phase."""
+    retract = retract or se3_retract
+    B, dev = x0.shape[0], x0.device
+
+    def per_problem(flag, like):
+        return flag.reshape((B,) + (1,) * (like.dim() - 1))
+
+    def one_round(x, extra_mask):
+        H, b, total, inliers = linearize(x, extra_mask)
+        dx = solve_normal_equations(H, b, config.damping)
+        # Trust-region clamp; a non-finite step keeps the previous iterate.
+        norm = torch.linalg.vector_norm(dx, dim=-1)
+        dx = dx * torch.clamp(config.max_step_norm / torch.clamp(norm, min=1e-12),
+                              max=1.0)[:, None]
+        ok = torch.all(torch.isfinite(dx), dim=-1)
+        x_new = torch.where(per_problem(ok, x), retract(x, dx), x)
+        return x_new, total, inliers, torch.where(ok, norm, 0.0)
+
+    inf = torch.full((B,), float("inf"), device=dev)
+    all_true = torch.ones_like(mask)
+
+    # Phase 1: robust GN over all measurements.
+    x, prev, chi2 = x0, inf, torch.full((B,), 1e30, device=dev)
+    it = torch.zeros(B, dtype=torch.int32, device=dev)
+    inl, step = mask, inf
+    for _ in range(config.max_iterations):
+        active = keep_going(prev, chi2, step, it, 2, config)
+        x2, new_chi2, inl2, step2 = one_round(x, all_true)
+        x = torch.where(per_problem(active, x), x2, x)
+        prev = torch.where(active, chi2, prev)
+        chi2 = torch.where(active, new_chi2, chi2)
+        inl = torch.where(active[:, None], inl2, inl)
+        step = torch.where(active, step2, step)
+        it = it + active.to(torch.int32)
+    iters = it
+
+    # Phase 2: inlier-only refinement with collapse rejection.
+    prev, step = inf, inf
+    it = torch.zeros(B, dtype=torch.int32, device=dev)
+    for _ in range(config.refine_iterations):
+        active = keep_going(prev, chi2, step, it, 1, config)
+        x2, new_chi2, inl2, step2 = one_round(x, inl)
+        keep = torch.sum(inl2, dim=-1) >= config.min_num_inliers
+        upd = active & keep
+        x = torch.where(per_problem(upd, x), x2, x)
+        prev = torch.where(active, chi2, prev)
+        chi2 = torch.where(upd, new_chi2, chi2)
+        inl = torch.where(upd[:, None], inl2, inl)
+        step = torch.where(active, torch.where(keep, step2, 0.0), step)
+        it = it + active.to(torch.int32)
+
+    num_inliers = torch.sum(inl, dim=-1).to(torch.int32)
+    _, _, final_chi2, _ = linearize(x, inl)
+    return GNResult(
+        x=x,
+        chi2=final_chi2 / torch.clamp(num_inliers.to(torch.float32), min=1.0),
+        num_inliers=num_inliers,
+        num_iterations=iters,
+        inlier_mask=inl,
+        converged=num_inliers >= config.min_num_inliers,
+    )
+
+
+def gauss_newton(residual_fn: Callable, x0: torch.Tensor, data, mask: torch.Tensor,
+                 config: GNConfig, retract: Callable | None = None,
+                 diag_fn: Callable | None = None, state_dim: int | None = None) -> GNResult:
+    """Robust GN to convergence, then inlier-only refinement rounds.
+
+    residual_fn: (x, datum) -> (r (R,), J (R, D)) for one measurement,
+    mapped over the leading axis of `data` (a tuple of tensors, leading
+    dim N); mask (N,) bool selects the valid measurements; retract(x, dx
+    (D,)) -> x defaults to x + dx; diag_fn(x, datum, r) -> (R,) is the
+    diagonal information of one measurement (ones by default).  state_dim
+    is accepted for the JAX signature; D comes from the Jacobian."""
+    del state_dim
+    retract = retract or (lambda x, dx: x + dx)
+    vmap = torch.func.vmap
+    batched_res = vmap(residual_fn, in_dims=(None, 0))
+    batched_diag = None if diag_fn is None else vmap(diag_fn, in_dims=(None, 0, 0))
+    kernel = config.kernel_max_error
+
+    def linearize(x, extra_mask):
+        r, J = batched_res(x[0], data)  # (N, R), (N, R, D)
+        omega = torch.ones_like(r) if batched_diag is None else batched_diag(x[0], data, r)
+        chi2 = torch.sum(r * omega * r, dim=-1)
+        use = mask & extra_mask[0]
+        w_eff = _robust_weights(chi2, kernel) * use.to(r.dtype)
+        ow = omega * w_eff[:, None]
+        H = torch.einsum("nri,nr,nrj->ij", J, ow, J)
+        b = torch.einsum("nri,nr->i", J, ow * r)
+        inliers = (chi2 <= kernel) & use
+        return H[None], b[None], torch.sum(chi2 * w_eff)[None], inliers[None]
+
+    res = two_phase(linearize, x0[None], mask[None], config,
+                    retract=lambda x, dx: retract(x[0], dx[0])[None])
+    return GNResult(*(f[0] for f in res))

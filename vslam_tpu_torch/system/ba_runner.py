@@ -46,7 +46,7 @@ def build_window_problem(engine, window: int = WINDOW, omax: int = OMAX):
         return None
     kf_ids = [m.map_id for m in maps]
     P = len(maps)
-    table = engine.tracker.state.table
+    table = engine.tracker.table
     xyz_all = table.xyz_w.cpu().numpy()
     nup_all = table.n_updates.cpu().numpy()
 
@@ -184,9 +184,9 @@ def run_windowed_ba(engine, iterations: int | None = None) -> np.ndarray | None:
 
     tracker = engine.tracker
     # Landmark write-back (graph_optimizer.cpp:478-486).
-    tracker.state = tracker.state._replace(table=lm_mod.scatter_xyz(
-        tracker.state.table, prob.obs_cam.new_tensor(slots), xyz_opt,
-        torch.ones(len(slots), dtype=torch.bool, device=xyz_opt.device)))
+    tracker.table = lm_mod.scatter_xyz(
+        tracker.table, prob.obs_cam.new_tensor(slots), xyz_opt,
+        torch.ones(len(slots), dtype=torch.bool, device=xyz_opt.device))
 
     # Pose write-back with the delta gate (minimum_estimation_delta_for_
     # update_meters, graph_optimizer.cpp:430-450; the full matrix-
@@ -226,8 +226,7 @@ def run_windowed_ba(engine, iterations: int | None = None) -> np.ndarray | None:
         k = kf_ids[-1]
         C = torch.eye(4, dtype=torch.float32, device=xyz_opt.device).repeat(k + 2, 1, 1)
         C[k + 1] = torch.from_numpy(C_last).to(xyz_opt.device)
-        tracker.state = tracker.state._replace(
-            table=lm_mod.apply_kf_corrections(tracker.state.table, C))
+        tracker.table = lm_mod.apply_kf_corrections(tracker.table, C)
     tracker.apply_world_correction(C_last)
     if engine.world_map._last_T is not None:
         engine.world_map._last_T = (C_last @ engine.world_map._last_T).astype(np.float32)

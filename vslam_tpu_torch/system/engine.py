@@ -6,15 +6,19 @@ hierarchical pose graph and windowed bundle adjustment;
 owns the per-frame loop, the trajectory and the end-of-run report
 (printReport parity, slam_assembly.cpp:622-744).
 
-Keyframe snapshots are taken inside the per-frame device step and arrive
-as events at the tracker's drains (every frame on the CPU, every
-parallelism.frames_per_chunk frames on CUDA).  Closure work is pipelined
+With the fused tracker (the default), keyframe snapshots are taken inside
+the per-frame device step and arrive as events at the tracker's drains
+(every frame on the CPU, every parallelism.frames_per_chunk frames on
+CUDA).  Closure work is pipelined
 across drains as in the JAX engine: a drain's new local maps dispatch one
 query+insert program; their results are read at the next drain, voted
 on, and the survivors' ICP dispatched; the ICP verdicts are read at the
 drain after that and become closures — pose-graph optimization, rigid
 back-propagation of the corrections, landmark merging.  flush() resolves
-until nothing is in flight.  Open loop
+until nothing is in flight.  With the modular PoseTracker
+(tracking.use_fused_tracker: false) the engine triggers keyframes on the
+host after every frame and queries, verifies and applies each closure at
+once (_synchronous_keyframe_path).  Open loop
 (command_line.option_disable_relocalization) only fills the database.
 Under a torch.distributed process group every rank runs the engine on
 the same frames; the database search and the windowed BA are then
@@ -39,7 +43,7 @@ from vslam_tpu_torch.mapping.local_maps import WorldMap
 from vslam_tpu_torch.ops import camera as cam_ops
 from vslam_tpu_torch.parallel import mesh as mesh_mod
 from vslam_tpu_torch.tracking import fused
-from vslam_tpu_torch.tracking.tracker import FusedPoseTracker, KeyframeSnapshot
+from vslam_tpu_torch.tracking.tracker import FusedPoseTracker, KeyframeSnapshot, PoseTracker
 from vslam_tpu_torch.utils import log
 from vslam_tpu_torch.utils.device import DEFAULT_DEVICE
 
@@ -61,9 +65,6 @@ def _check_supported(cfg: ParameterCollection) -> None:
             "enable_full_bundle_adjustment with tracker_mode RGB_DEPTH: bundle "
             "adjustment reads keyframe observations as stereo [uL, vL, uR, vR], "
             "but RGB-D keyframes hold [u, v, depth, 0]")
-    if not cfg.tracking.use_fused_tracker:
-        raise NotImplementedError(
-            "the modular PoseTracker is not ported (ROADMAP: not to port)")
 
 
 class SlamEngine:
@@ -73,7 +74,9 @@ class SlamEngine:
         self.cfg = config or ParameterCollection()
         self.cfg.validate()
         _check_supported(self.cfg)
-        self.tracker = FusedPoseTracker(cam, self.cfg, landmark_capacity, device=device)
+        self.fused = self.cfg.tracking.use_fused_tracker
+        tracker_cls = FusedPoseTracker if self.fused else PoseTracker
+        self.tracker = tracker_cls(cam, self.cfg, landmark_capacity, device=device)
         self.cam = self.tracker.cam
         self.device = self.tracker.device
         wm = self.cfg.world_map
@@ -94,11 +97,17 @@ class SlamEngine:
             mesh = mesh_mod.make_mesh(None if n_mesh <= 1 else n_mesh)
         self.mesh = mesh
         self.landmark_mesh = mesh if par.shard_landmarks else None
-        # One query row per snapshot row: the snapshot width.
+        # One query row per snapshot row: the snapshot width (the modular
+        # path caps its snapshots at local_map.maximum_number_of_landmarks).
+        # Only the fused tracker has a snapshot archive for closure ICP;
+        # the modular path's ICP takes the local maps' host blocks.
         self.relocalizer = Relocalizer(
-            self.cfg.relocalization, query_cap=self.tracker.state.kf_desc.shape[1],
+            self.cfg.relocalization,
+            query_cap=(self.tracker.state.kf_desc.shape[1] if self.fused
+                       else self.cfg.local_map.maximum_number_of_landmarks),
             device=self.device, mesh=mesh if par.shard_descriptor_db else None)
-        self.relocalizer.ring_provider = self._ring_provider
+        if self.fused:
+            self.relocalizer.ring_provider = self._ring_provider
         self.open_loop = self.cfg.command_line.option_disable_relocalization
         # Pose-graph bookkeeping: one vertex per local-map keyframe.
         self.kf_poses: list[np.ndarray] = []
@@ -157,13 +166,20 @@ class SlamEngine:
             self._viz_ring[idx] = img_l
             self._viz_ring.pop(idx - VIZ_RING_FRAMES - 1, None)
         T = self.tracker.compute(img_l, img_r, odometry)
-        self._consume_keyframe_events()
+        if self.fused:
+            self._consume_keyframe_events()
+        else:
+            self._synchronous_keyframe_path()
         self._frame_times.append(time.perf_counter() - t0)
         return T
 
     def process_prestaged(self, staged) -> np.ndarray:
         """Dataset playback: step one handle of tracker.prestage(); keyframe
         events and closure work follow the drains exactly as in process()."""
+        if not self.fused:
+            raise ValueError("process_prestaged needs the fused tracker "
+                             "(tracking.use_fused_tracker: true); the modular "
+                             "PoseTracker takes frames through process()")
         t0 = time.perf_counter()
         T = self.tracker.compute_prestaged(staged)
         self._consume_keyframe_events()
@@ -171,7 +187,10 @@ class SlamEngine:
         return T
 
     def _flush_tracker(self):
-        """Drain the tracker and the closure pipeline to empty."""
+        """Drain the tracker and the closure pipeline to empty (the modular
+        path has nothing in flight)."""
+        if not self.fused:
+            return
         self.tracker.flush()
         self._consume_keyframe_events()
         while self._inflight_queries or self._inflight_icp:
@@ -239,6 +258,63 @@ class SlamEngine:
         if all_corr:
             with log.measure("landmark_merging"):
                 self._merge_correspondences(np.concatenate(all_corr))
+
+    def _synchronous_keyframe_path(self):
+        """The modular tracker's host-side keyframe trigger
+        (world_map.cpp:108-111): snapshot the live frame's landmark-backed
+        points, at most local_map.maximum_number_of_landmarks of them."""
+        tracker = self.tracker
+        T = tracker.T_world_cam
+        if not self.world_map.should_create_local_map(T):
+            return
+        # The trigger window restarts whether or not a local map forms;
+        # else it re-fires every frame while landmarks are too few.
+        self.world_map.note_trigger(T)
+        frame = tracker.prev_frame
+        if frame is None:
+            return
+        slots = frame.landmark_slot.cpu().numpy()
+        sel = frame.valid.cpu().numpy() & (slots >= 0)
+        if sel.sum() < self.cfg.local_map.minimum_number_of_landmarks:
+            return
+        rows = np.flatnonzero(sel)[:self.cfg.local_map.maximum_number_of_landmarks]
+        lm_slots = slots[rows]
+        idx = torch.from_numpy(lm_slots.astype(np.int64)).to(self.device)
+        snap = KeyframeSnapshot(
+            map_id=len(self.world_map.local_maps),
+            frame_idx=tracker.frame_idx - 1,
+            T_world_kf=T.copy(),
+            slots=lm_slots,
+            xyz_w=tracker.table.xyz_w[idx].cpu().numpy(),
+            desc=tracker.table.desc[idx].cpu().numpy(),
+            uv4=frame.uv4[torch.from_numpy(rows).to(self.device)].cpu().numpy(),
+        )
+        tracker.kf_count = snap.map_id + 1
+        self._handle_keyframe(snap)
+
+    def _handle_keyframe(self, snap: KeyframeSnapshot):
+        """Register the snapshot, then query, verify and apply its closure
+        at once."""
+        local_map = self._register_keyframe(snap)
+        if self.open_loop:
+            self.relocalizer.add_local_map(local_map)
+            return
+        with log.measure("relocalization"):
+            closure = self.relocalizer.resolve(self.relocalizer.submit(local_map))
+        if closure is not None:
+            self._apply_closure(closure)
+
+    def _apply_closure(self, closure):
+        """Record one closure, optimize if it disagrees with the estimate,
+        merge its landmark pairs (the pipelined path batches the three a
+        drain)."""
+        edge = self._record_closure(closure)
+        if self._closures_need_optimization([edge]):
+            with log.measure("pose_graph_optimization"):
+                self._optimize_pose_graph()
+        if len(closure.correspondences):
+            with log.measure("landmark_merging"):
+                self._merge_correspondences(np.asarray(closure.correspondences))
 
     def _register_keyframe(self, snap: KeyframeSnapshot):
         """Local-map creation + pose-graph vertex/odometry bookkeeping for
@@ -380,8 +456,8 @@ class SlamEngine:
                 opt_poses = opt_poses.copy()
                 opt_poses[small] = np.stack([self.kf_poses[k] for k in np.flatnonzero(small)])
 
-        tracker.state = tracker.state._replace(table=lm_mod.apply_kf_corrections(
-            tracker.state.table, torch.from_numpy(corrections).to(self.device)))
+        tracker.table = lm_mod.apply_kf_corrections(
+            tracker.table, torch.from_numpy(corrections).to(self.device))
 
         # Frame f belongs to the first keyframe with frame index >= f.
         traj = tracker.trajectory
@@ -413,8 +489,8 @@ class SlamEngine:
             corr = np.vectorize(lambda s: self._slot_remap.get(int(s), int(s)))(
                 corr).astype(np.int32)
             corr = corr[corr[:, 0] != corr[:, 1]]
-        table, remap = merging.merge_landmarks(tracker.state.table, tracker.allocator, corr)
-        tracker.state = tracker.state._replace(table=table)
+        table, remap = merging.merge_landmarks(tracker.table, tracker.allocator, corr)
+        tracker.table = table
         self.n_merges += len(remap)
         if not remap:
             return
@@ -425,12 +501,13 @@ class SlamEngine:
         for src, dst in remap.items():
             lut[src] = dst
         lut = lut[lut]
-        lut_dev = torch.from_numpy(lut).to(self.device)
-        prev = tracker.state.prev
-        slots = prev.landmark_slot
-        slots = torch.where(slots >= 0, lut_dev[torch.clamp(slots, min=0).to(torch.int64)],
-                            slots)
-        tracker.state = tracker.state._replace(prev=prev._replace(landmark_slot=slots))
+        prev = tracker.prev_frame
+        if prev is not None:
+            lut_dev = torch.from_numpy(lut).to(self.device)
+            slots = prev.landmark_slot
+            slots = torch.where(slots >= 0,
+                                lut_dev[torch.clamp(slots, min=0).to(torch.int64)], slots)
+            tracker.prev_frame = prev._replace(landmark_slot=slots)
         for m in self.world_map.local_maps:
             pos = m.landmark_slots >= 0
             m.landmark_slots = m.landmark_slots.copy()

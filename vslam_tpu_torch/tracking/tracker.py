@@ -1,9 +1,17 @@
-"""Per-frame stereo and RGB-D odometry (port of FusedPoseTracker,
-vslam_tpu/tracking/tracker.py): owns the device TrackerState, steps it
-once per frame, and harvests poses, statistics and keyframe snapshots
-from the device rings in batched readbacks.  World-frame corrections from
-the pose graph that land while frames are in flight are applied to those
-frames' poses and snapshots at harvest."""
+"""Per-frame stereo and RGB-D odometry (port of vslam_tpu/tracking/tracker.py).
+
+FusedPoseTracker, the production tracker, owns the device TrackerState,
+steps it once per frame, and harvests poses, statistics and keyframe
+snapshots from the device rings in batched readbacks.  World-frame
+corrections from the pose graph that land while frames are in flight are
+applied to those frames' poses and snapshots at harvest.
+
+PoseTracker is the modular reference (tracking.use_fused_tracker: false):
+the same front-end, pose solve and landmark programs called one at a time
+from a host state machine that reads a handful of scalars a frame (the
+registration ladder's verdicts, the spawn mask), with a host slot
+allocator and threshold controller.  The engine runs its keyframe and
+closure path synchronously after every frame."""
 
 from __future__ import annotations
 
@@ -13,8 +21,13 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from vslam_tpu_torch.frontend import depth as depth_mod
+from vslam_tpu_torch.frontend import detect
 from vslam_tpu_torch.io.config import ParameterCollection
+from vslam_tpu_torch.mapping import frame as frame_mod
+from vslam_tpu_torch.mapping import landmarks as lm_mod
 from vslam_tpu_torch.ops import camera as cam_ops
+from vslam_tpu_torch.ops import lie
 from vslam_tpu_torch.solve import gn
 from vslam_tpu_torch.tracking import fused
 from vslam_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
@@ -33,7 +46,9 @@ class KeyframeSnapshot:
     T_world_kf: np.ndarray  # (4, 4)
     slots: np.ndarray  # (n,) int32 landmark table slots
     xyz_w: np.ndarray  # (n, 3) landmark world positions at snapshot
-    desc: np.ndarray | None  # descriptors stay in the device ring (None)
+    # Descriptors stay in the device ring (None); the modular tracker's
+    # snapshots carry a host copy.
+    desc: np.ndarray | None
     uv4: np.ndarray  # (n, 4) keyframe observations (stereo or [u, v, z, 0])
     ring_row: int = -1  # device snapshot-ring row
 
@@ -159,13 +174,246 @@ def params_from_config(cam: cam_ops.CameraParams, config: ParameterCollection,
         kf_min_frames=config.world_map.minimum_number_of_frames_for_local_map,
         kf_min_landmarks=config.local_map.minimum_number_of_landmarks,
         kf_max_landmarks=min(config.local_map.maximum_number_of_landmarks, fp.capacity),
-        gn_config=gn.GNConfig(
-            max_iterations=tr.aligner_maximum_number_of_iterations,
-            kernel_max_error=tr.aligner_maximum_error_kernel,
-            damping=tr.aligner_damping,
-            min_num_inliers=tr.aligner_minimum_number_of_inliers,
-        ),
+        gn_config=_gn_config(tr),
     )
+
+
+def _gn_config(tr) -> gn.GNConfig:
+    return gn.GNConfig(
+        max_iterations=tr.aligner_maximum_number_of_iterations,
+        kernel_max_error=tr.aligner_maximum_error_kernel,
+        damping=tr.aligner_damping,
+        min_num_inliers=tr.aligner_minimum_number_of_inliers,
+    )
+
+
+class PoseTracker:
+    """Modular per-frame stereo or RGB-D odometry (reference
+    pose_tracker_3d.cpp): motion-model guess, Localizing / Tracking,
+    registration with the adaptive-search retry ladder (_registerRecursive,
+    :300-419), adaptive tracking window and descriptor gate (:251-288),
+    landmark creation and update (:475-549) and the fallback estimate
+    (:551-566).  The O(N) math runs on the device; each retry attempt and
+    each frame's spawn read a few scalars and masks to the host, as the
+    JAX package's PoseTracker does.  The pose is exact after every frame
+    (no pipelining), so the engine's keyframe path runs synchronously."""
+
+    def __init__(self, cam: cam_ops.CameraParams, config: ParameterCollection,
+                 landmark_capacity: int = 65536, device=DEFAULT_DEVICE):
+        self.device = resolve_device(device)
+        self.cam = cam_ops.to_device(cam, self.device)
+        self.cfg = config
+        fp, tr = config.framepoint_generation, config.tracking
+        self.capacity = fp.capacity
+        n_cells = (cam.rows // fp.bin_size_pixels) * (cam.cols // fp.bin_size_pixels)
+        # The target stays below the capacity: detected counts are clipped
+        # at it, and a target above would pin the threshold at its minimum.
+        self.controller = detect.ThresholdController(
+            initial=fp.detector_threshold_starting_value,
+            target_count=min(int(n_cells * 0.7), int(fp.capacity * 0.7)),
+            max_change=fp.detector_threshold_maximum_change,
+            minimum=fp.detector_threshold_minimum,
+            maximum=fp.detector_threshold_maximum,
+        )
+        self.gn_config = _gn_config(tr)
+        # Adaptive search state (pose_tracker_3d.cpp:251-288).
+        self.radius_px = float(tr.minimum_threshold_distance_tracking_pixels)
+        self.desc_gate = float(fp.matching_distance_tracking_threshold)
+        self.table = lm_mod.empty_table(landmark_capacity, self.device)
+        self.allocator = lm_mod.SlotAllocator(landmark_capacity)
+        self.mode = "depth" if config.command_line.tracker_mode == "RGB_DEPTH" else "stereo"
+        self.depth_calib = _depth_calibration(fp, self.device)
+        self.status = LOCALIZING
+        self.prev_frame: frame_mod.FrameState | None = None
+        self.T_world_cam = np.eye(4, dtype=np.float32)
+        self.last_motion = np.eye(4, dtype=np.float32)  # T_cur_prev
+        self.frame_idx = 0
+        self.stats = TrackerStats()
+        self.trajectory: list[np.ndarray] = []
+        # Local map that newly spawned landmarks belong to; the engine
+        # bumps it when it creates a local map.
+        self.kf_count = 0
+        self._break_frames: list[int] = []
+
+    @property
+    def n_frames_in(self) -> int:
+        return self.frame_idx
+
+    def _scalar(self, v, dtype=torch.float32) -> torch.Tensor:
+        return torch.tensor(v, dtype=dtype, device=self.device)
+
+    def _front_end(self, img_l, img_r):
+        """img_r: the right image in stereo mode, the depth map in meters
+        in depth mode (registered to the intensity camera here when the
+        configuration gives the depth sensor's calibration)."""
+        fp = self.cfg.framepoint_generation
+        img_l = torch.as_tensor(np.asarray(img_l, np.float32)).to(self.device)
+        img_r = torch.as_tensor(np.asarray(img_r, np.float32)).to(self.device)
+        threshold = self._scalar(self.controller.threshold)
+        common = dict(capacity=fp.capacity, bin_size=fp.bin_size_pixels,
+                      border=fp.border_pixels, descriptor=fp.descriptor_type,
+                      detector=fp.detector_type, octaves=fp.detector_number_of_octaves)
+        if self.mode == "stereo":
+            frame, n_kp, n_fp = frame_mod.process_stereo_pair(
+                self.cam, img_l, img_r, threshold,
+                fp.maximum_matching_distance_triangulation,
+                fp.maximum_epipolar_search_offset_pixels,
+                fp.minimum_disparity_pixels, fp.maximum_disparity_pixels, **common)
+        else:
+            if self.depth_calib is not None:
+                img_r = depth_mod.register_depth(self.cam, img_r, *self.depth_calib)
+            frame, n_kp, n_fp = frame_mod.process_depth_frame(
+                self.cam, img_l, img_r, threshold, fp.minimum_depth_meters,
+                fp.maximum_depth_meters, **common)
+        n_kp = int(n_kp)
+        self.controller.update(n_kp)
+        return frame, n_kp, int(n_fp)
+
+    def _register(self, cur_frame, T_guess):
+        """Registration with adaptive retries (_registerRecursive: up to two
+        retries with a widened window, the last from the identity)."""
+        tr = self.cfg.tracking
+        weights = lm_mod.landmark_weights(self.table, self.prev_frame.landmark_slot)
+        attempts = [
+            (self.radius_px, self.desc_gate, T_guess),
+            (min(2.0 * self.radius_px, tr.maximum_distance_tracking_pixels),
+             min(self.desc_gate + 10, 90.0), T_guess),
+            (tr.maximum_distance_tracking_pixels, 90.0, np.eye(4, dtype=np.float32)),
+        ]
+        track_fn = (frame_mod.track_and_align if self.mode == "stereo"
+                    else frame_mod.track_and_align_uvd)
+        for radius, gate, guess in attempts:
+            res = track_fn(self.cam, self.prev_frame, cur_frame,
+                           torch.from_numpy(np.asarray(guess, np.float32)).to(self.device),
+                           self._scalar(radius), self._scalar(int(gate), torch.int32),
+                           weights, self.gn_config)
+            n_inl = int(res.n_inliers)
+            inl_ratio = n_inl / max(int(res.n_matches), 1)
+            if (bool(res.converged) and n_inl >= tr.aligner_minimum_number_of_inliers
+                    and inl_ratio >= tr.aligner_minimum_inlier_ratio):
+                return res, True
+        return res, False
+
+    def _adapt_search(self, tracking_ratio: float):
+        """Widen the window when tracking is poor, narrow it when strong
+        (pose_tracker_3d.cpp:251-288)."""
+        tr = self.cfg.tracking
+        if tracking_ratio < tr.good_tracking_ratio:
+            self.radius_px = min(self.radius_px * 1.2, tr.maximum_distance_tracking_pixels)
+            self.desc_gate = min(self.desc_gate + 5, 90.0)
+        else:
+            self.radius_px = max(self.radius_px * 0.95,
+                                 tr.minimum_threshold_distance_tracking_pixels)
+            self.desc_gate = max(self.desc_gate - 1,
+                                 self.cfg.framepoint_generation.matching_distance_tracking_threshold)
+
+    def _spawn_and_update_landmarks(self, cur_frame):
+        """Create landmarks for mature reliable tracks, then refine every
+        observed one (_updatePoints, pose_tracker_3d.cpp:475-549)."""
+        tr = self.cfg.tracking
+        needs = (cur_frame.valid & cur_frame.reliable & (cur_frame.landmark_slot < 0)
+                 & (cur_frame.track_len >= tr.minimum_track_length_for_landmark_creation))
+        rows = np.flatnonzero(needs.cpu().numpy())
+        T_wc = torch.from_numpy(self.T_world_cam).to(self.device)
+        if len(rows):
+            slots = self.allocator.allocate(len(rows))
+            ok = slots >= 0
+            rows, slots = rows[ok], slots[ok]
+            if len(rows):
+                # One fixed-capacity assignment array for every frame.
+                assigned = np.full(self.capacity, -1, np.int32)
+                assigned[rows] = slots
+                assigned_dev = torch.from_numpy(assigned).to(self.device)
+                self.table = lm_mod.spawn_landmarks(
+                    self.table, assigned_dev,
+                    lie.transform_point_cloud(T_wc, cur_frame.p_cam), cur_frame.desc,
+                    self.frame_idx, origin_kf=self.kf_count)
+                self.stats.n_spawned += len(rows)
+                cur_frame = cur_frame._replace(landmark_slot=torch.where(
+                    assigned_dev >= 0, assigned_dev, cur_frame.landmark_slot))
+        self.table = lm_mod.update_observed(
+            self.cam, self.table, T_wc, cur_frame.landmark_slot, cur_frame.uv4,
+            cur_frame.desc, cur_frame.valid, self.frame_idx, mode=self.mode)
+        return cur_frame
+
+    def compute(self, img_l: np.ndarray, img_r: np.ndarray,
+                odometry: np.ndarray | None = None) -> np.ndarray:
+        """Process one frame (the stereo pair, or the intensity image and
+        the depth map in meters); returns T_world_cam (4, 4).
+
+        odometry: an external motion guess T_cur_prev (the CAMERA_ODOMETRY
+        motion model, pose_tracker_3d.cpp:41-66)."""
+        tr = self.cfg.tracking
+        t0 = time.perf_counter()
+        cur_frame, n_kp, n_fp = self._front_end(img_l, img_r)
+        self.stats.add_time("frontend", time.perf_counter() - t0)
+        self.stats.n_keypoints += n_kp
+        self.stats.n_framepoints += n_fp
+
+        if self.prev_frame is None:
+            self.status = LOCALIZING
+            if self.frame_idx > 0 and tr.motion_model == "CONSTANT_VELOCITY":
+                # Re-seeding mid-run (checkpoint resume): dead-reckon one
+                # step so the trajectory stays continuous.
+                self.T_world_cam = (self.T_world_cam
+                                    @ np.linalg.inv(self.last_motion)).astype(np.float32)
+            self.prev_frame = self._spawn_and_update_landmarks(cur_frame)
+            self._finish_frame()
+            return self.T_world_cam
+
+        if odometry is not None and (tr.motion_model == "CAMERA_ODOMETRY"
+                                     or self.cfg.command_line.option_use_odometry):
+            T_guess = np.asarray(odometry, np.float32)
+        elif tr.motion_model == "CONSTANT_VELOCITY":
+            T_guess = self.last_motion
+        else:
+            T_guess = np.eye(4, dtype=np.float32)
+
+        t0 = time.perf_counter()
+        res, ok = self._register(cur_frame, T_guess)
+        self.stats.add_time("tracking", time.perf_counter() - t0)
+
+        n_prev = int(self.prev_frame.valid.sum())
+        n_matches = int(res.n_matches)
+        ratio = n_matches / max(n_prev, 1)
+        self.stats.n_tracked_points += n_matches
+        self.stats.n_inliers += int(res.n_inliers)
+        self.stats.tracking_ratio = ratio
+        if ok:
+            motion = res.T_cur_prev.cpu().numpy()
+            self.status = TRACKING
+        else:
+            # Dead-reckon on the motion model and re-root the tracks
+            # (breakTrack, world_map.cpp:260-279).
+            motion = T_guess
+            self.status = LOCALIZING
+            self.stats.n_breaks += 1
+            self._break_frames.append(self.frame_idx)
+        self.T_world_cam = (self.T_world_cam @ np.linalg.inv(motion)).astype(np.float32)
+        self.last_motion = motion.astype(np.float32)
+
+        t0 = time.perf_counter()
+        if ok:
+            cur_frame = frame_mod.propagate_tracks(self.prev_frame, cur_frame, res.prev_to_cur)
+            cur_frame, _ = frame_mod.promote_temporary_points(
+                self.cam, self.prev_frame, cur_frame, res.T_cur_prev, res.prev_to_cur)
+        cur_frame = self._spawn_and_update_landmarks(cur_frame)
+        self.stats.add_time("mapping", time.perf_counter() - t0)
+
+        self._adapt_search(ratio)
+        self.prev_frame = cur_frame
+        self._finish_frame()
+        return self.T_world_cam
+
+    def _finish_frame(self):
+        self.trajectory.append(self.T_world_cam.copy())
+        self.frame_idx += 1
+        self.stats.n_frames += 1
+
+    def apply_world_correction(self, C: np.ndarray):
+        """Left-multiply a world-frame correction onto the live pose (the
+        pose graph's or BA's newest segment); nothing is in flight."""
+        self.T_world_cam = (np.asarray(C, np.float32) @ self.T_world_cam).astype(np.float32)
 
 
 class FusedPoseTracker:
@@ -229,6 +477,22 @@ class FusedPoseTracker:
     def status(self) -> str:
         """Localizing / Tracking after the last harvested frame."""
         return self._last_status
+
+    @property
+    def table(self) -> lm_mod.LandmarkTable:
+        return self.state.table
+
+    @table.setter
+    def table(self, t: lm_mod.LandmarkTable):
+        self.state = self.state._replace(table=t)
+
+    @property
+    def prev_frame(self) -> frame_mod.FrameState:
+        return self.state.prev
+
+    @prev_frame.setter
+    def prev_frame(self, f: frame_mod.FrameState):
+        self.state = self.state._replace(prev=f)
 
     def compute(self, img_l: np.ndarray, img_r: np.ndarray,
                 odometry: np.ndarray | None = None) -> np.ndarray:

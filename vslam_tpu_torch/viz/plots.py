@@ -95,7 +95,7 @@ def dump_run(engine, out_dir: str, ground_truth: np.ndarray | None = None):
     """Write the standard post-run artifact set for an engine."""
     os.makedirs(out_dir, exist_ok=True)
     traj = engine.trajectory  # flushes the device pipeline
-    table = engine.tracker.state.table
+    table = engine.tracker.table
     lms = table.xyz_w[table.valid].cpu().numpy()
     maps = engine.world_map.local_maps
     kfs = np.stack([m.T_world_kf for m in maps]) if maps else None
