@@ -48,7 +48,7 @@ Phases (each raises on failure; the exit code is then non-zero):
                   circle; K4 32 and K2 1 launches per frame, K1 and K3 0,
                   0 breaks, ATE <= 0.05 m, local maps within +-15% of the
                   JAX engine's on a CPU;
-               each slice's first frames (8, 4, 2) agree with the same
+               each slice's first frames (4, 2, 2) agree with the same
                engine on the CPU within 1e-3 m;
   7. closed  — SlamEngine in closed-loop mode (relocalization, closure
                ICP, pose graph, landmark merging; BA off), the workload
@@ -70,7 +70,7 @@ Phases (each raises on failure; the exit code is then non-zero):
                from disk) rendered as (intensity, depth) with the world
                scaled by 1/10; 32 K3 launches and no K1/K2/K4, 0
                breaks, ATE <= 0.05 m, local maps within +-15% of the JAX
-               engine's on a CPU; the first 4 frames agree with the CPU
+               engine's on a CPU; the first 2 frames agree with the CPU
                within 1e-3 m;
  10. xtion-config — configurations/configuration_xtion.yaml as shipped
                (RGB-D, FAST + ORB256, bin 12, bilateral depth filtering,
@@ -78,7 +78,7 @@ Phases (each raises on failure; the exit code is then non-zero):
                frames of a 128-frame circle); no K1/K2/K3/K4 launch
                (ORB256 is a gather, not a kernel), 0 breaks, ATE <= 0.05 m,
                local maps within +-15% of the JAX engine's on a CPU; the
-               first 4 frames agree with the CPU within 1e-3 m.  The depth
+               first 2 frames agree with the CPU within 1e-3 m.  The depth
                goes in as meters: the configuration's millimeter scale
                (depth_scale_factor_intensity_to_meters) is read only by the
                dataset loaders and the command line, which this phase
@@ -91,7 +91,7 @@ Phases (each raises on failure; the exit code is then non-zero):
                <= 0.1% of the bits differing; then configuration_kitti.yaml
                with detector_type DOG, open loop, on phase 6b's 32 frames:
                0 breaks, ATE <= 0.05 m, local maps
-               within +-15% of the JAX engine's on a CPU, the first 4
+               within +-15% of the JAX engine's on a CPU, the first 2
                frames within 1e-3 m of the CPU.
  12. kitti-disk — phase 6b's whole 64-frame circle written as a KITTI odometry
                directory (image_0/ and image_1/ 8-bit PNGs through stdlib
@@ -128,7 +128,7 @@ Phases (each raises on failure; the exit code is then non-zero):
                split front-end): one K1 launch for the 32-frame chunk over
                its 64 images (B = 64) and no other, 0 breaks, ATE <= 0.05 m,
                local maps within +-15% of the JAX engine's split run on a CPU;
-               the first 8 frames within 1e-3 m of the CPU at the same chunk;
+               the first 4 frames within 1e-3 m of the CPU at the same chunk;
                K1 at (64, 376, 1241) bit-equal to its plain version, timed;
                ms/frame and peak memory beside phase 6a's;
  16. kitti-split — phase 6b's 32 frames with the split front-end: one K2 launch
@@ -163,12 +163,34 @@ Phases (each raises on failure; the exit code is then non-zero):
                three closures pass the residual gate), > 0 merged
                landmarks; ms/frame, peak device memory and the closure
                stages' timings.
-The phases run in the order 1-5, 6a, 6b, 15, 16, 18, 6c, 7, 8, 20, 9-14,
-17, 19: phases 15-16 next to the runs they are compared with.
+ 21. device-program — the fused tracker's FrameProgram (make_frame_step:
+               the state in static buffers, one captured CUDA graph a frame,
+               replayed) against the eager fused.step, side by side from the
+               same start on phase 7's first 64 frames: after every frame
+               every state tensor equal bit for bit, every replay under
+               torch.cuda.set_sync_debug_mode("error") (a synchronization
+               inside a frame raises), each replay counting its capture's
+               launches (one K1 a frame); ms/frame of both paths, the host's
+               enqueue time of a replay, device-busy ms and kernels a replay
+               (torch.profiler over 8 replays), ms a replay by CUDA events,
+               the capture's seconds and peak memory; then the same
+               equality on 4 frames of each other captured route
+               (kitti-config, euroc-config, tum-config, xtion-config) and
+               of the split front-end's tails (TrackProgram, make_track_step,
+               on one 4-frame chunk of phase 6a's frames); and, after phase
+               19, whether torch.cond under stream capture becomes a CUDA
+               conditional node (the ladder's alternative).
+Every run of the fused tracker (phases 6-17) steps through that program
+(phases 15-16: the chunk's front-end eagerly, then each frame's tail as
+a replay): each replay adds its capture's launches to the counts.  Phase
+20 (the modular tracker) runs eagerly, as its JAX counterpart does.  Phases 7 and 8 are also held to the events and ATE this
+script printed before the program existed (CARD_CLOSED, CARD_BA_CLOSED).
+The phases run in the order 1-5, 21, 6a, 6b, 15, 16, 18, 6c, 7, 8, 20,
+9-14, 17, 19: phases 15-16 next to the runs they are compared with.
 The JAX counts printed beside phases 6-11, 15-16 and 20 come from
 chip_smoke_jax_reference.py.  The script then prints its wall time, the
 kernel record (one JSON line: launches summed over the runs of phases
-6-10, 12-16 and 20, bit-equality, times, bound, share of the bound,
+6-10, 12-16, 20 and 21, bit-equality, times, bound, share of the bound,
 shared-load floor, blocks per SM, loads a pixel; K3's times at 480x640;
 K1 and K2 at the split chunk's B = 64 as entries of their own), the card's name
 and power limit (nvidia-smi), and last {"ok": true, "device": {...}}.
@@ -197,7 +219,9 @@ LOCAL_MAPS = (36, 48)  # phases 7-8: 128 frames, JAX's 42
 # Phase 6a runs the first half of the bench's circle; phases 7-8 run all
 # of it through the same K1 path.
 K1_SLICE_FRAMES = 64
+# The first frames of each slice held to the CPU.
 CPU_CHECK_FRAMES = 8
+KITTI_CPU_FRAMES = 4
 TUM_CPU_FRAMES = 4
 # Phase 6b's world: 7,000 points around a 64-frame 13 m circle at KITTI
 # resolution.  Phases 6b and 11 run its first half; phase 12 runs all of
@@ -266,6 +290,13 @@ JAX_CPU_CLOSED_LOOP = {"n_local_maps": 42, "n_closures": 3, "n_optimizations": 1
 JAX_CPU_BA_CLOSED = {"n_local_maps": 42, "n_closures": 3, "n_optimizations": 1,
                      "n_merged_landmarks": 82, "n_track_breaks": 0, "n_ba_runs": 2,
                      "ate_m": 0.0422, "db_rows": 7242, "closures": [(39, 0), (40, 0), (41, 0)]}
+# Phases 7 and 8 on the card before the fused tracker ran as a replayed
+# graph (the eager step with the retry ladder, the snapshot and the
+# eviction decided on the host): the program must give the same events
+# and ATE.
+CARD_CLOSED = {"n_local_maps": 42, "n_optimizations": 1, "n_merged_landmarks": 82,
+               "ate_m": 0.0286, "closures": [(39, 0), (40, 0), (41, 0)]}
+CARD_BA_CLOSED = {"n_ba_runs": 2, "ate_m": 0.0292}
 JAX_CPU_TUM = {"n_local_maps": 10, "n_closures": 0, "n_optimizations": 0,
                "n_merged_landmarks": 0, "n_track_breaks": 0, "ate_m": 0.0078, "db_rows": 2723}
 JAX_CPU_XTION = {"n_local_maps": 31, "n_closures": 0, "n_optimizations": 0,
@@ -290,6 +321,13 @@ JAX_CPU_EUROC = {"n_local_maps": 7, "n_track_breaks": 0, "ate_m": 0.0318}
 JAX_CPU_MODULAR_CLOSED = {"n_local_maps": 42, "n_closures": 3, "n_optimizations": 0,
                           "n_merged_landmarks": 69, "n_track_breaks": 0, "ate_m": 0.0112,
                           "db_rows": 7149, "closures": [(39, 0), (40, 0), (41, 0)]}
+# Phase 21 (device-program): the closed loop's first frames through the
+# eager step and the FrameProgram side by side; each other captured route
+# for PROGRAM_ROUTE_FRAMES frames (one eager, a capture, replays); device
+# time profiled over PROFILED_REPLAYS replays.
+DEVICE_PROGRAM_FRAMES = 64
+PROGRAM_ROUTE_FRAMES = 4
+PROFILED_REPLAYS = 8
 FLOAT_DETECTORS = ("HARRIS", "GFTT", "DOG", "KAZE")
 CLOSURE_STAGES = ("relocalization", "reloc_vote_icp", "pose_graph_optimization",
                   "pg_solve", "pg_propagate", "landmark_merging")
@@ -644,13 +682,17 @@ def phase_kitti_config(card):
     print(f"[kitti-config] the JAX engine on a CPU: {JAX_CPU_KITTI_CONFIG}")
     return drive_slice("kitti-config", cam, kitti_config(load_config), gt, frames,
                        {"K1": 0, "K2": KITTI_SLICE_FRAMES, "K3": 2 * KITTI_SLICE_FRAMES, "K4": 0},
-                       within_15_percent(JAX_CPU_KITTI_CONFIG["n_local_maps"]), 4, card)
+                       within_15_percent(JAX_CPU_KITTI_CONFIG["n_local_maps"]),
+                       KITTI_CPU_FRAMES, card)
 
 
-def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card, record=None):
+def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card_before, card,
+                      record=None):
     """A closed-loop engine run on the card through tracker.prestage +
     process_prestaged, the launch counts zeroed just before it and read
-    just after; checked against phase 7's limits.  With BA on it also
+    just after; checked against phase 7's limits and held to the events
+    and ATE of card_before (the card's run before the program).  With BA
+    on it also
     requires >= 1 BA run and prints each BA problem's size and the BA
     stage.  Returns the launch counts.  `record` (a dict) receives the
     inputs of every closure ICP batch ("icp": (data, mask, T0, config)),
@@ -744,6 +786,13 @@ def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card, record=None
                              f"{rep['n_merged_landmarks']} merged landmarks")
     if ba_on and not rep["n_ba_runs"] >= 1:
         raise AssertionError(f"{label}: bundle adjustment never ran")
+    got["n_ba_runs"] = rep["n_ba_runs"]
+    before = {k: got[k] for k in card_before}
+    if before != card_before:
+        raise AssertionError(f"{label}: {before}, the card gave {card_before} before the "
+                             "fused tracker ran as a replayed graph")
+    print(f"[{label}] the events and ATE of the card's eager run before the program: "
+          f"{card_before}; {rep['tracker_step']}")
     return counts
 
 
@@ -856,6 +905,245 @@ def phase_xtion(card):
                        within_15_percent(JAX_CPU_XTION["n_local_maps"]), TUM_CPU_FRAMES, card)
 
 
+# The kernels' symbols in their sources: K1's, and the one dense-BRIEF
+# kernel that K2, K3 and K4 launch with different tables.
+KERNEL_SYMBOLS = {"K1": "fast_brief_tile_kernel", "K2-K4": "dense_brief_kernel"}
+
+
+def profiled_replays(label, prog, inputs):
+    """Replays prog once for each frame of inputs under torch.profiler and
+    counts, in the device's own kernel records, the kernels of K1 and of
+    K2-K4 by name.  Each must equal the launches that the wrappers'
+    counters add for those replays (the capture's counts, once a replay),
+    so the counts the smoke reports are launches the card made.  Returns
+    the CUDA kernel records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    before = read_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for imgs in inputs:
+            prog.run(imgs)
+        torch.cuda.synchronize()
+    added = {k: read_counts()[k] - before[k] for k in before}
+    # The raw kineto records: building prof.events() for ~900,000 kernels
+    # takes the host ~4x longer (78 s against 22 s on an H100 host).
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
+    seen = {k: sum(sym in e.name() for e in kernels) for k, sym in KERNEL_SYMBOLS.items()}
+    want = {"K1": added["K1"], "K2-K4": added["K2"] + added["K3"] + added["K4"]}
+    if seen != want or not kernels:
+        raise AssertionError(f"[{label}] {len(inputs)} replays ran {seen} kernels by name, "
+                             f"the counters added {want}")
+    print(f"[{label}] {len(inputs)} profiled replays: {seen} kernels by name in the "
+          f"device's records, as the counters added")
+    return kernels
+
+
+def program_parity(label, cam, cfg, frames, card, measure=False):
+    """The eager fused.step and the FrameProgram side by side on the card
+    from the same start: after every frame every state tensor must be
+    equal bit for bit.  The program's first frame runs eagerly, then it is
+    captured, and every replay runs under torch.cuda.set_sync_debug_mode
+    ("error"), so a synchronization inside a frame raises.  With measure,
+    prints ms/frame of both paths, the host's enqueue time of a replay,
+    device-busy ms and kernels a replay (torch.profiler), the capture's
+    seconds and peak memory.  Returns the launch counts of the program's
+    frames (its replays' included)."""
+    from vslam_tpu_torch.tracking import fused
+    from vslam_tpu_torch.tracking import tracker as ttr
+
+    dev = torch.device("cuda")
+    params = ttr.params_from_config(cam, cfg, dev)
+    fp, tr = cfg.framepoint_generation, cfg.tracking
+    motion_on = tr.motion_model == "CONSTANT_VELOCITY"
+    calib = ttr._depth_calibration(fp, dev)
+    dtype = np.uint8 if params.mode == "stereo" else np.float32
+    staged = torch.from_numpy(np.stack([np.stack(f) for f in frames]).astype(dtype)).to(dev)
+    thr0 = fp.detector_threshold_starting_value
+    eager = fused.init_state(cam, params, 65536, thr0)
+    prog = fused.make_frame_step(cam, params, fused.init_state(cam, params, 65536, thr0),
+                                 motion_on, staged.dtype, depth_calib=calib)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    prog_counts = dict.fromkeys(read_counts(), 0)
+    eager_ms, prog_ms, enqueue_ms = [], [], []
+    for i, imgs in enumerate(staged):
+        t0 = time.perf_counter()
+        eager = fused.step(cam, params, eager, imgs, motion_on, None, calib)
+        torch.cuda.synchronize()
+        eager_ms.append(1e3 * (time.perf_counter() - t0))
+        if i == 1:
+            prog.capture()
+        launches_before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            prog.run(imgs)
+            t1 = time.perf_counter()
+        else:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                prog.run(imgs)
+                t1 = time.perf_counter()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        prog_ms.append(1e3 * (time.perf_counter() - t0))
+        enqueue_ms.append(1e3 * (t1 - t0))
+        frame_counts = {k: read_counts()[k] - launches_before[k] for k in launches_before}
+        if i == 0:
+            first = frame_counts
+        elif frame_counts != first:
+            raise AssertionError(f"[{label}] frame {i}: the replay counted {frame_counts} "
+                                 f"launches, its eager first frame {first}")
+        prog_counts = {k: prog_counts[k] + frame_counts[k] for k in prog_counts}
+        for (name, a), (_, b) in zip(fused.state_tensors(eager), fused.state_tensors(prog.state)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"[{label}] frame {i}: state {name} of the program "
+                                     f"differs from the eager step's")
+    counts = prog_counts
+    print(f"[{label}] {len(frames)} frames: every state tensor of the program equal to the "
+          f"eager step's after every frame, no synchronization inside a replay; the "
+          f"program's launches {counts}; capture {prog.capture_seconds:.2f} s")
+    if not measure:
+        profiled_replays(label, prog, staged[:2])
+        return counts
+    steady = slice(2, None)  # past the eager first frame and the capture
+    e_ms, p_ms = statistics.median(eager_ms[steady]), statistics.median(prog_ms[steady])
+    q_ms = statistics.median(enqueue_ms[steady])
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for i in range(PROFILED_REPLAYS):
+        prog.run(staged[i])
+    end.record()
+    torch.cuda.synchronize()
+    replay_ms = start.elapsed_time(end) / PROFILED_REPLAYS
+    t0 = time.perf_counter()
+    kernels = profiled_replays(label, prog, staged[:PROFILED_REPLAYS])
+    busy_us = sum(e.duration_ns() for e in kernels) / 1e3
+    print(f"[{label}] profiling {PROFILED_REPLAYS} replays took "
+          f"{time.perf_counter() - t0:.1f} s of host time")
+    print(f"[{label}] eager step {e_ms:.2f} ms/frame, program {p_ms:.2f} ms/frame (median "
+          f"of frames 2-{len(frames) - 1}, synchronized); host enqueue of one replay "
+          f"{q_ms:.3f} ms; device busy {busy_us / 1e3 / PROFILED_REPLAYS:.2f} ms a replay "
+          f"and {len(kernels) / PROFILED_REPLAYS:.0f} kernels a replay (torch.profiler over "
+          f"{PROFILED_REPLAYS} replays), {replay_ms:.2f} ms a replay by CUDA events over "
+          f"{PROFILED_REPLAYS} replays back to back; capture {prog.capture_seconds:.2f} s; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card})")
+    return counts
+
+
+def split_program_parity(cam, cfg, frames, card):
+    """The split front-end's route: one chunk's front-end (chunk_front_end)
+    and then, frame by frame, the eager track_step beside the
+    TrackProgram's replays (make_track_step, under sync debug "error"
+    from the second frame), every state tensor equal after every frame.
+    Returns the program's launch counts (its tails launch no kernel)."""
+    from vslam_tpu_torch.tracking import fused
+    from vslam_tpu_torch.tracking import tracker as ttr
+
+    label = "device-program k1-split"
+    dev = torch.device("cuda")
+    params = ttr.params_from_config(cam, cfg, dev)
+    thr0 = cfg.framepoint_generation.detector_threshold_starting_value
+    chunk = torch.from_numpy(np.stack([np.stack(f) for f in frames]).astype(np.uint8)).to(dev)
+    eager = fused.init_state(cam, params, 65536, thr0)
+    prog = fused.make_track_step(cam, params, fused.init_state(cam, params, 65536, thr0), True)
+    reset_counts()
+    imgs = fused._chunk_images(cam, params, chunk)
+    front = fused.chunk_front_end(cam, params, eager.threshold.clone(), imgs)
+    front_counts = read_counts()
+    for i in range(len(frames)):
+        eager = fused.track_step(cam, params, eager, *front, imgs, i, True)
+        if i == 1:
+            prog.capture()
+        if i > 0:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            prog.run(front, imgs, i)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for (name, a), (_, b) in zip(fused.state_tensors(eager), fused.state_tensors(prog.state)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"[{label}] frame {i}: state {name} of the program "
+                                     f"differs from the eager track_step's")
+    counts = {k: read_counts()[k] - front_counts[k] for k in front_counts}
+    print(f"[{label}] one {len(frames)}-frame chunk: every state tensor of the track "
+          f"program equal to the eager track_step's after every frame, no synchronization "
+          f"inside a replay; the tails' launches {counts} (the chunk's front-end "
+          f"{front_counts}); capture {prog.capture_seconds:.2f} s ({card})")
+    return counts
+
+
+def cond_capture_probe() -> str:
+    """Whether torch.cond under stream capture becomes a CUDA conditional
+    (IF) node, so that a replay runs only the branch its predicate picks
+    (the JAX package's lax.cond).  The fused step's retry ladder would use
+    it; it runs the attempts as one batched solve and selects with
+    torch.where instead (tracking/fused.py::_register).
+    A failed capture is this probe's answer, so it is caught here."""
+    x = torch.arange(1024, dtype=torch.float32, device="cuda")
+    pred = torch.ones((), dtype=torch.bool, device="cuda")
+
+    def taken(v):
+        return v * 2.0
+
+    def other(v):
+        return v - 1.0
+
+    torch.cond(pred, taken, other, (x,))  # eager: traces the branches
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            out = torch.cond(pred, taken, other, (x,))
+    except Exception as exc:  # noqa: BLE001  (the probe reports any failure)
+        return f"no, the capture fails ({type(exc).__name__})"
+    follows = []
+    for p in (True, False):
+        pred.fill_(p)
+        graph.replay()
+        follows.append(torch.equal(out, taken(x) if p else other(x)))
+    return "yes" if all(follows) else "no, the replay ignores the predicate"
+
+
+def phase_device_program(cam, cfg, frames, card):
+    """Phase 21: the closed loop's first DEVICE_PROGRAM_FRAMES frames
+    (bench.py's settings) through program_parity, measured; then one
+    sequence of each other captured route (kitti-config, euroc-config,
+    tum-config, xtion-config) for PROGRAM_ROUTE_FRAMES frames.  Returns
+    the launch counts of the program's frames."""
+    from vslam_tpu_torch.eval.workloads import closed_loop_config
+    from vslam_tpu_torch.io.config import load_config
+    from vslam_tpu_torch.ops import camera as cam_ops
+
+    launches = program_parity("device-program", cam, closed_loop_config(cfg),
+                              frames[:DEVICE_PROGRAM_FRAMES], card, measure=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    n = PROGRAM_ROUTE_FRAMES
+    euroc = cam_ops.make_camera(**EUROC_CAM)
+    tum = cam_ops.make_camera(**TUM_CAM)
+    routes = (
+        ("kitti-config", cam, kitti_config(load_config), kitti_world(cam, n)[1]),
+        ("euroc-config", euroc, load_config(os.path.join(here, "configurations",
+                                                          "configuration_euroc.yaml")),
+         circle_slice(euroc, EUROC_CIRCLE_FRAMES, 4.0, n)[1]),
+        ("tum-config", tum, load_config(os.path.join(here, "configurations",
+                                                      "configuration_tum.yaml")),
+         tum_world(tum, TUM_FRAMES, n)[1]),
+        ("xtion-config", tum, load_config(os.path.join(here, "configurations",
+                                                        "configuration_xtion.yaml")),
+         tum_world(tum, XTION_CIRCLE_FRAMES, n)[1]),
+    )
+    for label, route_cam, route_cfg, route_frames in routes:
+        counts = program_parity(f"device-program {label}", route_cam, route_cfg,
+                                route_frames, card)
+        launches = {k: launches[k] + counts[k] for k in launches}
+    split_program_parity(cam, split_config(cfg), frames[:n], card)
+    return launches
+
+
 def _ms_per_call(fn, runs=10):
     """Median host time of a synchronized call on the card."""
     times = []
@@ -907,7 +1195,7 @@ def phase_detectors(kitti_frame, card):
     print(f"[kitti-dog] the JAX engine on a CPU: {JAX_CPU_KITTI_DOG}")
     drive_slice("kitti-dog", cam, cfg, gt, frames,
                 {"K1": 0, "K2": KITTI_SLICE_FRAMES, "K3": 2 * KITTI_SLICE_FRAMES, "K4": 0},
-                within_15_percent(JAX_CPU_KITTI_DOG["n_local_maps"]), 4, card)
+                within_15_percent(JAX_CPU_KITTI_DOG["n_local_maps"]), KITTI_CPU_FRAMES, card)
 
 
 def phase_build(card) -> dict:
@@ -1338,7 +1626,8 @@ def phase_kitti_split(card):
           f"{JAX_CPU_KITTI_SPLIT}")
     counts = drive_slice("kitti-split", cam, split_config(kitti_config(load_config)), gt,
                          frames, {"K1": 0, "K2": n // SPLIT_CHUNK, "K3": 2 * n, "K4": 0},
-                         within_15_percent(JAX_CPU_KITTI_SPLIT["n_local_maps"]), 4, card,
+                         within_15_percent(JAX_CPU_KITTI_SPLIT["n_local_maps"]),
+                         KITTI_CPU_FRAMES, card,
                          cpu_harvest=SPLIT_CHUNK)
     batches = BATCHES["kitti-split"]
     print(f"[kitti-split] launches by batch size {batches}; {RUN_MS['kitti-split']:.2f} "
@@ -1675,7 +1964,8 @@ def phase_sharded(closed, ba_closed, card):
     f64 = {k: getattr(prob, k).double() for k in ("T_wc", "xyz", "obs_uv4", "obs_weight",
                                                   "odo_T", "odo_weight", "odo_info")}
     cam64 = eng.cam._replace(K=eng.cam.K.double(), baseline_m=eng.cam.baseline_m.double(),
-                             T_cam_robot=eng.cam.T_cam_robot.double())
+                             T_cam_robot=eng.cam.T_cam_robot.double(),
+                             K_inv=eng.cam.K_inv.double())
     xyz64 = ba_mod.bundle_adjust(cam64, prob._replace(**f64), config)[1].cpu().numpy()
     err_one = np.linalg.norm(xyz1 - xyz64, axis=1).max()
     T2, xyz2, chi2 = (t.cpu().numpy() for t in blocks_in_one_process(eng.cam, prob, config))
@@ -1714,6 +2004,11 @@ def phase_sharded(closed, ba_closed, card):
           f"{float(outs[0]['ba_seconds']):.3f} s a sharded solve ({card})")
 
 
+def mark(t_start, label):
+    """The smoke's clock at the start of a phase (where the time goes)."""
+    print(f"[smoke] {time.perf_counter() - t_start:.1f} s: {label}", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1737,42 +2032,57 @@ def main():
     stats = {"K1": phase_k1(frames, card)}
     stats.update(phase_dense(frames[0], card))
     phase_k2_probe(card)
+    mark(t_start, "device-program")
+    program_launches = phase_device_program(cam, cfg, frames, card)
 
+    mark(t_start, "k1-slice")
     print(f"[k1-slice] the JAX engine on a CPU: {JAX_CPU_K1_SLICE}")
     launches = drive_slice("k1-slice", cam, cfg, world.poses[:K1_SLICE_FRAMES],
                            frames[:K1_SLICE_FRAMES],
                            {"K1": K1_SLICE_FRAMES, "K2": 0, "K3": 0, "K4": 0},
                            within_15_percent(JAX_CPU_K1_SLICE["n_local_maps"]),
                            CPU_CHECK_FRAMES, card)
+    launches = {k: launches[k] + program_launches[k] for k in launches}
+    mark(t_start, "kitti-config")
     counts = phase_kitti_config(card)
     launches = {k: launches[k] + counts[k] for k in launches}
     # Phases 15-16 next to the per-frame runs they are compared with.
     chunk_stats = {}
     for phase, key in ((lambda: phase_k1_split(cam, cfg, world, frames, card), "K1"),
                        (lambda: phase_kitti_split(card), "K2")):
+        mark(t_start, f"split ({key})")
         counts, chunk_stats[key] = phase()
         launches = {k: launches[k] + counts[k] for k in launches}
+    mark(t_start, "chain-pg")
     phase_chain(card)
     closed, ba_closed = {}, {}
+    mark(t_start, "euroc-config, closed, ba-closed, modular-closed")
     for counts in (
         config_slice("euroc-config", "euroc", EUROC_CAM, EUROC_FRAMES, EUROC_CIRCLE_FRAMES,
                      4.0, {"K2": 1, "K4": 2 * db.N_ROT_BANKS},
                      within_15_percent(JAX_CPU_EUROC["n_local_maps"]), 2, card),
         phase_closed_loop("closed", cam, closed_loop_config(cfg), world, frames,
-                          JAX_CPU_CLOSED_LOOP, card, record=closed),
+                          JAX_CPU_CLOSED_LOOP, CARD_CLOSED, card, record=closed),
         phase_closed_loop("ba-closed", cam, ba_closed_config(cfg), world, frames,
-                          JAX_CPU_BA_CLOSED, card, record=ba_closed),
+                          JAX_CPU_BA_CLOSED, CARD_BA_CLOSED, card, record=ba_closed),
         phase_modular_closed(cam, cfg, world, frames, card),
     ):
         launches = {k: launches[k] + counts[k] for k in launches}
+    mark(t_start, "tum-config, xtion-config")
     for counts in (phase_tum(card), phase_xtion(card)):
         launches = {k: launches[k] + counts[k] for k in launches}
+    mark(t_start, "detectors")
     phase_detectors(frames[0], card)
+    mark(t_start, "kitti-disk, checkpoint, tum-disk")
     counts = phase_disk(card)
     launches = {k: launches[k] + counts[k] for k in launches}
     # Phases 17 and 19 last, on phases 7-8's records.
+    mark(t_start, "fast-icp, sharded")
     phase_fast_icp(closed, card)
     phase_sharded(closed, ba_closed, card)
+    # Last: a failed capture leaves nothing behind that a later phase reads.
+    print(f"[device-program] torch {torch.__version__}: does torch.cond under "
+          f"stream capture become a CUDA conditional node? {cond_capture_probe()}")
 
     sources = {"K1": ("fast_brief_frontend_pair", "fast_brief_frontend.cu",
                       "vslam_tpu/frontend/pallas_frontend.py:196")}

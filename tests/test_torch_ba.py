@@ -124,7 +124,8 @@ def test_jacobians_match_jax_jacfwd(cams):
 
 def test_jacobians_match_torch_jacfwd_in_float64():
     cam = tcam.make_camera(**CAM, device="cpu")
-    cam = cam._replace(K=cam.K.double(), baseline_m=cam.baseline_m.double())
+    cam = cam._replace(K=cam.K.double(), baseline_m=cam.baseline_m.double(),
+                       K_inv=cam.K_inv.double())
     d = make_problem(seed=3)
     T = torch.from_numpy(d["T_wc"][2]).double()
     for x, uv4 in zip(d["xyz"][:8], d["obs_uv4"][:8, 0]):

@@ -471,3 +471,148 @@ def test_fast_icp_on_the_card_matches_the_cpu():
     assert torch.equal(res["cuda"].num_inliers.cpu(), res["cpu"].num_inliers)
     assert torch.equal(res["cuda"].converged.cpu(), res["cpu"].converged)
     assert bool(res["cpu"].converged.all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["k1", "staged", "rgbd"])
+def test_frame_program_equals_the_eager_step_on_the_card(route):
+    """The FrameProgram (one captured CUDA graph a frame, replayed) and
+    the eager fused.step side by side on the card from the same start, 12
+    frames of a 192 x 512 circle: every state tensor equal bit for bit
+    after every frame; the replays run under
+    torch.cuda.set_sync_debug_mode("error"), so a synchronization inside
+    a frame raises; each replay counts its capture's launches."""
+    _need_card()
+    from vslam_tpu_torch.tracking import fused
+    from vslam_tpu_torch.tracking import tracker as ttracker
+
+    dev = torch.device("cuda")
+    cam = cam_ops.make_camera(fx=300.0, fy=300.0, cx=256.0, cy=96.0, baseline_m=0.4,
+                              rows=192, cols=512)
+    world = synthetic.make_world(cam, n_points=1500, seed=21,
+                                 poses=synthetic.circle_trajectory(48, radius=7.0))
+    cfg = ParameterCollection()
+    cfg.framepoint_generation.capacity = 256
+    if route == "staged":
+        cfg.framepoint_generation.detector_number_of_octaves = 2
+    if route == "rgbd":
+        cfg.command_line.tracker_mode = "RGB_DEPTH"
+        frames = [np.stack(synthetic.render_depth_frame(world, t)[:2]).astype(np.float32)
+                  for t in range(12)]
+    else:
+        frames = [np.stack(synthetic.render_frame(world, t)[:2]).astype(np.uint8)
+                  for t in range(12)]
+    staged = torch.from_numpy(np.stack(frames)).to(dev)
+    params = ttracker.params_from_config(cam, cfg, dev)
+    eager = fused.init_state(cam, params, 8192, 20.0)
+    prog = fused.make_frame_step(cam, params, fused.init_state(cam, params, 8192, 20.0),
+                                 True, staged.dtype)
+    counters = db.kernel_counters()
+    for i, imgs in enumerate(staged):
+        eager = fused.step(cam, params, eager, imgs, True)
+        if i == 1:
+            prog.capture()
+        before = {k: c.launches for k, c in counters.items()}
+        if i > 0:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            prog.run(imgs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        made = {k: c.launches - before[k] for k, c in counters.items()}
+        if i == 0:
+            first = made
+        assert made == first and sum(made.values()) >= 1, (i, made, first)
+        for (name, a), (_, b) in zip(fused.state_tensors(eager), fused.state_tensors(prog.state)):
+            assert torch.equal(a, b), (route, i, name)
+    assert prog.graph is not None and int(prog.state.frame_idx) == 12
+
+
+@pytest.mark.cuda
+def test_track_program_equals_the_eager_tails_on_the_card():
+    """The split front-end's route on the card: one 8-frame chunk's
+    front-end, then the eager track_step and the TrackProgram's replays
+    side by side, every state tensor equal after every frame, the replays
+    under sync debug mode "error"."""
+    _need_card()
+    from vslam_tpu_torch.tracking import fused
+    from vslam_tpu_torch.tracking import tracker as ttracker
+
+    dev = torch.device("cuda")
+    cam = cam_ops.make_camera(fx=300.0, fy=300.0, cx=256.0, cy=96.0, baseline_m=0.4,
+                              rows=192, cols=512)
+    world = synthetic.make_world(cam, n_points=1500, seed=21,
+                                 poses=synthetic.circle_trajectory(48, radius=7.0))
+    cfg = ParameterCollection()
+    cfg.framepoint_generation.capacity = 256
+    cfg.tracking.batch_frontend = True
+    chunk = torch.from_numpy(np.stack([np.stack(synthetic.render_frame(world, t)[:2])
+                                       for t in range(8)]).astype(np.uint8)).to(dev)
+    params = ttracker.params_from_config(cam, cfg, dev)
+    eager = fused.init_state(cam, params, 8192, 20.0)
+    prog = fused.make_track_step(cam, params, fused.init_state(cam, params, 8192, 20.0), True)
+    imgs = fused._chunk_images(cam, params, chunk)
+    front = fused.chunk_front_end(cam, params, eager.threshold.clone(), imgs)
+    for i in range(8):
+        eager = fused.track_step(cam, params, eager, *front, imgs, i, True)
+        if i == 1:
+            prog.capture()
+        if i > 0:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            prog.run(front, imgs, i)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for (name, a), (_, b) in zip(fused.state_tensors(eager), fused.state_tensors(prog.state)):
+            assert torch.equal(a, b), (i, name)
+    assert prog.graph is not None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("odometry", [False, True])
+def test_engine_process_reads_nothing_back_between_drains(odometry):
+    """SlamEngine.process, the route of the CLI, on the card with the
+    fused tracker (frames_per_chunk 8): after frame 1 (its capture), every
+    frame but the drains (each 8th) runs under
+    torch.cuda.set_sync_debug_mode("error") -- the frame's upload and its
+    odometry guess (pinned memory, asynchronous copies), the replay and
+    the engine's bookkeeping wait for nothing on the device.  The run
+    keeps the same local maps as the same frames through
+    process_prestaged."""
+    _need_card()
+    cam = cam_ops.make_camera(fx=300.0, fy=300.0, cx=256.0, cy=96.0, baseline_m=0.4,
+                              rows=192, cols=512)
+    n = 24
+    world = synthetic.make_world(cam, n_points=1500, seed=21,
+                                 poses=synthetic.circle_trajectory(48, radius=7.0))
+    frames = [synthetic.render_frame(world, t)[:2] for t in range(n)]
+
+    def engine():
+        cfg = ParameterCollection()
+        cfg.framepoint_generation.capacity = 256
+        cfg.parallelism.frames_per_chunk = 8
+        cfg.command_line.option_use_odometry = odometry
+        return SlamEngine(cam, cfg, landmark_capacity=8192, device="cuda")
+
+    eng = engine()
+    assert eng.tracker.step_route == "graph"
+    for i, (img_l, img_r) in enumerate(frames):
+        T_odom = (np.linalg.inv(world.poses[i]) @ world.poses[max(i - 1, 0)]).astype(
+            np.float32) if odometry else None
+        if i >= 2 and (i + 1) % 8:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.process(img_l, img_r, T_odom)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    eng._flush_tracker()
+    assert eng.tracker.program.graph is not None
+    traj = eng.trajectory
+    assert traj.shape == (n, 4, 4) and np.all(np.isfinite(traj))
+    if not odometry:
+        ref = engine()
+        for h in ref.tracker.prestage(frames):
+            ref.process_prestaged(h)
+        ref._flush_tracker()
+        assert eng.report()["n_local_maps"] == ref.report()["n_local_maps"]
+        np.testing.assert_array_equal(traj, ref.trajectory)

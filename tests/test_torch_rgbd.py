@@ -104,7 +104,8 @@ def test_register_depth_is_exact(scene):
     K_d = np.array([[290.0, 0.0, 158.0], [0.0, 292.0, 95.0], [0.0, 0.0, 1.0]], np.float32)
     ref = np.asarray(jdepth.register_depth(jc, jnp.asarray(depth), jnp.asarray(K_d),
                                            jnp.asarray(T)))
-    got = tdepth.register_depth(tc, torch.from_numpy(depth), torch.from_numpy(K_d),
+    got = tdepth.register_depth(tc, torch.from_numpy(depth),
+                                torch.linalg.inv(torch.from_numpy(K_d)),
                                 torch.from_numpy(T)).numpy()
     assert (ref > 0).sum() > 1000
     np.testing.assert_array_equal(got, ref)

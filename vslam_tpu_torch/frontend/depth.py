@@ -47,19 +47,21 @@ def bilateral_filter_depth(depth_m: torch.Tensor, radius: int = 2,
 
 
 def register_depth(cam_rgb: cam_ops.CameraParams, depth_m: torch.Tensor,
-                   K_depth: torch.Tensor, T_rgb_depth: torch.Tensor) -> torch.Tensor:
+                   K_depth_inv: torch.Tensor, T_rgb_depth: torch.Tensor) -> torch.Tensor:
     """Reproject a depth image taken by a misaligned depth camera into the
     RGB camera with z-buffering (reference _computeDepthMap).
 
-    depth_m: (H, W) depth in the depth camera; K_depth (3, 3) its
-    intrinsics; T_rgb_depth (4, 4) depth camera -> RGB camera.
+    depth_m: (H, W) depth in the depth camera; K_depth_inv (3, 3) the
+    inverse of its intrinsics (torch.linalg.inv, made once by the caller:
+    its error check reads the device); T_rgb_depth (4, 4) depth camera ->
+    RGB camera.
     Returns (rows, cols) depth registered to the RGB frame, 0 where unknown."""
     H, W = depth_m.shape
     dev, dt = depth_m.device, depth_m.dtype
     rows = torch.arange(H, dtype=dt, device=dev)[:, None].expand(H, W).reshape(-1)
     cols = torch.arange(W, dtype=dt, device=dev)[None, :].expand(H, W).reshape(-1)
     z = depth_m.reshape(-1)
-    rays = torch.stack([cols, rows, torch.ones_like(z)], dim=1) @ torch.linalg.inv(K_depth).T
+    rays = torch.stack([cols, rows, torch.ones_like(z)], dim=1) @ K_depth_inv.T
     p_rgb = (rays * z[:, None]) @ T_rgb_depth[:3, :3].T + T_rgb_depth[:3, 3]
     uv, z_rgb = cam_ops.project(cam_rgb, p_rgb)
     c = torch.round(uv[:, 0]).to(torch.int64)
@@ -67,8 +69,7 @@ def register_depth(cam_rgb: cam_ops.CameraParams, depth_m: torch.Tensor,
     inb = ((z > 0) & (z_rgb > 0) & (c >= 0) & (c < cam_rgb.cols)
            & (r >= 0) & (r < cam_rgb.rows))
     flat = torch.where(inb, r * cam_rgb.cols + c, 0)
-    inf = torch.tensor(float("inf"), dtype=dt, device=dev)
     out = torch.full((cam_rgb.rows * cam_rgb.cols,), float("inf"), dtype=dt, device=dev)
-    out.scatter_reduce_(0, flat, torch.where(inb, z_rgb, inf), "amin")
+    out.scatter_reduce_(0, flat, torch.where(inb, z_rgb, float("inf")), "amin")
     out = torch.where(torch.isinf(out), 0.0, out)
     return out.reshape(cam_rgb.rows, cam_rgb.cols)

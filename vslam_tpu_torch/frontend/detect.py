@@ -71,10 +71,10 @@ def _structure_tensor(img: torch.Tensor, radius: int = 2):
     x = img * (1.0 / 255.0)
     Ix = 0.5 * (torch.roll(x, -1, 1) - torch.roll(x, 1, 1))
     Iy = 0.5 * (torch.roll(x, -1, 0) - torch.roll(x, 1, 0))
-    Ix[:, 0] = 0.0
-    Ix[:, -1] = 0.0
-    Iy[0, :] = 0.0
-    Iy[-1, :] = 0.0
+    Ix[:, 0].zero_()
+    Ix[:, -1].zero_()
+    Iy[0, :].zero_()
+    Iy[-1, :].zero_()
     return (box_blur(Ix * Ix, radius), box_blur(Ix * Iy, radius),
             box_blur(Iy * Iy, radius))
 
@@ -204,10 +204,10 @@ def _grad_xy(L: torch.Tensor):
     """Central differences, the wrapped border columns / rows zeroed."""
     gx = 0.5 * (torch.roll(L, -1, 1) - torch.roll(L, 1, 1))
     gy = 0.5 * (torch.roll(L, -1, 0) - torch.roll(L, 1, 0))
-    gx[:, 0] = 0.0
-    gx[:, -1] = 0.0
-    gy[0, :] = 0.0
-    gy[-1, :] = 0.0
+    gx[:, 0].zero_()
+    gx[:, -1].zero_()
+    gy[0, :].zero_()
+    gy[-1, :].zero_()
     return gx, gy
 
 
@@ -219,9 +219,9 @@ def _diffusion_substep(L: torch.Tensor, g: torch.Tensor, tau: float) -> torch.Te
         f = 0.5 * (g + torch.roll(g, -direction, axis)) * (torch.roll(L, -direction, axis) - L)
         edge = -1 if direction == 1 else 0
         if axis == 0:
-            f[edge, :] = 0.0
+            f[edge, :].zero_()
         else:
-            f[:, edge] = 0.0
+            f[:, edge].zero_()
         return f
 
     div = flux(1, 1) + flux(1, -1) + flux(0, 1) + flux(0, -1)
@@ -238,7 +238,7 @@ def _kaze_contrast_k(L: torch.Tensor, percentile: float = 0.7) -> torch.Tensor:
     bins = torch.clamp((mag / mmax * 64.0).to(torch.int32), 0, 63)
     hist = torch.zeros(64, dtype=torch.int64, device=L.device).index_add_(
         0, bins.reshape(-1).to(torch.int64), (mag > 1e-6).reshape(-1).to(torch.int64))
-    hist[0] = 0
+    hist[0].zero_()
     total = torch.clamp(hist.sum(), min=1)
     c = torch.cumsum(hist, 0)
     kbin = (c < (percentile * total.to(torch.float32)).to(torch.int64)).sum()

@@ -106,7 +106,7 @@ def fast_brief_frontend_pair_reference(
     B, H, W = imgs.shape
     dev = imgs.device
     f32 = torch.float32
-    fifth = torch.tensor(0.2, dtype=f32, device=dev)  # np.float32(1/5)
+    fifth = torch.full((), 0.2, dtype=f32, device=dev)  # np.float32(1/5)
     P = torch.nn.functional.pad(imgs.to(f32), (16, 16, 16, 16))  # P[r+16, c+16]
 
     # Box blur of the zero-extended image over rows -13..H+12, cols

@@ -42,15 +42,26 @@ def match_stereo(uv_l, desc_l, mask_l, uv_r, desc_r, mask_r, max_hamming,
 
 def match_projective(proj_uv, desc_prev, mask_prev, uv_cur, desc_cur, mask_cur,
                      radius_px, max_hamming) -> ProjectiveMatches:
-    """Track prior points into the current frame by windowed Hamming match."""
+    """Track prior points into the current frame by windowed Hamming match.
+
+    proj_uv (..., P, 2) and mask_prev (..., P) may carry leading dims of
+    independent predictions of the same points, with radius_px and
+    max_hamming scalars or tensors of those leading dims; the descriptor
+    distances are computed once for all of them."""
+    lead = proj_uv.shape[:-2]
+
+    def per_problem(x, trailing):
+        return x.reshape(lead + (1,) * trailing) if isinstance(x, torch.Tensor) else x
+
+    radius_px = per_problem(radius_px, 2)
     dist = hamming.hamming_matrix(desc_prev, desc_cur)
-    du = torch.abs(proj_uv[:, None, 0] - uv_cur[None, :, 0])
-    dv = torch.abs(proj_uv[:, None, 1] - uv_cur[None, :, 1])
+    du = torch.abs(proj_uv[..., :, None, 0] - uv_cur[None, :, 0])
+    dv = torch.abs(proj_uv[..., :, None, 1] - uv_cur[None, :, 1])
     mask = (
-        mask_prev[:, None]
+        mask_prev[..., :, None]
         & mask_cur[None, :]
         & (du <= radius_px)
         & (dv <= radius_px)
     )
-    idx, valid, best = hamming.mutual_best_match(dist, mask, max_hamming)
+    idx, valid, best = hamming.mutual_best_match(dist, mask, per_problem(max_hamming, 1))
     return ProjectiveMatches(cur_idx=idx, distance=best, valid=valid)

@@ -106,8 +106,16 @@ def _bilinear(img: torch.Tensor, r: torch.Tensor, c: torch.Tensor) -> torch.Tens
             + i10 * fr * (1 - fc) + i11 * fr * fc)
 
 
+_CONSTS: dict = {}
+
+
 def _const(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(a).to(like.device)
+    """A module table on like's device, copied there on first use only
+    (a copy from the host inside a frame would synchronize it)."""
+    key = (id(a), like.device)
+    if key not in _CONSTS:
+        _CONSTS[key] = torch.from_numpy(a).to(like.device)
+    return _CONSTS[key]
 
 
 def orientations(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:

@@ -38,12 +38,14 @@ def camera_from_numpy(K, baseline, rows, cols, T_cam_robot=None,
                       device="cpu") -> CameraParams:
     if T_cam_robot is None:
         T_cam_robot = np.eye(4, dtype=np.float32)
+    K = _tensor(np.asarray(K, np.float32), device)
     return CameraParams(
-        K=_tensor(np.asarray(K, np.float32), device),
+        K=K,
         baseline_m=_tensor(np.asarray(baseline, np.float32), device),
         rows=int(rows),
         cols=int(cols),
         T_cam_robot=_tensor(np.asarray(T_cam_robot, np.float32), device),
+        K_inv=torch.linalg.inv(K),
     )
 
 

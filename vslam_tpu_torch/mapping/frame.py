@@ -80,9 +80,10 @@ def _put_rows(arr: torch.Tensor, idx: torch.Tensor, use: torch.Tensor, val):
     write a spare row that is dropped.  idx[use] must be distinct."""
     n = arr.shape[0]
     ext = torch.cat([arr, arr[:1]])
+    val = (val.to(arr.dtype) if isinstance(val, torch.Tensor)
+           else torch.full((), val, dtype=arr.dtype, device=arr.device))
     ext.index_put_((torch.where(use, idx.to(torch.int64), n),),
-                   torch.as_tensor(val, dtype=arr.dtype, device=arr.device)
-                   .expand((idx.shape[0],) + arr.shape[1:]))
+                   val.expand((idx.shape[0],) + arr.shape[1:]))
     return ext[:n]
 
 
@@ -405,6 +406,62 @@ class TrackResult(NamedTuple):
     converged: torch.Tensor  # bool
 
 
+def track_and_align_batch(
+    cam: cam_ops.CameraParams,
+    prev: FrameState,
+    cur: FrameState,
+    T_guess: torch.Tensor,  # (A, 4, 4) prev-camera -> cur-camera
+    radius_px: torch.Tensor,  # (A,)
+    max_hamming: torch.Tensor,  # (A,)
+    point_weights: torch.Tensor,  # (Kprev,)
+    gn_config: gn.GNConfig = gn.GNConfig(),
+    depth: bool = False,
+) -> TrackResult:
+    """A attempts at tracking prev framepoints into cur and solving for
+    the camera motion, each from its own guess, window and descriptor
+    gate, as one batch: every field of the result has the leading dim A.
+    depth: [u, v, depth] residuals through the UVD aligner (reference
+    UVDAligner), else the stereo reprojections."""
+    p_pred = lie.transform_points(T_guess[:, None], prev.p_cam)
+    proj_uv, z_pred = cam_ops.project(cam, p_pred)
+    predictable = prev.valid & (z_pred > 0.05)
+    m = matching.match_projective(
+        proj_uv, prev.desc, predictable,
+        cur.uv4[:, :2], cur.desc, cur.valid,
+        radius_px, max_hamming,
+    )
+    matched = m.valid & predictable
+    meas = cur.uv4[m.cur_idx.to(torch.int64)]  # (A, Kprev, 4)
+    if depth:
+        data = aligners.UVDData(p_prev=prev.p_cam, meas=meas[..., :3], weight=point_weights,
+                                depth_reliable=meas[..., 2] > 0.01)
+        res = aligners.uvd_align(cam, data, matched, T_guess, gn_config)
+    else:
+        # Temporary points inform rotation but get a small weight so their
+        # capped depth cannot bias translation.
+        weights = torch.where(prev.reliable, point_weights, 0.2 * point_weights)
+        data = aligners.StereoUVData(p_prev=prev.p_cam, meas=meas, weight=weights)
+        res = aligners.stereo_uv_align_fast(cam, data, matched, T_guess, gn_config)
+    return TrackResult(
+        T_cur_prev=res.x,
+        prev_to_cur=torch.where(matched, m.cur_idx, -1).to(torch.int32),
+        n_matches=matched.sum(dim=-1, dtype=torch.int32),
+        n_inliers=res.num_inliers,
+        mean_chi2=res.chi2,
+        converged=res.converged,
+    )
+
+
+def _one_attempt(cam, prev, cur, T_guess, radius_px, max_hamming, point_weights,
+                 gn_config, depth):
+    def as_batch(x):
+        return torch.as_tensor(x, device=T_guess.device).reshape(1)
+
+    res = track_and_align_batch(cam, prev, cur, T_guess[None], as_batch(radius_px),
+                                as_batch(max_hamming), point_weights, gn_config, depth)
+    return TrackResult(*(f[0] for f in res))
+
+
 def track_and_align(
     cam: cam_ops.CameraParams,
     prev: FrameState,
@@ -415,31 +472,10 @@ def track_and_align(
     point_weights: torch.Tensor,  # (Kprev,)
     gn_config: gn.GNConfig = gn.GNConfig(),
 ) -> TrackResult:
-    """Track prev framepoints into cur and solve for the camera motion."""
-    p_pred = lie.transform_point_cloud(T_guess, prev.p_cam)
-    proj_uv, z_pred = cam_ops.project(cam, p_pred)
-    predictable = prev.valid & (z_pred > 0.05)
-    m = matching.match_projective(
-        proj_uv, prev.desc, predictable,
-        cur.uv4[:, :2], cur.desc, cur.valid,
-        radius_px, max_hamming,
-    )
-    matched = m.valid & predictable
-    # Temporary points inform rotation but get a small weight so their
-    # capped depth cannot bias translation.
-    weights = torch.where(prev.reliable, point_weights, 0.2 * point_weights)
-    data = aligners.StereoUVData(
-        p_prev=prev.p_cam, meas=cur.uv4[m.cur_idx.to(torch.int64)], weight=weights,
-    )
-    res = aligners.stereo_uv_align_fast(cam, data, matched, T_guess, gn_config)
-    return TrackResult(
-        T_cur_prev=res.x,
-        prev_to_cur=torch.where(matched, m.cur_idx, -1).to(torch.int32),
-        n_matches=matched.sum(dtype=torch.int32),
-        n_inliers=res.num_inliers,
-        mean_chi2=res.chi2,
-        converged=res.converged,
-    )
+    """Track prev framepoints into cur and solve for the camera motion
+    (track_and_align_batch's attempt 0 of one)."""
+    return _one_attempt(cam, prev, cur, T_guess, radius_px, max_hamming, point_weights,
+                        gn_config, depth=False)
 
 
 def track_and_align_uvd(
@@ -454,27 +490,8 @@ def track_and_align_uvd(
 ) -> TrackResult:
     """RGB-D track_and_align: [u, v, depth] residuals through the UVD
     aligner (reference UVDAligner)."""
-    p_pred = lie.transform_point_cloud(T_guess, prev.p_cam)
-    proj_uv, z_pred = cam_ops.project(cam, p_pred)
-    predictable = prev.valid & (z_pred > 0.05)
-    m = matching.match_projective(
-        proj_uv, prev.desc, predictable,
-        cur.uv4[:, :2], cur.desc, cur.valid,
-        radius_px, max_hamming,
-    )
-    matched = m.valid & predictable
-    meas = cur.uv4[m.cur_idx.to(torch.int64)][:, :3]
-    data = aligners.UVDData(p_prev=prev.p_cam, meas=meas, weight=point_weights,
-                            depth_reliable=meas[:, 2] > 0.01)
-    res = aligners.uvd_align(cam, data, matched, T_guess, gn_config)
-    return TrackResult(
-        T_cur_prev=res.x,
-        prev_to_cur=torch.where(matched, m.cur_idx, -1).to(torch.int32),
-        n_matches=matched.sum(dtype=torch.int32),
-        n_inliers=res.num_inliers,
-        mean_chi2=res.chi2,
-        converged=res.converged,
-    )
+    return _one_attempt(cam, prev, cur, T_guess, radius_px, max_hamming, point_weights,
+                        gn_config, depth=True)
 
 
 def recover_lost_landmarks(

@@ -17,7 +17,9 @@ class CameraParams(NamedTuple):
 
     K: (3, 3) intrinsics; baseline_m: 0-d stereo baseline in meters (the
     right-image column is u_r = u_l - fx * baseline / z); rows/cols: image
-    size (static Python ints); T_cam_robot: (4, 4) robot -> camera.
+    size (static Python ints); T_cam_robot: (4, 4) robot -> camera;
+    K_inv: torch.linalg.inv(K), made once with the camera (its error check
+    reads the device, which a frame's program must not do).
     """
 
     K: torch.Tensor
@@ -25,6 +27,7 @@ class CameraParams(NamedTuple):
     rows: int
     cols: int
     T_cam_robot: torch.Tensor
+    K_inv: torch.Tensor
     depth_scale: float = 1e-3
 
     @property
@@ -46,10 +49,6 @@ class CameraParams(NamedTuple):
     @property
     def cy(self):
         return self.K[1, 2]
-
-    @property
-    def K_inv(self):
-        return torch.linalg.inv(self.K)
 
 
 def make_camera(
@@ -76,13 +75,14 @@ def make_camera(
         rows=int(rows),
         cols=int(cols),
         T_cam_robot=torch.as_tensor(T_cam_robot, dtype=torch.float32).to(device),
+        K_inv=torch.linalg.inv(K),
     )
 
 
 def to_device(cam: CameraParams, device) -> CameraParams:
     """The same camera with its tensors on `device`."""
     return cam._replace(K=cam.K.to(device), baseline_m=cam.baseline_m.to(device),
-                        T_cam_robot=cam.T_cam_robot.to(device))
+                        T_cam_robot=cam.T_cam_robot.to(device), K_inv=cam.K_inv.to(device))
 
 
 def project(cam: CameraParams, p_cam: torch.Tensor, eps: float = 1e-6):

@@ -100,11 +100,13 @@ def masked_argmin(dist: torch.Tensor, mask: torch.Tensor, max_distance):
 def mutual_best_match(dist: torch.Tensor, mask: torch.Tensor, max_distance):
     """One-to-one assignment by mutual-best cross-check: q matches d iff
     each is the other's (first) argmin and the distance passes the gate.
-    Returns (match_idx (Q,), valid (Q,), best_dist (Q,))."""
+    dist and mask broadcast to (..., Q, D) (leading dims: independent
+    problems), max_distance a scalar or (..., 1).
+    Returns (match_idx (..., Q), valid (..., Q), best_dist (..., Q))."""
     d = _masked(dist, mask)
-    best, best_j = _min_first(d, 1)
-    _, best_i = _min_first(d, 0)
-    q_ids = torch.arange(d.shape[0], dtype=torch.int32, device=d.device)
-    mutual = best_i[best_j.long()] == q_ids
+    best, best_j = _min_first(d, -1)
+    _, best_i = _min_first(d, -2)
+    q_ids = torch.arange(d.shape[-2], dtype=torch.int32, device=d.device)
+    mutual = torch.gather(best_i, -1, best_j.long()) == q_ids
     valid = mutual & (best <= max_distance)
     return best_j, valid, best

@@ -133,7 +133,9 @@ def make_transform(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    # The bottom row [0, 0, 0, 1] made on R's device: no host data.
+    bottom = torch.cat([torch.zeros(3, dtype=R.dtype, device=R.device),
+                        torch.ones(1, dtype=R.dtype, device=R.device)])
     return torch.cat([top, bottom.expand(batch + (1, 4))], dim=-2)
 
 

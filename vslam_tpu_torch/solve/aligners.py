@@ -28,7 +28,7 @@ class StereoUVData(NamedTuple):
     """Per-measurement data, leading dim N (fixed capacity, masked)."""
 
     p_prev: torch.Tensor  # (N, 3) points in the previous camera frame
-    meas: torch.Tensor  # (N, 4) measured [uL, vL, uR, vR] in the current frame
+    meas: torch.Tensor  # (N, 4) measured [uL, vL, uR, vR], (B, N, 4) batched
     weight: torch.Tensor  # (N,) e.g. 1 + log(n_updates) for landmarks
 
 
@@ -83,8 +83,8 @@ def _stereo_r_J_analytic(cam: cam_ops.CameraParams, p: torch.Tensor,
     """Closed-form stereo reprojection residual + Jacobian wrt the
     left-multiplicative se(3) tangent [v, w] (stereouv_aligner.cpp:142-177).
 
-    p: (N, 3) points in the CURRENT camera frame; meas: (N, 4).
-    Returns (r (N, 4), J (N, 4, 6), z (N,))."""
+    p: (..., N, 3) points in the CURRENT camera frame; meas: (..., N, 4).
+    Returns (r (..., N, 4), J (..., N, 4, 6), z (..., N))."""
     x, y, z = p.unbind(-1)
     zi = 1.0 / torch.clamp(z, min=1e-6)
     fx, fy, b = cam.fx, cam.fy, cam.baseline_m
@@ -106,6 +106,18 @@ def _stereo_r_J_analytic(cam: cam_ops.CameraParams, p: torch.Tensor,
     return r, torch.cat([Jp, Jw], dim=-1), z
 
 
+def _normal_equations(J: torch.Tensor, ow: torch.Tensor, r: torch.Tensor):
+    """H = J^T diag(ow) J and b = J^T diag(ow) r summed over each problem's
+    measurements, J (B, N, R, D), ow and r (B, N, R): one elementwise
+    product summed over dims 1 and 2.  Unlike a matrix product's, its
+    bits do not depend on B, so a problem solved in a batch is solved as
+    alone."""
+    D = J.shape[-1]
+    Jr = torch.cat([J, r[..., None]], dim=-1) * ow[..., None]
+    A = (Jr[..., :, None] * J[..., None, :]).sum(dim=(1, 2))  # (B, D + 1, D)
+    return A[:, :D], A[:, D]
+
+
 def stereo_uv_align_fast(
     cam: cam_ops.CameraParams,
     data: StereoUVData,
@@ -114,79 +126,32 @@ def stereo_uv_align_fast(
     config: gn.GNConfig = gn.GNConfig(),
 ) -> gn.GNResult:
     """Two-phase robust stereo pose solve (robust GN to convergence, then
-    inlier-only refinement with collapse rejection), analytic Jacobian."""
+    inlier-only refinement with collapse rejection), analytic Jacobian.
+
+    B problems over one point set at once: T0 (B, 4, 4), mask (B, N) and
+    data.meas (B, N, 4), every field of the result with the leading dim
+    B; T0 (4, 4) is one problem, with no batch dim anywhere."""
+    if T0.dim() == 2:
+        res = stereo_uv_align_fast(cam, data._replace(meas=data.meas[None]), mask[None],
+                                   T0[None], config)
+        return gn.GNResult(*(f[0] for f in res))
     p_prev, meas, weight = data
     kernel = config.kernel_max_error
-    dev = T0.device
 
     def linearize(T, extra_mask):
-        p = lie.transform_points(T, p_prev)
+        p = lie.transform_points(T[:, None], p_prev)  # (B, N, 3)
         r, J, z = _stereo_r_J_analytic(cam, p, meas)
         omega = weight * torch.clamp(10.0 / torch.clamp(z, min=0.1), 0.2, 2.0)
         vis = mask & extra_mask & (z > 0.01)
         chi2 = omega * torch.sum(r * r, dim=-1)
         w = torch.where(chi2 > kernel, kernel / torch.clamp(chi2, min=1e-12), 1.0)
         ow = torch.where(vis, omega * w, 0.0)
-        H = torch.einsum("nri,nrj->ij", J * ow[:, None, None], J)
-        b = torch.einsum("nri,nr->i", J, ow[:, None] * r)
+        H, b = _normal_equations(J, ow[..., None].expand_as(r), r)
         inliers = (chi2 <= kernel) & vis
-        total = torch.sum(torch.where(vis, chi2 * w, 0.0))
+        total = torch.sum(torch.where(vis, chi2 * w, 0.0), dim=-1)
         return H, b, total, inliers
 
-    def one_round(T, extra_mask):
-        H, b, total, inliers = linearize(T, extra_mask)
-        dx = gn.solve_normal_equations(H, b, config.damping)
-        norm = torch.linalg.vector_norm(dx)
-        dx = dx * torch.clamp(config.max_step_norm / torch.clamp(norm, min=1e-12),
-                              max=1.0)
-        ok = torch.all(torch.isfinite(dx))
-        T_new = torch.where(ok, gn.se3_retract(T, dx), T)
-        return T_new, total, inliers, torch.where(ok, norm, 0.0)
-
-    inf = torch.tensor(float("inf"), device=dev)
-    all_true = torch.ones_like(mask)
-
-    # Phase 1: robust GN over all measurements.
-    T, prev, chi2 = T0, inf, torch.tensor(1e30, device=dev)
-    it = torch.zeros((), dtype=torch.int32, device=dev)
-    inl, step = mask, inf
-    for _ in range(config.max_iterations):
-        active = gn.keep_going(prev, chi2, step, it, 2, config)
-        T2, new_chi2, inl2, step2 = one_round(T, all_true)
-        T = torch.where(active, T2, T)
-        prev = torch.where(active, chi2, prev)
-        chi2 = torch.where(active, new_chi2, chi2)
-        inl = torch.where(active, inl2, inl)
-        step = torch.where(active, step2, step)
-        it = it + active.to(torch.int32)
-    iters = it
-
-    # Phase 2: inlier-only refinement; a round that collapses the inlier
-    # set below min_num_inliers is rejected.
-    prev, step = inf, inf
-    it = torch.zeros((), dtype=torch.int32, device=dev)
-    for _ in range(config.refine_iterations):
-        active = gn.keep_going(prev, chi2, step, it, 1, config)
-        T2, new_chi2, inl2, step2 = one_round(T, inl)
-        keep = torch.sum(inl2) >= config.min_num_inliers
-        upd = active & keep
-        T = torch.where(upd, T2, T)
-        prev = torch.where(active, chi2, prev)
-        chi2 = torch.where(upd, new_chi2, chi2)
-        inl = torch.where(upd, inl2, inl)
-        step = torch.where(active, torch.where(keep, step2, 0.0), step)
-        it = it + active.to(torch.int32)
-
-    _, _, final_chi2, final_inl = linearize(T, inl)
-    num_inliers = torch.sum(final_inl).to(torch.int32)
-    return gn.GNResult(
-        x=T,
-        chi2=final_chi2 / torch.clamp(num_inliers.to(torch.float32), min=1.0),
-        num_inliers=num_inliers,
-        num_iterations=iters,
-        inlier_mask=final_inl,
-        converged=num_inliers >= config.min_num_inliers,
-    )
+    return gn.two_phase(linearize, T0, mask, config, recount=True)
 
 
 class ICPData(NamedTuple):
@@ -247,9 +212,9 @@ class UVDData(NamedTuple):
     """RGB-D pose-solve data, leading dim N (fixed capacity, masked)."""
 
     p_prev: torch.Tensor  # (N, 3) points in the previous camera frame
-    meas: torch.Tensor  # (N, 3) measured [u, v, depth_m]
+    meas: torch.Tensor  # (N, 3) measured [u, v, depth_m] ((B, N, 3) batched)
     weight: torch.Tensor  # (N,)
-    depth_reliable: torch.Tensor  # (N,) bool; unreliable -> uv only
+    depth_reliable: torch.Tensor  # (N,) bool, (B, N) batched; unreliable -> uv only
 
 
 def make_uvd_residual(cam: cam_ops.CameraParams, depth_info_weight: float = 10.0):
@@ -276,39 +241,46 @@ def uvd_align(cam: cam_ops.CameraParams, data: UVDData, mask: torch.Tensor,
     """RGB-D pose solve on [u, v, z] residuals (reference UVDAligner):
     the JAX package's uvd_align, the generic two-phase gauss_newton with
     the diagonal information [w, w, w * 10 * reliable] and the closed-form
-    Jacobian [Jproj; e_z] @ [I, -hat(p)] of the left tangent."""
+    Jacobian [Jproj; e_z] @ [I, -hat(p)] of the left tangent.
+
+    B problems over one point set at once as stereo_uv_align_fast's:
+    T0 (B, 4, 4), mask, data.meas and data.depth_reliable with the
+    leading dim B; T0 (4, 4) is one problem."""
+    if T0.dim() == 2:
+        res = uvd_align(cam, data._replace(meas=data.meas[None],
+                                           depth_reliable=data.depth_reliable[None]),
+                        mask[None], T0[None], config)
+        return gn.GNResult(*(f[0] for f in res))
     p_prev, meas, weight, reliable = data
     kernel = config.kernel_max_error
     eps = 1e-6
-    mask = mask & (lie.transform_points(T0, p_prev)[:, 2] > 0.01)
+    mask = mask & (lie.transform_points(T0[:, None], p_prev)[..., 2] > 0.01)
     dw = torch.where(reliable, 10.0, 0.0)  # the depth channel's information
-    omega = torch.stack([weight, weight, weight * dw], dim=-1)  # (N, 3)
+    omega = torch.stack([weight.expand_as(dw), weight.expand_as(dw), weight * dw],
+                        dim=-1)  # (B, N, 3)
     eye3 = torch.eye(3, dtype=T0.dtype, device=T0.device)
 
     def linearize(T, extra_mask):
-        p = lie.transform_points(T[0], p_prev)  # (N, 3)
+        p = lie.transform_points(T[:, None], p_prev)  # (B, N, 3)
         uv, z = cam_ops.project(cam, p, eps)
-        r = torch.cat([uv, z[:, None]], dim=-1) - meas
+        r = torch.cat([uv, z[..., None]], dim=-1) - meas
         zs = torch.clamp(z, min=eps)
         zi2 = (z > eps).to(p.dtype) / (zs * zs)
         zero = torch.zeros_like(z)
         Jp = torch.stack([
-            torch.stack([cam.fx / zs, zero, -cam.fx * p[:, 0] * zi2], dim=-1),
-            torch.stack([zero, cam.fy / zs, -cam.fy * p[:, 1] * zi2], dim=-1),
+            torch.stack([cam.fx / zs, zero, -cam.fx * p[..., 0] * zi2], dim=-1),
+            torch.stack([zero, cam.fy / zs, -cam.fy * p[..., 1] * zi2], dim=-1),
             torch.stack([zero, zero, torch.ones_like(z)], dim=-1),
-        ], dim=-2)  # (N, 3, 3)
+        ], dim=-2)  # (B, N, 3, 3)
         J = Jp @ torch.cat([eye3.expand(p.shape + (3,)), -lie.hat(p)], dim=-1)
         chi2 = torch.sum(r * omega * r, dim=-1)
         w = torch.where(chi2 > kernel, kernel / torch.clamp(chi2, min=1e-12), 1.0)
-        w_eff = w * (mask & extra_mask[0]).to(T.dtype)
-        ow = omega * w_eff[:, None]
-        H = torch.einsum("nri,nr,nrj->ij", J, ow, J)
-        b = torch.einsum("nri,nr->i", J, ow * r)
-        inliers = (chi2 <= kernel) & mask & extra_mask[0]
-        return H[None], b[None], torch.sum(chi2 * w_eff)[None], inliers[None]
+        w_eff = w * (mask & extra_mask).to(T.dtype)
+        H, b = _normal_equations(J, omega * w_eff[..., None], r)
+        inliers = (chi2 <= kernel) & mask & extra_mask
+        return H, b, torch.sum(chi2 * w_eff, dim=-1), inliers
 
-    res = gn.two_phase(linearize, T0[None], mask[None], config)
-    return gn.GNResult(*(f[0] for f in res))
+    return gn.two_phase(linearize, T0, mask, config)
 
 
 def update_landmarks(

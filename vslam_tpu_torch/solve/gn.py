@@ -121,14 +121,15 @@ def keep_going(prev_chi2, chi2, step, it, first_rounds, config):
 
 
 def two_phase(linearize, x0: torch.Tensor, mask: torch.Tensor, config: GNConfig,
-              retract: Callable = None) -> GNResult:
+              retract: Callable = None, recount: bool = False) -> GNResult:
     """The JAX package's two-phase robust gauss_newton loop over B problems
     at once: robust GN to convergence, then inlier-only rounds that reject
     a collapse of the inlier set.  linearize(x, extra_mask) gives (H
     (B,D,D), b (B,D), total chi2 (B,), inliers (B,N)) with extra_mask ANDed
     into mask; retract(x, dx) updates the (B, ...) states (default: SE(3)
     left multiplication).  num_inliers counts the inlier set carried out
-    of the refinement phase."""
+    of the refinement phase, or with recount the inliers of one last
+    linearization at the solution (the stereo solve's rule)."""
     retract = retract or se3_retract
     B, dev = x0.shape[0], x0.device
 
@@ -179,8 +180,10 @@ def two_phase(linearize, x0: torch.Tensor, mask: torch.Tensor, config: GNConfig,
         step = torch.where(active, torch.where(keep, step2, 0.0), step)
         it = it + active.to(torch.int32)
 
+    _, _, final_chi2, final_inl = linearize(x, inl)
+    if recount:
+        inl = final_inl
     num_inliers = torch.sum(inl, dim=-1).to(torch.int32)
-    _, _, final_chi2, _ = linearize(x, inl)
     return GNResult(
         x=x,
         chi2=final_chi2 / torch.clamp(num_inliers.to(torch.float32), min=1.0),

@@ -555,6 +555,9 @@ class SlamEngine:
             "n_merged_landmarks": self.n_merges,
             "n_track_breaks": stats.n_breaks,
             "n_recovered_landmarks": stats.n_recovered,
+            # fused.FrameProgram's route ("graph" on the card), or the
+            # modular tracker's host-driven step.
+            "tracker_step": getattr(self.tracker, "step_route", "modular (host-driven)"),
             "stage_seconds": {k: round(v, 3) for k, v in stats.stage_seconds.items()},
             # The reference's relative/absolute per-module table
             # (slam_assembly.cpp:705-742), fed by utils.log chronometers.

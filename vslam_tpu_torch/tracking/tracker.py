@@ -109,13 +109,15 @@ class _ControllerView:
 
 
 def _depth_calibration(fp, device):
-    """(K_depth (3, 3), T_rgb_depth (4, 4)) of a depth sensor that is not
-    aligned with the intensity camera, or None when the depth image is
-    already registered to it."""
+    """(K_depth^-1 (3, 3), T_rgb_depth (4, 4)) of a depth sensor that is
+    not aligned with the intensity camera, or None when the depth image is
+    already registered to it (depth.register_depth's arguments; the
+    inverse is made here, once)."""
     if fp.depth_camera_intrinsics is None or fp.depth_camera_to_rgb is None:
         return None
-    return (torch.tensor(np.asarray(fp.depth_camera_intrinsics, np.float32).reshape(3, 3),
-                         device=device),
+    K_depth = torch.tensor(np.asarray(fp.depth_camera_intrinsics, np.float32).reshape(3, 3),
+                           device=device)
+    return (torch.linalg.inv(K_depth),
             torch.tensor(np.asarray(fp.depth_camera_to_rgb, np.float32).reshape(4, 4),
                          device=device))
 
@@ -424,11 +426,20 @@ class FusedPoseTracker:
     ring and read back every `harvest_every` frames: every frame on the
     CPU, every `parallelism.frames_per_chunk` frames on CUDA.
 
+    The state lives in the static buffers of a fused.FrameProgram, which
+    steps every frame (on CUDA a replay of one captured graph), or with
+    the split front-end of a fused.TrackProgram, which steps every
+    frame's tail after the chunk's front-end.  Every
+    writer of `state` (and of `table` / `prev_frame`) copies into those
+    buffers in place (fused.assign_state): a rebound tensor would leave
+    the graph reading a stale one.
+
     With tracking.batch_frontend (the split pipeline) frames are buffered
     on the device into chunks of `harvest_every` frames, counted from the
     first frame (frames cC .. cC + C - 1), and each chunk goes through
     fused.chunk_step_split: one batched front-end at the detector
-    threshold of the chunk's first frame, then the per-frame tails.  A
+    threshold of the chunk's first frame, then the per-frame tails (here
+    replays of the track program).  A
     flush dispatches a partial chunk; the rest of that chunk keeps its
     threshold, so a flush does not change the results."""
 
@@ -444,14 +455,24 @@ class FusedPoseTracker:
         # tracker's upload (FAST scores and ties are those of the integer
         # image); RGB-D frames as f32, for depth in meters.
         self._frame_dtype = np.uint8 if self.mode == "stereo" else np.float32
-        self.state = fused.init_state(self.cam, self.params, landmark_capacity,
-                                      fp.detector_threshold_starting_value)
+        self._state = fused.init_state(self.cam, self.params, landmark_capacity,
+                                       fp.detector_threshold_starting_value)
         self.motion_model_on = tr.motion_model == "CONSTANT_VELOCITY"
         self.odometry_on = (tr.motion_model == "CAMERA_ODOMETRY"
                             or config.command_line.option_use_odometry)
         self.harvest_every = (max(int(config.parallelism.frames_per_chunk), 1)
                               if self.device.type == "cuda" else 1)
         self.split = bool(tr.batch_frontend)
+        # The split front-end replays its per-frame tail (make_track_step);
+        # every other route the whole frame (make_frame_step).
+        if self.split:
+            self.program = fused.make_track_step(self.cam, self.params, self._state,
+                                                 self.motion_model_on, self.odometry_on)
+        else:
+            self.program = fused.make_frame_step(
+                self.cam, self.params, self._state, self.motion_model_on,
+                torch.uint8 if self.mode == "stereo" else torch.float32,
+                odometry=self.odometry_on, depth_calib=self.depth_calib)
         self._buf: list[torch.Tensor] = []  # split: device frames awaiting their chunk
         self._odom_buf: list = []
         self._chunk_threshold = None  # split: the current chunk's detector threshold
@@ -479,6 +500,22 @@ class FusedPoseTracker:
         return self._last_status
 
     @property
+    def state(self) -> fused.TrackerState:
+        """The device state: the program's static buffers."""
+        return self._state
+
+    @state.setter
+    def state(self, new: fused.TrackerState):
+        fused.assign_state(self._state, new)
+
+    @property
+    def step_route(self) -> str:
+        """How frames are stepped: "graph" (one CUDA graph replayed a
+        frame; with the split front-end, of the frame's tail) or "program"
+        (the program's body on the CPU)."""
+        return "graph" if self.device.type == "cuda" else "program"
+
+    @property
     def table(self) -> lm_mod.LandmarkTable:
         return self.state.table
 
@@ -501,11 +538,11 @@ class FusedPoseTracker:
         harvested pose (exact per frame on the CPU, up to harvest_every
         frames behind on CUDA — flush() first for exact state)."""
         t0 = time.perf_counter()
-        pair = torch.from_numpy(np.stack([img_l, img_r]).astype(self._frame_dtype))
+        pair = self._upload(np.stack([img_l, img_r]).astype(self._frame_dtype))
         if self.split:
-            self._buffer(pair.to(self.device)[None], [odometry])
+            self._buffer(pair[None], [odometry])
         else:
-            self._step(pair.to(self.device), odometry)
+            self._step(pair, odometry)
         self.stats.add_time("frame_step", time.perf_counter() - t0)
         return self._last_pose
 
@@ -530,15 +567,34 @@ class FusedPoseTracker:
         if self.split:
             self._buffer(staged, [None] * len(staged))
         else:
-            for pair in staged:
-                self._step(pair, None)
+            done = 0
+            while done < len(staged):
+                # Replays back to back up to the next drain.
+                k = min(len(staged) - done, max(
+                    1, self.harvest_every - (self._dispatched - self._harvested)))
+                self.program.run_chunk(staged[done:done + k], k)
+                self._dispatched += k
+                done += k
+                if self._dispatched - self._harvested >= self.harvest_every:
+                    self._drain()
         self.stats.add_time("frame_step", time.perf_counter() - t0)
         return self._last_pose
 
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A frame's host array on the device with no wait for the device:
+        on CUDA through pinned memory with an asynchronous copy (a copy from
+        pageable memory waits for the stream, i.e. for the frames queued
+        before it).  The pinned block goes back to PyTorch's caching host
+        allocator, which records an event on the copy and reuses the block
+        only after it."""
+        t = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     def _odometry(self, odometry) -> torch.Tensor:
-        return torch.as_tensor(
-            np.eye(4, dtype=np.float32) if odometry is None
-            else np.asarray(odometry, np.float32), device=self.device)
+        return self._upload(np.eye(4, dtype=np.float32) if odometry is None
+                            else np.asarray(odometry, np.float32))
 
     def _buffer(self, frames: torch.Tensor, odometry: list):
         """Split pipeline: queue device frames; dispatch each chunk as it
@@ -556,22 +612,23 @@ class FusedPoseTracker:
         if k == 0:
             return
         if self._dispatched % self.harvest_every == 0 or self._chunk_threshold is None:
-            self._chunk_threshold = self.state.threshold  # a chunk starts here
+            # A chunk starts here; a copy, as the buffer moves on with the tails.
+            self._chunk_threshold = self.state.threshold.clone()
         odom = (torch.stack([self._odometry(o) for o in self._odom_buf])
                 if self.odometry_on else None)
-        chunk = torch.stack(self._buf)
+        # fused.chunk_step_split with the tails through the track program.
+        imgs = fused._chunk_images(self.cam, self.params, torch.stack(self._buf),
+                                   self.depth_calib)
         self._buf, self._odom_buf = [], []
-        self.state = fused.chunk_step_split(
-            self.cam, self.params, self.state, chunk, k, self.motion_model_on, odom,
-            self.depth_calib, threshold=self._chunk_threshold)
+        front = fused.chunk_front_end(self.cam, self.params, self._chunk_threshold, imgs)
+        for i in range(k):
+            self.program.run(front, imgs, i, None if odom is None else odom[i])
         self._dispatched += k
         if self._dispatched - self._harvested >= self.harvest_every:
             self._drain()
 
     def _step(self, imgs: torch.Tensor, odometry):
-        T_odom = self._odometry(odometry) if self.odometry_on else None
-        self.state = fused.step(self.cam, self.params, self.state, imgs,
-                                self.motion_model_on, T_odom, self.depth_calib)
+        self.program.run(imgs, self._odometry(odometry) if self.odometry_on else None)
         self._dispatched += 1
         if self._dispatched - self._harvested >= self.harvest_every:
             self._drain()
