@@ -5,11 +5,12 @@
 Phases (each raises on failure; the exit code is then non-zero):
   1. device  — require CUDA; print torch / CUDA versions and the card's
                name and power limit (nvidia-smi);
-  2. build   — compile K1 (csrc/fast_brief_frontend.cu) and the dense
-               BRIEF kernel behind K2/K3/K4 (csrc/dense_brief.cu) with
-               nvcc, and the PNG decoder's host unfilter
-               (csrc/png_unfilter.cpp) with g++, the builds started
-               together (their wall time);
+  2. build   — compile K1 (csrc/fast_brief_frontend.cu), the dense
+               BRIEF kernel behind K2/K3/K4 (csrc/dense_brief.cu) and the
+               conditional graph nodes (csrc/graph_cond.cu: WHILE and IF
+               nodes under capture, ops/control.py) with nvcc, and the PNG
+               decoder's host unfilter (csrc/png_unfilter.cpp) with g++,
+               the builds started together (their wall time);
                registers and spills (ptxas), resident blocks per SM
                (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the
                shared loads of one pixel (cuobjdump -sass, null with the
@@ -59,7 +60,12 @@ Phases (each raises on failure; the exit code is then non-zero):
                maps, >= 1 closure, >= 1 optimization, > 0 merged
                landmarks; prints the JAX engine's counts on a CPU for the
                same workload beside the card's, ms/frame, peak device
-               memory, database rows and the closure stages' timings;
+               memory, database rows and the closure stages' timings; the
+               closure ICP batches (relocalizer.ICPProgram: padded to a
+               bucket of 8 or 16, eager at a bucket's first use, captured
+               at its second, replayed after): each captured bucket's
+               last replay bit-equal to the eager solve of the same
+               batch, device ms a batch by route and ICP ms a drain;
   8. ba-closed — bench.py's BA-enabled run: phase 7 with windowed bundle
                adjustment every 48 frames; the same checks plus >= 1 BA
                run; prints each BA problem's (P, L) and the BA stage's
@@ -164,22 +170,34 @@ Phases (each raises on failure; the exit code is then non-zero):
                landmarks; ms/frame, peak device memory and the closure
                stages' timings.
  21. device-program — the fused tracker's FrameProgram (make_frame_step:
-               the state in static buffers, one captured CUDA graph a frame,
-               replayed) against the eager fused.step, side by side from the
-               same start on phase 7's first 64 frames: after every frame
-               every state tensor equal bit for bit, every replay under
+               the state in static buffers, one captured CUDA graph a frame
+               whose GN phases are WHILE nodes and whose retry ladder,
+               snapshot and eviction are IF nodes, replayed) against the
+               eager fused.step (loops to their caps, both branches),
+               side by side from the same start on phase 7's first 64
+               frames: after every frame every state tensor equal bit for
+               bit, every WHILE node reached running as many iterations
+               as the eager loop's active rounds and every cond deciding
+               as the eager one (the program's control.Record against
+               control.recording of the eager step), every replay under
                torch.cuda.set_sync_debug_mode("error") (a synchronization
                inside a frame raises), each replay counting its capture's
-               launches (one K1 a frame); ms/frame of both paths, the host's
-               enqueue time of a replay, device-busy ms and kernels a replay
-               (torch.profiler over 8 replays), ms a replay by CUDA events,
-               the capture's seconds and peak memory; then the same
-               equality on 4 frames of each other captured route
-               (kitti-config, euroc-config, tum-config, xtion-config) and
-               of the split front-end's tails (TrackProgram, make_track_step,
-               on one 4-frame chunk of phase 6a's frames); and, after phase
-               19, whether torch.cond under stream capture becomes a CUDA
-               conditional node (the ladder's alternative).
+               launches (one K1 a frame); the eviction IF taking its sweep
+               on frames 31 and 63 alone, the snapshot IF firing as often
+               as kf_count says; WHILE iterations a replay; ms/frame of
+               both paths, the host's enqueue time of a replay, and on a
+               second program over the same frames device-busy ms and
+               kernels a replay (torch.profiler over frames 56-63) and ms
+               a replay by CUDA events (frames 48-55), beside the
+               fixed-cap program's; the capture's seconds and peak memory;
+               then the same checks on 4 frames of each other captured
+               route (kitti-config, euroc-config, tum-config,
+               xtion-config, kitti-dog) and of the split front-end's tails
+               (TrackProgram, make_track_step, on one 4-frame chunk of
+               phase 6a's frames); and the guided ladder (320 x 640,
+               yaw-perturbed odometry): the IF nodes of attempts 2 and 3
+               take their retries on exactly the frames where a host
+               ladder reaches those attempts.
 Every run of the fused tracker (phases 6-17) steps through that program
 (phases 15-16: the chunk's front-end eagerly, then each frame's tail as
 a replay): each replay adds its capture's launches to the counts.  Phase
@@ -328,6 +346,11 @@ JAX_CPU_MODULAR_CLOSED = {"n_local_maps": 42, "n_closures": 3, "n_optimizations"
 DEVICE_PROGRAM_FRAMES = 64
 PROGRAM_ROUTE_FRAMES = 4
 PROFILED_REPLAYS = 8
+# The program before its loops and conds became conditional nodes (every
+# GN solve to its cap, the ladder's three attempts as one batched solve)
+# on phase 21's 64 frames, an H100 80GB HBM3 at 700.00 W: kernels and
+# device-busy ms a replay (torch.profiler), program ms/frame (PERF.md).
+FIXED_CAP_PROGRAM = {"kernels": 38595, "busy_ms": 50.80, "ms_frame": 47.72}
 FLOAT_DETECTORS = ("HARRIS", "GFTT", "DOG", "KAZE")
 CLOSURE_STAGES = ("relocalization", "reloc_vote_icp", "pose_graph_optimization",
                   "pg_solve", "pg_propagate", "landmark_merging")
@@ -699,6 +722,7 @@ def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card_before, card
     the last BA window problem and its config ("ba") and the engine
     ("engine"), for phases 17 and 19."""
     from vslam_tpu_torch.eval import trajectory as traj_eval
+    from vslam_tpu_torch.loop import relocalizer as rl
     from vslam_tpu_torch.solve import aligners
     from vslam_tpu_torch.system import ba_runner
     from vslam_tpu_torch.system.engine import SlamEngine
@@ -710,7 +734,8 @@ def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card_before, card
     handles = engine.tracker.prestage(frames)
     sizes = []  # (P, L) of each BA problem
     build = ba_runner.build_window_problem
-    icp_align = aligners.icp_align
+    run_icp, dispatch = rl.ICPProgram.run, rl.Relocalizer.dispatch_icp_batch
+    icp_events, drains = [], []  # (start, end, how) of each ICP batch; jobs a dispatch
     if record is not None:
         record.update(icp=[], engine=engine)
 
@@ -722,13 +747,30 @@ def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card_before, card
                 record["ba"] = (built[0], ba_runner.ba_config(engine))
         return built
 
-    def icp_and_record(data, mask, T0, config):
-        record["icp"].append((data, mask, T0, config))
-        return icp_align(data, mask, T0, config)
+    def icp_timed(prog, mov, fix, mask, T0):
+        """One ICP batch between two CUDA events; its inputs recorded."""
+        if record is not None:
+            record["icp"].append((aligners.ICPData(mov.clone(), fix.clone(),
+                                                   torch.ones(mov.shape[:2], device="cuda")),
+                                  mask.clone(), T0.clone(), prog.config))
+        how = ("eager" if prog.uses == 0 or not prog.capture else
+               "capture" if prog.graph is None else "replay")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = run_icp(prog, mov, fix, mask, T0)
+        end.record()
+        icp_events.append((start, end, how))
+        return res
+
+    def dispatch_counted(rel, candidates):
+        jobs = dispatch(rel, candidates)
+        if jobs:
+            drains.append(len(jobs))
+        return jobs
 
     ba_runner.build_window_problem = build_and_record
-    if record is not None:
-        aligners.icp_align = icp_and_record
+    rl.ICPProgram.run = icp_timed
+    rl.Relocalizer.dispatch_icp_batch = dispatch_counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     log.chronometers.clear()
@@ -744,7 +786,7 @@ def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card_before, card
         torch.cuda.synchronize()
     finally:
         ba_runner.build_window_problem = build
-        aligners.icp_align = icp_align
+        rl.ICPProgram.run, rl.Relocalizer.dispatch_icp_batch = run_icp, dispatch
     wall = time.perf_counter() - t0
     counts = read_counts()
     rep = engine.report()
@@ -770,6 +812,7 @@ def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card_before, card
     if ba_on:
         print(f"[{label}] {rep['n_ba_runs']} BA runs; (P cameras, L landmarks) of each "
               f"problem: {sizes}")
+    icp_check(label, engine, icp_events, drains, card)
     if counts != {"K1": n, "K2": 0, "K3": 0, "K4": 0}:
         raise AssertionError(f"{label}: launches {counts}, expected {n} K1 only")
     if rep["n_track_breaks"] != 0:
@@ -794,6 +837,52 @@ def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card_before, card
     print(f"[{label}] the events and ATE of the card's eager run before the program: "
           f"{card_before}; {rep['tracker_step']}")
     return counts
+
+
+def icp_check(label, engine, icp_events, drains, card):
+    """The closure ICP programs of a closed-loop run: each captured
+    bucket's last replay bit-equal to the eager solve of the same padded
+    batch (its input buffers still hold it); the device ms of the ICP
+    batches (CUDA events around each ICPProgram.run) by route, and ICP ms
+    a drain that dispatched ICP (the capturing batch, whose window holds
+    the host's capture, left out)."""
+    progs = engine.relocalizer.icp_programs
+    captured = [(key, p) for key, p in progs.items() if p.graph is not None]
+    timing = []
+    for key, prog in captured:
+        want = prog._solve()
+        for name, a, b in zip(want._fields, prog.out, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"[{label}] ICP bucket {key}: the replay's {name} "
+                                     f"differs from the eager batch's")
+        # The last batch again, eagerly and as replays, on warm buckets.
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        eager_ms, replay_ms = [], []
+        for _ in range(3):
+            start.record()
+            prog._solve()
+            end.record()
+            torch.cuda.synchronize()
+            eager_ms.append(start.elapsed_time(end))
+            start.record()
+            prog.graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            replay_ms.append(start.elapsed_time(end))
+        iters = [v for _, _, v in prog.record.read()]
+        timing.append(f"bucket {key[1]}: eager {statistics.median(eager_ms):.3f} ms, replay "
+                      f"{statistics.median(replay_ms):.3f} ms (WHILE iterations {iters})")
+    ms = {}
+    for start, end, how in icp_events:
+        ms.setdefault(how, []).append(start.elapsed_time(end))
+    timed = sum(sum(v) for how, v in ms.items() if how != "capture")
+    by_route = ", ".join(f"{len(v)} {how} ({statistics.mean(v):.3f} ms a batch)"
+                         for how, v in ms.items())
+    print(f"[{label}] closure ICP: {len(icp_events)} batches over {len(drains)} drains "
+          f"({sum(drains)} candidates), buckets {sorted(k[1] for k in progs)}: {by_route}; "
+          f"{timed / max(len(drains) - ('capture' in ms), 1):.3f} ms of ICP a drain; "
+          f"{len(captured)} captured bucket(s), each replay bit-equal to its eager batch; "
+          f"its last batch again (median of 3, CUDA events): {'; '.join(timing)} ({card})")
 
 
 def phase_modular_closed(cam, cfg, world, frames, card):
@@ -939,16 +1028,49 @@ def profiled_replays(label, prog, inputs):
     return kernels
 
 
+def check_record(label, i, prog, eager_rec):
+    """After frame i: the program's conditional nodes against the eager
+    step's record (control.recording) of the same frame -- the same loops
+    and conds; each WHILE node reached ran as many iterations as the
+    eager loop's active rounds, each cond's predicate is the eager one's,
+    and a loop in a branch not taken ran none.  Returns (the record's
+    values, which entries were reached)."""
+    got = prog.record.read()
+    want = eager_rec.read()
+    if [(k, p) for k, p, _ in got] != [(k, p) for k, p, _ in want]:
+        raise AssertionError(f"[{label}] frame {i}: the program's loops and conds "
+                             f"{[(k, p) for k, p, _ in got]} differ from the eager step's")
+    reached = prog.record.reached(got)
+    for (kind, _, g), (_, _, w), r, name in zip(got, want, reached, prog.record.names()):
+        if (g != w) if r else (g != 0):
+            raise AssertionError(f"[{label}] frame {i}: {kind} {name!r} gave {g} in the "
+                                 f"replay, the eager step {w} (reached: {r})")
+    return got, reached
+
+
+def while_iterations(values, reached, names):
+    """Total WHILE iterations of one replay, and those of attempt 1's two
+    GN phases (the loops reached outside every cond)."""
+    total = sum(v for (k, _, v), r in zip(values, reached) if k == "while" and r)
+    first = [v for (k, p, v), n in zip(values, names) if k == "while" and p is None]
+    return total, tuple(first[:2])
+
+
 def program_parity(label, cam, cfg, frames, card, measure=False):
     """The eager fused.step and the FrameProgram side by side on the card
     from the same start: after every frame every state tensor must be
-    equal bit for bit.  The program's first frame runs eagerly, then it is
-    captured, and every replay runs under torch.cuda.set_sync_debug_mode
-    ("error"), so a synchronization inside a frame raises.  With measure,
-    prints ms/frame of both paths, the host's enqueue time of a replay,
-    device-busy ms and kernels a replay (torch.profiler), the capture's
-    seconds and peak memory.  Returns the launch counts of the program's
-    frames (its replays' included)."""
+    equal bit for bit, and the replay's conditional nodes must have
+    decided as the eager step (check_record).  The program's first frame
+    runs eagerly, then it is captured, and every replay runs under
+    torch.cuda.set_sync_debug_mode("error"), so a synchronization inside
+    a frame raises.  Prints the WHILE iterations a replay.  With measure,
+    also ms/frame of both paths, the host's enqueue time of a replay, and
+    on a second program over the same frames: ms a replay by CUDA events
+    and device-busy ms and kernels a replay (torch.profiler), the
+    capture's seconds and peak memory.  Returns (the launch counts of the
+    program's frames, its replays' included; each replay's (record values,
+    entries reached, entry names); the final kf_count)."""
+    from vslam_tpu_torch.ops import control
     from vslam_tpu_torch.tracking import fused
     from vslam_tpu_torch.tracking import tracker as ttr
 
@@ -960,17 +1082,22 @@ def program_parity(label, cam, cfg, frames, card, measure=False):
     dtype = np.uint8 if params.mode == "stereo" else np.float32
     staged = torch.from_numpy(np.stack([np.stack(f) for f in frames]).astype(dtype)).to(dev)
     thr0 = fp.detector_threshold_starting_value
+
+    def program():
+        return fused.make_frame_step(cam, params, fused.init_state(cam, params, 65536, thr0),
+                                     motion_on, staged.dtype, depth_calib=calib)
+
     eager = fused.init_state(cam, params, 65536, thr0)
-    prog = fused.make_frame_step(cam, params, fused.init_state(cam, params, 65536, thr0),
-                                 motion_on, staged.dtype, depth_calib=calib)
+    prog = program()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     prog_counts = dict.fromkeys(read_counts(), 0)
-    eager_ms, prog_ms, enqueue_ms = [], [], []
+    eager_ms, prog_ms, enqueue_ms, iters, records = [], [], [], [], []
     for i, imgs in enumerate(staged):
         t0 = time.perf_counter()
-        eager = fused.step(cam, params, eager, imgs, motion_on, None, calib)
+        with control.recording() as eager_rec:
+            eager = fused.step(cam, params, eager, imgs, motion_on, None, calib)
         torch.cuda.synchronize()
         eager_ms.append(1e3 * (time.perf_counter() - t0))
         if i == 1:
@@ -1002,37 +1129,135 @@ def program_parity(label, cam, cfg, frames, card, measure=False):
             if not torch.equal(a, b):
                 raise AssertionError(f"[{label}] frame {i}: state {name} of the program "
                                      f"differs from the eager step's")
+        if i > 0:
+            values, reached = check_record(label, i, prog, eager_rec)
+            records.append((values, reached, prog.record.names()))
+            iters.append(while_iterations(values, reached, prog.record.names()))
     counts = prog_counts
+    totals = [t for t, _ in iters]
+    p1 = sorted({a[0] for _, a in iters})
+    p2 = sorted({a[1] for _, a in iters})
     print(f"[{label}] {len(frames)} frames: every state tensor of the program equal to the "
-          f"eager step's after every frame, no synchronization inside a replay; the "
-          f"program's launches {counts}; capture {prog.capture_seconds:.2f} s")
+          f"eager step's after every frame, every conditional node deciding as the eager "
+          f"step, no synchronization inside a replay; the program's launches {counts}; "
+          f"capture {prog.capture_seconds:.2f} s; {prog.record.names().count('gn phase 1')} "
+          f"GN WHILE pairs and {sum(k == 'if' for k, _, _ in records[0][0])} conds captured; "
+          f"WHILE iterations a replay {min(totals)}-{max(totals)} (mean "
+          f"{statistics.mean(totals):.2f}), attempt 1's GN phase 1 {p1} and phase 2 {p2} "
+          f"rounds, as the eager step's active rounds")
     if not measure:
         profiled_replays(label, prog, staged[:2])
-        return counts
+        return counts, records, int(prog.state.kf_count)
     steady = slice(2, None)  # past the eager first frame and the capture
     e_ms, p_ms = statistics.median(eager_ms[steady]), statistics.median(prog_ms[steady])
     q_ms = statistics.median(enqueue_ms[steady])
+    # A second program over the same frames, so that the timed replays are
+    # frames of the sequence in order: frames 0 to n-2P-1 as above, then P
+    # replays back to back between CUDA events, then P under the profiler.
+    P = PROFILED_REPLAYS
+    second = program()
+    for imgs in staged[:-2 * P]:
+        second.run(imgs)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for i in range(PROFILED_REPLAYS):
-        prog.run(staged[i])
+    for imgs in staged[-2 * P:-P]:
+        second.run(imgs)
     end.record()
     torch.cuda.synchronize()
-    replay_ms = start.elapsed_time(end) / PROFILED_REPLAYS
+    replay_ms = start.elapsed_time(end) / P
     t0 = time.perf_counter()
-    kernels = profiled_replays(label, prog, staged[:PROFILED_REPLAYS])
+    kernels = profiled_replays(label, second, staged[-P:])
     busy_us = sum(e.duration_ns() for e in kernels) / 1e3
-    print(f"[{label}] profiling {PROFILED_REPLAYS} replays took "
-          f"{time.perf_counter() - t0:.1f} s of host time")
+    for (name, a), (_, b) in zip(fused.state_tensors(prog.state),
+                                 fused.state_tensors(second.state)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"[{label}] the second program's state {name} differs")
+    print(f"[{label}] profiling {P} replays took {time.perf_counter() - t0:.1f} s of host "
+          f"time")
     print(f"[{label}] eager step {e_ms:.2f} ms/frame, program {p_ms:.2f} ms/frame (median "
           f"of frames 2-{len(frames) - 1}, synchronized); host enqueue of one replay "
-          f"{q_ms:.3f} ms; device busy {busy_us / 1e3 / PROFILED_REPLAYS:.2f} ms a replay "
-          f"and {len(kernels) / PROFILED_REPLAYS:.0f} kernels a replay (torch.profiler over "
-          f"{PROFILED_REPLAYS} replays), {replay_ms:.2f} ms a replay by CUDA events over "
-          f"{PROFILED_REPLAYS} replays back to back; capture {prog.capture_seconds:.2f} s; peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card})")
-    return counts
+          f"{q_ms:.3f} ms; device busy {busy_us / 1e3 / P:.2f} ms a replay "
+          f"and {len(kernels) / P:.0f} kernels a replay (torch.profiler over frames "
+          f"{len(frames) - P}-{len(frames) - 1}), {replay_ms:.2f} ms a replay by CUDA events "
+          f"over frames {len(frames) - 2 * P}-{len(frames) - P - 1} back to back; capture "
+          f"{prog.capture_seconds:.2f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card})")
+    print(f"[{label}] the fixed-cap program (every GN solve to its cap) on an H100 80GB "
+          f"HBM3 at 700.00 W: {FIXED_CAP_PROGRAM['kernels']:,} kernels and "
+          f"{FIXED_CAP_PROGRAM['busy_ms']} ms device-busy a replay, "
+          f"{FIXED_CAP_PROGRAM['ms_frame']} ms/frame")
+    return counts, records, int(prog.state.kf_count)
+
+
+def guided_ladder(card):
+    """The retry ladder's IF nodes on the card: eight frames of
+    tests/test_torch_device_program.py's guided world (320 x 640, odometry
+    guesses from the ground truth, frame 5's off by 0.15 rad of yaw, frame
+    6's by 0.25 rad, frame 7 uniform noise).  For each frame the host
+    ladder (attempts solved one by one, each verdict read back) gives the
+    attempt it stops at; in the program's replay the cond "attempt 2"
+    must take its retry branch exactly where the host ladder reaches
+    attempt 2, and "attempt 3" where it reaches 3; every state tensor
+    equal to the eager step's."""
+    from vslam_tpu_torch.io import synthetic
+    from vslam_tpu_torch.io.config import ParameterCollection
+    from vslam_tpu_torch.ops import camera as cam_ops
+    from vslam_tpu_torch.tracking import fused
+    from vslam_tpu_torch.tracking import tracker as ttr
+
+    def yaw(a):
+        T = np.eye(4, dtype=np.float32)
+        T[0, 0] = T[2, 2] = np.cos(a)
+        T[0, 2], T[2, 0] = np.sin(a), -np.sin(a)
+        return T
+
+    dev = torch.device("cuda")
+    cam = cam_ops.make_camera(fx=500.0, fy=500.0, cx=320.0, cy=160.0, baseline_m=0.4,
+                              rows=320, cols=640)
+    world = synthetic.make_world(cam, n_frames=16, n_points=2200, seed=19, step=0.4)
+    noise = np.random.default_rng(0).integers(0, 256, (2, 320, 640)).astype(np.uint8)
+    cfg = ParameterCollection()
+    cfg.framepoint_generation.capacity = 512
+    cfg.framepoint_generation.bin_size_pixels = 12
+    cfg.framepoint_generation.border_pixels = 12
+    params = ttr.params_from_config(cam, cfg, dev)
+    eager = fused.init_state(cam, params, 16384, 20.0)
+    prog = fused.make_frame_step(cam, params, fused.init_state(cam, params, 16384, 20.0),
+                                 True, torch.uint8, odometry=True)
+    reached, taken = [], []
+    for t in range(8):
+        imgs = torch.from_numpy(noise if t == 7 else np.stack(
+            synthetic.render_frame(world, t)[:2]).astype(np.uint8)).to(dev)
+        T = (np.linalg.inv(world.poses[t]) @ world.poses[max(t - 1, 0)]).astype(np.float32)
+        T = torch.from_numpy({5: yaw(0.15), 6: yaw(0.25)}.get(t, np.eye(4, dtype=np.float32))
+                             @ T).to(dev)
+        cur = fused._front_end(cam, params, eager, imgs[0].float(), imgs[1].float())[0]
+        weights = fused.lm_mod.landmark_weights(eager.table, eager.prev.landmark_slot)
+        for k, (radius, gate, guess) in enumerate(fused._ladder_inputs(params, eager, T)):
+            host = fused.frame_mod.track_and_align(cam, eager.prev, cur, guess, radius,
+                                                   gate.to(torch.int32), weights,
+                                                   params.gn_config)
+            if bool(fused._accept(params, host)):
+                break
+        reached.append(k + 1)
+        eager = fused.step(cam, params, eager, imgs, True, T)
+        if t == 1:
+            prog.capture()
+        prog.run(imgs, T)
+        for (name, a), (_, b) in zip(fused.state_tensors(eager), fused.state_tensors(prog.state)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"[guided-ladder] frame {t}: state {name} differs")
+        if t >= 1:
+            value = dict(zip(prog.record.names(), (v for _, _, v in prog.record.read())))
+            taken.append(1 + (value["attempt 2"] == 0) + (value["attempt 3"] == 0))
+    if reached[1:] != [1, 1, 1, 1, 2, 3, 3] or taken != reached[1:]:
+        raise AssertionError(f"[guided-ladder] the host ladder reached attempts {reached[1:]} "
+                             f"on frames 1-7, the replays' IF nodes ran {taken}")
+    print(f"[guided-ladder] frames 1-7 (yaw-perturbed odometry on 5 and 6, noise on 7): the "
+          f"host ladder stops at attempts {reached[1:]}; each replay's IF nodes ran the "
+          f"retries of exactly those attempts; every state tensor equal to the eager step's "
+          f"({card})")
 
 
 def split_program_parity(cam, cfg, frames, card):
@@ -1040,7 +1265,9 @@ def split_program_parity(cam, cfg, frames, card):
     and then, frame by frame, the eager track_step beside the
     TrackProgram's replays (make_track_step, under sync debug "error"
     from the second frame), every state tensor equal after every frame.
+    Each replay's conditional nodes decide as the eager tail (check_record).
     Returns the program's launch counts (its tails launch no kernel)."""
+    from vslam_tpu_torch.ops import control
     from vslam_tpu_torch.tracking import fused
     from vslam_tpu_torch.tracking import tracker as ttr
 
@@ -1056,7 +1283,8 @@ def split_program_parity(cam, cfg, frames, card):
     front = fused.chunk_front_end(cam, params, eager.threshold.clone(), imgs)
     front_counts = read_counts()
     for i in range(len(frames)):
-        eager = fused.track_step(cam, params, eager, *front, imgs, i, True)
+        with control.recording() as eager_rec:
+            eager = fused.track_step(cam, params, eager, *front, imgs, i, True)
         if i == 1:
             prog.capture()
         if i > 0:
@@ -1069,57 +1297,48 @@ def split_program_parity(cam, cfg, frames, card):
             if not torch.equal(a, b):
                 raise AssertionError(f"[{label}] frame {i}: state {name} of the program "
                                      f"differs from the eager track_step's")
+        if i > 0:
+            check_record(label, i, prog, eager_rec)
     counts = {k: read_counts()[k] - front_counts[k] for k in front_counts}
     print(f"[{label}] one {len(frames)}-frame chunk: every state tensor of the track "
-          f"program equal to the eager track_step's after every frame, no synchronization "
-          f"inside a replay; the tails' launches {counts} (the chunk's front-end "
+          f"program equal to the eager track_step's after every frame, every conditional "
+          f"node deciding as the eager tail, no synchronization inside a replay; the tails' "
+          f"launches {counts} (the chunk's front-end "
           f"{front_counts}); capture {prog.capture_seconds:.2f} s ({card})")
     return counts
-
-
-def cond_capture_probe() -> str:
-    """Whether torch.cond under stream capture becomes a CUDA conditional
-    (IF) node, so that a replay runs only the branch its predicate picks
-    (the JAX package's lax.cond).  The fused step's retry ladder would use
-    it; it runs the attempts as one batched solve and selects with
-    torch.where instead (tracking/fused.py::_register).
-    A failed capture is this probe's answer, so it is caught here."""
-    x = torch.arange(1024, dtype=torch.float32, device="cuda")
-    pred = torch.ones((), dtype=torch.bool, device="cuda")
-
-    def taken(v):
-        return v * 2.0
-
-    def other(v):
-        return v - 1.0
-
-    torch.cond(pred, taken, other, (x,))  # eager: traces the branches
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph):
-            out = torch.cond(pred, taken, other, (x,))
-    except Exception as exc:  # noqa: BLE001  (the probe reports any failure)
-        return f"no, the capture fails ({type(exc).__name__})"
-    follows = []
-    for p in (True, False):
-        pred.fill_(p)
-        graph.replay()
-        follows.append(torch.equal(out, taken(x) if p else other(x)))
-    return "yes" if all(follows) else "no, the replay ignores the predicate"
 
 
 def phase_device_program(cam, cfg, frames, card):
     """Phase 21: the closed loop's first DEVICE_PROGRAM_FRAMES frames
     (bench.py's settings) through program_parity, measured; then one
     sequence of each other captured route (kitti-config, euroc-config,
-    tum-config, xtion-config) for PROGRAM_ROUTE_FRAMES frames.  Returns
-    the launch counts of the program's frames."""
+    tum-config, xtion-config, kitti-dog) for PROGRAM_ROUTE_FRAMES frames;
+    the guided ladder.  On the measured run the eviction cond must take
+    its sweep on frames 31 and 63 alone and the snapshot cond fire as
+    often as the state's kf_count says.  Returns the launch counts of the
+    program's frames."""
     from vslam_tpu_torch.eval.workloads import closed_loop_config
     from vslam_tpu_torch.io.config import load_config
     from vslam_tpu_torch.ops import camera as cam_ops
 
-    launches = program_parity("device-program", cam, closed_loop_config(cfg),
-                              frames[:DEVICE_PROGRAM_FRAMES], card, measure=True)
+    launches, records, kf_count = program_parity(
+        "device-program", cam, closed_loop_config(cfg), frames[:DEVICE_PROGRAM_FRAMES], card,
+        measure=True)
+    sweeps, fired = [], 0
+    for i, (values, _, names) in enumerate(records, start=1):
+        by_name = {}
+        for (_, _, v), name in zip(values, names):
+            by_name.setdefault(name, v)
+        if by_name["eviction"]:
+            sweeps.append(i)
+        fired += by_name["snapshot"]
+    if sweeps != [31, 63]:
+        raise AssertionError(f"[device-program] the eviction cond swept on frames {sweeps}")
+    if fired != int(kf_count):
+        raise AssertionError(f"[device-program] the snapshot cond fired {fired} times, "
+                             f"kf_count {int(kf_count)}")
+    print(f"[device-program] the eviction IF node took its sweep on frames {sweeps} alone; "
+          f"the snapshot IF node fired on {fired} frames, the state's kf_count ({card})")
     here = os.path.dirname(os.path.abspath(__file__))
     n = PROGRAM_ROUTE_FRAMES
     euroc = cam_ops.make_camera(**EUROC_CAM)
@@ -1135,12 +1354,14 @@ def phase_device_program(cam, cfg, frames, card):
         ("xtion-config", tum, load_config(os.path.join(here, "configurations",
                                                         "configuration_xtion.yaml")),
          tum_world(tum, XTION_CIRCLE_FRAMES, n)[1]),
+        ("kitti-dog", cam, kitti_config(load_config, "DOG"), kitti_world(cam, n)[1]),
     )
     for label, route_cam, route_cfg, route_frames in routes:
         counts = program_parity(f"device-program {label}", route_cam, route_cfg,
-                                route_frames, card)
+                                route_frames, card)[0]
         launches = {k: launches[k] + counts[k] for k in launches}
     split_program_parity(cam, split_config(cfg), frames[:n], card)
+    guided_ladder(card)
     return launches
 
 
@@ -1204,18 +1425,19 @@ def phase_build(card) -> dict:
     from vslam_tpu_torch.frontend import dense_brief as db
     from vslam_tpu_torch.frontend import fast_brief as fb
     from vslam_tpu_torch.frontend.cuda_build import loop_shared_loads
-
     from vslam_tpu_torch.io import image
+    from vslam_tpu_torch.ops import control
 
     t0 = time.perf_counter()
     libraries = {"K1": fb.K1.library, "K2/K3/K4": db.KERNEL.library,
-                 "PNG unfilter (host)": image.UNFILTER}
+                 "conditional nodes": control._library, "PNG unfilter (host)": image.UNFILTER}
     for lib in libraries.values():
         lib.start()  # one compiler per source, all at once
     image.UNFILTER.load()  # seconds; the nvcc builds go on meanwhile
     fb.K1.build()
     db.KERNEL.build()
-    print(f"[build] the three libraries built in {time.perf_counter() - t0:.2f} s of wall time")
+    control.library()
+    print(f"[build] the four libraries built in {time.perf_counter() - t0:.2f} s of wall time")
     for name, lib in libraries.items():
         print(f"[build] {name} ({lib.src.name}) built in {lib.build_seconds:.2f} s")
         for line in lib.build_log.splitlines():
@@ -2080,9 +2302,6 @@ def main():
     mark(t_start, "fast-icp, sharded")
     phase_fast_icp(closed, card)
     phase_sharded(closed, ba_closed, card)
-    # Last: a failed capture leaves nothing behind that a later phase reads.
-    print(f"[device-program] torch {torch.__version__}: does torch.cond under "
-          f"stream capture become a CUDA conditional node? {cond_capture_probe()}")
 
     sources = {"K1": ("fast_brief_frontend_pair", "fast_brief_frontend.cu",
                       "vslam_tpu/frontend/pallas_frontend.py:196")}

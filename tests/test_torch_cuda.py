@@ -616,3 +616,139 @@ def test_engine_process_reads_nothing_back_between_drains(odometry):
         ref._flush_tracker()
         assert eng.report()["n_local_maps"] == ref.report()["n_local_maps"]
         np.testing.assert_array_equal(traj, ref.trajectory)
+
+
+# ---------------------------------------------------------------------------
+# Conditional nodes (ops/control.py, csrc/graph_cond.cu)
+# ---------------------------------------------------------------------------
+
+def _geometric_loop(x, target, max_iters):
+    """control.while_loop over B problems: problem b runs target[b]
+    rounds of x <- 0.9 A x + 1 (a batched product, cuBLAS on the body's
+    stream, and fresh allocations a round)."""
+    from vslam_tpu_torch.ops import control
+
+    A = torch.eye(2, device=x.device) + torch.ones((2, 2), device=x.device).triu(1) * 0.5
+    A = (A - A.triu(1).transpose(0, 1) * 0.5).expand(x.shape[0], 2, 2)
+
+    def body(s):
+        v, it = s
+        return torch.bmm(A, v[..., None])[..., 0] * 0.9 + torch.ones_like(v), it + 1
+
+    return control.while_loop(lambda s: s[1] < target, body,
+                              (x, torch.zeros_like(target)), max_iters)
+
+
+@pytest.mark.cuda
+def test_while_node_runs_the_predicted_iterations():
+    """One WHILE node: after each replay its round counter holds the
+    largest per-problem target (capped), each problem's state equals the
+    eager loop's (to the cap, frozen) bit for bit, and a replay with new
+    targets decides the iterations anew; no sync inside a replay."""
+    _need_card()
+    from vslam_tpu_torch.ops import control
+
+    x = torch.tensor([[1.0, 2.0], [0.5, -1.0], [3.0, 0.0]], device="cuda")
+    target = torch.tensor([3, 7, 1], dtype=torch.int32, device="cuda")
+    graph = torch.cuda.CUDAGraph()
+    with control.graph_capture(graph) as record:
+        out, it = _geometric_loop(x, target, 12)
+    for t in ([3, 7, 1], [0, 0, 0], [12, 40, 2], [5, 5, 5]):
+        target.copy_(torch.tensor(t, dtype=torch.int32))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            graph.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        want, want_it = _geometric_loop(x, target, 12)
+        assert torch.equal(out, want) and torch.equal(it, want_it), t
+        assert record.read() == [("while", None, min(max(t), 12))], t
+
+
+@pytest.mark.cuda
+def test_if_node_runs_only_its_taken_branch():
+    """One cond: a replay runs the branch its predicate picks -- each
+    branch also bumps its own in-place hit counter, so the other branch's
+    counter shows it did not run -- and returns that branch's values."""
+    _need_card()
+    from vslam_tpu_torch.ops import control
+
+    x = torch.arange(6, dtype=torch.float32, device="cuda")
+    pred = torch.ones((), dtype=torch.bool, device="cuda")
+    hits = torch.zeros(2, dtype=torch.int32, device="cuda")
+
+    def branch(k, fn):
+        def run(v):
+            hits[k] += 1
+            return fn(v), v.sum()
+        return run
+
+    graph = torch.cuda.CUDAGraph()
+    with control.graph_capture(graph) as record:
+        out, total = control.cond(pred, branch(0, lambda v: v * 2.0),
+                                  branch(1, lambda v: v - 1.0), (x,))
+    hits.zero_()
+    for p, want_hits in ((True, [1, 0]), (False, [1, 1]), (False, [1, 2]), (True, [2, 2])):
+        pred.fill_(p)
+        graph.replay()
+        assert hits.tolist() == want_hits, p
+        assert torch.equal(out, x * 2.0 if p else x - 1.0) and float(total) == 15.0
+        assert record.read() == [("if", None, int(p))]
+
+
+@pytest.mark.cuda
+def test_if_node_containing_a_while_node():
+    """A WHILE node inside an IF node's body (nested conditional nodes):
+    taken, the loop runs its rounds and the branch returns its state;
+    not taken, the loop's counter stays 0 and the other branch's value
+    comes out."""
+    _need_card()
+    from vslam_tpu_torch.ops import control
+
+    x = torch.tensor([[1.0, 2.0], [0.5, -1.0]], device="cuda")
+    target = torch.tensor([4, 2], dtype=torch.int32, device="cuda")
+    pred = torch.ones((), dtype=torch.bool, device="cuda")
+    graph = torch.cuda.CUDAGraph()
+    with control.graph_capture(graph) as record:
+        out = control.cond(pred, lambda v: _geometric_loop(v, target, 10)[0],
+                           lambda v: v + 100.0, (x,))
+    for p, t in ((True, [4, 2]), (False, [4, 2]), (True, [1, 6])):
+        pred.fill_(p)
+        target.copy_(torch.tensor(t, dtype=torch.int32))
+        graph.replay()
+        want = _geometric_loop(x, target, 10)[0] if p else x + 100.0
+        assert torch.equal(out, want), (p, t)
+        values = record.read()
+        assert values == [("if", None, int(p)), ("while", (0, True), max(t) if p else 0)]
+        assert record.reached(values) == [True, p]
+
+
+@pytest.mark.cuda
+def test_captured_icp_batch_equals_its_eager_batch():
+    """relocalizer.ICPProgram at bucket 8 on the card: its first use
+    eager, then captured (two WHILE nodes) and replayed on new batches of
+    5 and 8 problems: each replay bit-equal to the eager solve of the
+    same padded batch, rows past the batch masked out."""
+    _need_card()
+    from vslam_tpu_torch.loop import relocalizer as rl
+    from vslam_tpu_torch.ops import lie
+    from vslam_tpu_torch.solve import aligners, gn
+
+    cfg = gn.GNConfig(kernel_max_error=0.25, min_num_inliers=8, max_iterations=50)
+    prog = rl.ICPProgram(aligners.icp_align, cfg, 8, 256, "cuda")
+    rng = np.random.default_rng(4)
+    for B in (5, 5, 8, 3):
+        xi = torch.from_numpy((rng.normal(size=(B, 6)) * 0.1).astype(np.float32)).cuda()
+        mov = torch.from_numpy(rng.uniform(-5, 5, (B, 256, 3)).astype(np.float32)).cuda()
+        fix = lie.transform_points(lie.exp_se3(xi)[:, None], mov)
+        fix = fix + torch.from_numpy(rng.normal(0, 0.05, (B, 256, 3)).astype(np.float32)).cuda()
+        mask = torch.from_numpy(np.arange(256)[None] < rng.integers(40, 256, (B, 1))).cuda()
+        T0 = torch.eye(4, device="cuda").repeat(B, 1, 1)
+        got = prog.run(mov, fix, mask, T0)
+        want = aligners.icp_align(aligners.ICPData(prog.mov, prog.fix, prog.weight), prog.mask,
+                                  prog.T0, cfg)
+        for name, a, b in zip(got._fields, got, want):
+            assert torch.equal(a, b), (B, name)
+        assert bool(got.converged[:B].all())
+    assert prog.graph is not None and prog.uses == 4
+    assert [kind for kind, _, _ in prog.record.read()] == ["while", "while"]

@@ -10,8 +10,10 @@ make_frame_step builds over static state buffers, and its run_chunk.
       read of a tensor's value on the host) and no aten.lift_fresh call
       (a tensor made from host data) -- on the card either would
       synchronize the frame, and a captured graph cannot hold it;
-  (b) the ladder: its attempts run as one batched solve, each attempt's
-      bits those of the attempt solved alone; on frames that force
+  (b) the ladder: attempt 1, then attempts 2 and 3 each under a cond
+      (ops/control.py) on the earlier attempt's rejection, equal to the
+      card's eager route (both branches, selected) bit for bit; a batched
+      solve keeps each attempt's solo bits; on frames that force
       attempts 2 and 3 (motion guesses off by 0.15 and 0.25 rad of yaw,
       then a frame of noise) the device ladder selects, bit for bit, the
       result of a host ladder that stops at the first accepted attempt;
@@ -53,7 +55,7 @@ from vslam_tpu_torch.io import checkpoint
 from vslam_tpu_torch.io import synthetic as tsyn
 from vslam_tpu_torch.io.config import ParameterCollection as TConfig
 from vslam_tpu_torch.ops import camera as tcam
-from vslam_tpu_torch.ops import lie
+from vslam_tpu_torch.ops import control, lie
 from vslam_tpu_torch.system.engine import SlamEngine
 from vslam_tpu_torch.tracking import fused as tfused
 from vslam_tpu_torch.tracking import tracker as ttracker
@@ -194,6 +196,66 @@ def test_device_ladder_selects_the_host_ladders_attempt(guided):
         state = tfused.step(cam, params, state, imgs, True, T)
     # Frame 0 has no previous frame; frames 5-7 force the retries.
     assert reached[1:] == [1, 1, 1, 1, 2, 3, 3], reached
+
+
+def test_ladder_conds_equal_the_masked_route_on_the_guided_frames(guided):
+    """_register's conds (ops/control.py) on the guided frames: the CPU's
+    early exit and plain branches equal, bit for bit, the card's eager
+    route (every loop to its cap, both branches computed and selected:
+    control.masked), and the conds decide as the host ladder stops --
+    attempt 2's retry runs exactly where the ladder reaches attempt 2,
+    attempt 3's where it reaches 3."""
+    cam, frames, odom = guided
+    params = ttracker.params_from_config(cam, _fused_config(TConfig), CPU)
+    state = tfused.init_state(cam, params, 16384, 20.0)
+    reached = []
+    for imgs, T in zip(torch.from_numpy(frames), torch.from_numpy(odom)):
+        cur = tfused._front_end(cam, params, state, imgs[0].float(), imgs[1].float())[0]
+        with control.recording() as rec:
+            early = tfused._register(cam, params, state, cur, T)
+        with control.masked():
+            masked = tfused._register(cam, params, state, cur, T)
+        for name, a, b in zip(early._fields, early, masked):
+            assert torch.equal(a, b), (len(reached), name)
+        value = dict(zip(rec.names(), (v for _, _, v in rec.read())))
+        reached.append(1 + (value["attempt 2"] == 0) + (value["attempt 3"] == 0))
+        state = tfused.step(cam, params, state, imgs, True, T)
+    assert reached[1:] == [1, 1, 1, 1, 2, 3, 3], reached
+
+
+def test_snapshot_and_eviction_conds_equal_the_masked_route():
+    """fused.step with its conds on the CPU's route against the card's
+    eager route (control.masked) over 20 frames of the closed-loop circle
+    with an eviction sweep every 5 frames: every state tensor equal after
+    every frame; the eviction cond sweeps on frames 4, 9, 14 and 19
+    alone, and the snapshot cond fires as often as kf_count says."""
+    cam = tcam.make_camera(fx=300, fy=300, cx=256, cy=96, baseline_m=0.4, rows=192,
+                           cols=512, device="cpu")
+    world = tsyn.make_world(cam, n_points=1500, seed=21,
+                            poses=tsyn.circle_trajectory(48, radius=7.0))
+    cfg = TConfig()
+    cfg.framepoint_generation.capacity = 256
+    cfg.world_map.minimum_distance_traveled_for_local_map = 0.8
+    cfg.world_map.minimum_number_of_frames_for_local_map = 2
+    params = ttracker.params_from_config(cam, cfg, CPU)._replace(
+        evict_every=5, evict_age_frames=2, evict_max_updates=100)
+    early = tfused.init_state(cam, params, 8192, 20.0)
+    masked = tfused.init_state(cam, params, 8192, 20.0)
+    sweeps, fired = [], 0
+    for t in range(20):
+        imgs = torch.from_numpy(np.stack(tsyn.render_frame(world, t)[:2]).astype(np.uint8))
+        with control.recording() as rec:
+            early = tfused.step(cam, params, early, imgs, True)
+        with control.masked():
+            masked = tfused.step(cam, params, masked, imgs, True)
+        for (name, a), (_, b) in zip(tfused.state_tensors(early), tfused.state_tensors(masked)):
+            assert torch.equal(a, b), (t, name)
+        value = dict(zip(rec.names(), (v for _, _, v in rec.read())))
+        if value["eviction"]:
+            sweeps.append(t)
+        fired += value["snapshot"]
+    assert sweeps == [4, 9, 14, 19]
+    assert fired == int(early.kf_count) >= 2 and int(early.free_count) > 0
 
 
 @pytest.mark.parametrize("depth", [False, True])

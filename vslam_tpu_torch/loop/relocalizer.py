@@ -36,15 +36,17 @@ import torch
 
 from vslam_tpu_torch.io.config import RelocalizationParameters
 from vslam_tpu_torch.mapping.local_maps import Closure, LocalMap
-from vslam_tpu_torch.ops import hamming
+from vslam_tpu_torch.ops import control, hamming
 from vslam_tpu_torch.parallel import mesh as mesh_mod
 from vslam_tpu_torch.parallel import sharded_search
 from vslam_tpu_torch.solve import aligners, anderson, gn
 from vslam_tpu_torch.utils import log
 from vslam_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
-# Largest ICP batch: bigger drains verify in several batches.
+# Largest ICP batch: bigger drains verify in several batches; a batch is
+# padded to the next bucket.
 ICP_MAX_BATCH = 16
+ICP_BUCKETS = (8, 16)
 
 
 def _insert(db_desc, db_map_id, rows, dest, row_map_id):
@@ -175,6 +177,73 @@ def _icp_config(p: RelocalizationParameters) -> gn.GNConfig:
                        max_iterations=50)
 
 
+def icp_bucket(B: int) -> int:
+    """The padded batch of B closure ICP problems (the JAX package's
+    compile buckets, warm_icp_batches)."""
+    if not 1 <= B <= ICP_MAX_BATCH:
+        raise ValueError(f"ICP batch of {B} (1..{ICP_MAX_BATCH})")
+    return next(b for b in ICP_BUCKETS if B <= b)
+
+
+class ICPProgram:
+    """The closure ICP solve at one batch bucket as one device program
+    (the JAX package's _batched_icp_solver, jitted per bucket): static
+    input buffers of B = bucket problems, the rows past the batch masked
+    out (no points, the identity guess).  On CUDA its first use runs
+    eagerly, its second captures it (control.graph_capture: each GN
+    phase a WHILE node) and every use replays it; results are copied out
+    of the program's outputs, which the next replay overwrites.  On the
+    CPU every use runs the same solve eagerly on the same buffers.
+
+    capture=False keeps every use eager: FAST-ICP's Procrustes step calls
+    torch.linalg.svd, whose error check reads the card, so it cannot be
+    captured."""
+
+    def __init__(self, solve, config: gn.GNConfig, B: int, cap: int, device,
+                 capture: bool = True):
+        f32 = dict(dtype=torch.float32, device=device)
+        self.solve, self.config, self.device = solve, config, torch.device(device)
+        self.capture = capture
+        self.mov = torch.zeros((B, cap, 3), **f32)
+        self.fix = torch.zeros((B, cap, 3), **f32)
+        self.weight = torch.ones((B, cap), **f32)
+        self.mask = torch.zeros((B, cap), dtype=torch.bool, device=device)
+        self.eye = torch.eye(4, **f32)
+        self.T0 = self.eye.repeat(B, 1, 1)
+        self.uses = 0
+        self.graph = None
+        self.out = None
+        self.record = None  # control.Record of the capture
+
+    def _solve(self) -> gn.GNResult:
+        return self.solve(aligners.ICPData(self.mov, self.fix, self.weight), self.mask,
+                          self.T0, self.config)
+
+    def run(self, mov, fix, mask, T0) -> gn.GNResult:
+        """Solve n <= B problems: mov, fix (n, cap, 3), mask (n, cap), T0
+        (n, 4, 4) on the program's device.  The result has the bucket's
+        B rows; rows n.. are the padding's."""
+        n = mov.shape[0]
+        for buf, src in ((self.mov, mov), (self.fix, fix), (self.mask, mask), (self.T0, T0)):
+            buf[:n].copy_(src)
+        self.mov[n:].zero_()
+        self.fix[n:].zero_()
+        self.mask[n:].fill_(False)
+        self.T0[n:].copy_(self.eye.expand_as(self.T0[n:]))
+        if self.device.type != "cuda" or self.uses == 0 or not self.capture:
+            res = self._solve()
+        else:
+            if self.graph is None:
+                graph = torch.cuda.CUDAGraph()
+                with control.graph_capture(graph, self.device) as record:
+                    self.out = self._solve()
+                self.graph, self.record = graph, record
+            self.graph.replay()
+            res = gn.GNResult(*(t.clone() for t in self.out))
+        self.uses += 1
+        return res
+
+
 class Relocalizer:
     def __init__(self, params: RelocalizationParameters, query_cap: int = 1024,
                  capacity: int = 131072, device=DEFAULT_DEVICE, mesh=None):
@@ -210,6 +279,8 @@ class Relocalizer:
         self._slot_maps: dict[int, list[int]] = {}
         self._slot_in_db: set[int] = set()
         self._map_slot_row: dict[int, dict[int, int]] = {}
+        # (aligner, bucket, cap) -> ICPProgram
+        self.icp_programs: dict[tuple, ICPProgram] = {}
 
     def _active_prefix(self) -> int:
         """Power-of-two bucket (>= 1024) covering the live rows."""
@@ -399,7 +470,8 @@ class Relocalizer:
 
     def dispatch_icp_batch(self, candidates) -> list[ICPJob]:
         """Verify all of a drain's vote survivors as batched robust
-        point-to-point ICP (no sync).
+        point-to-point ICP (no sync): one ICPProgram run a batch, padded
+        to its bucket (8 or 16).
 
         Point sets come from the tracker's snapshot archive on the device
         when every map of the batch lies above the ring provider's
@@ -452,12 +524,14 @@ class Relocalizer:
                 mov[i, :c.n] = c.query.xyz_kf[c.q_rows[:c.n]]
                 fix[i, :c.n] = c.reference.xyz_kf[c.r_rows[:c.n]]
             mov, fix = torch.from_numpy(mov).to(dev), torch.from_numpy(fix).to(dev)
-        data = aligners.ICPData(p_moving=mov, p_fixed=fix,
-                                weight=torch.ones((B, cap), dtype=torch.float32, device=dev))
-        solve = (anderson.fast_icp_align if p.aligner_type == "FAST-ICP"
-                 else aligners.icp_align)
-        res = solve(data, mask, torch.from_numpy(T0).to(dev), _icp_config(p))
-        batch = ICPBatch(res_dev=res)
+        key = (p.aligner_type, icp_bucket(B), cap)
+        prog = self.icp_programs.get(key)
+        if prog is None:
+            fast = p.aligner_type == "FAST-ICP"
+            prog = self.icp_programs[key] = ICPProgram(
+                anderson.fast_icp_align if fast else aligners.icp_align, _icp_config(p),
+                key[1], cap, dev, capture=not fast)
+        batch = ICPBatch(res_dev=prog.run(mov, fix, mask, torch.from_numpy(T0).to(dev)))
         return [ICPJob(query=c.query, reference=c.reference, q_rows=c.q_rows,
                        r_rows=c.r_rows, n=c.n, batch=batch, index=i)
                 for i, c in enumerate(candidates)]

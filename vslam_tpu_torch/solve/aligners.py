@@ -7,10 +7,9 @@ factories (make_stereo_uv_residual, make_uvd_residual, make_icp_residual)
 and stereo_uv_align instantiate the generic engine gn.gauss_newton with
 Jacobians by forward-mode autodiff through the left SE(3) tangent, as the
 JAX package does everywhere: the reference the closed forms are held to.
-Each `lax.while_loop` of the JAX solver becomes a Python loop to the
-iteration cap whose state is frozen, by a per-solve `active` flag, once
-the loop condition fails: the result is the while-loop's, and the loop
-needs no host sync to decide when to stop.
+Each `lax.while_loop` of the JAX solver is gn.two_phase's
+ops/control.py while_loop: a WHILE node under a capture, no host sync
+to decide when to stop.
 """
 
 from __future__ import annotations

@@ -7,10 +7,11 @@ measurements by torch.func.vmap), the reference's clamping robust kernel,
 robust rounds to convergence, then inlier-only refinement rounds.  It is
 the reference the closed-form solvers of solve/aligners.py are checked
 against; those share its two-phase loop (`two_phase`).  Each
-`lax.while_loop` of the JAX engine is a Python loop to the iteration cap
-whose state is frozen, by a per-problem `active` flag, once the loop
-condition fails: the result is the while-loop's, and the loop needs no
-host sync to decide when to stop."""
+`lax.while_loop` of the JAX engine is an ops/control.py while_loop over
+the batch of problems: a problem whose loop condition fails keeps its
+state, and the loop ends when none goes on -- a WHILE node of the CUDA
+graph under a capture, rounds to the cap with frozen state eagerly on
+the card, an early exit on the CPU; the bits are the same on all three."""
 
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from vslam_tpu_torch.ops import lie
+from vslam_tpu_torch.ops import control, lie
 
 
 class GNConfig(NamedTuple):
@@ -149,36 +150,31 @@ def two_phase(linearize, x0: torch.Tensor, mask: torch.Tensor, config: GNConfig,
 
     inf = torch.full((B,), float("inf"), device=dev)
     all_true = torch.ones_like(mask)
+    zero = torch.zeros(B, dtype=torch.int32, device=dev)
 
     # Phase 1: robust GN over all measurements.
-    x, prev, chi2 = x0, inf, torch.full((B,), 1e30, device=dev)
-    it = torch.zeros(B, dtype=torch.int32, device=dev)
-    inl, step = mask, inf
-    for _ in range(config.max_iterations):
-        active = keep_going(prev, chi2, step, it, 2, config)
+    def body1(s):
+        x, _, chi2, it, _, _ = s
         x2, new_chi2, inl2, step2 = one_round(x, all_true)
-        x = torch.where(per_problem(active, x), x2, x)
-        prev = torch.where(active, chi2, prev)
-        chi2 = torch.where(active, new_chi2, chi2)
-        inl = torch.where(active[:, None], inl2, inl)
-        step = torch.where(active, step2, step)
-        it = it + active.to(torch.int32)
-    iters = it
+        return x2, chi2, new_chi2, it + 1, inl2, step2
+
+    x, _, chi2, iters, inl, _ = control.while_loop(
+        lambda s: keep_going(s[1], s[2], s[5], s[3], 2, config), body1,
+        (x0, inf, torch.full((B,), 1e30, device=dev), zero, mask, inf),
+        config.max_iterations, name="gn phase 1")
 
     # Phase 2: inlier-only refinement with collapse rejection.
-    prev, step = inf, inf
-    it = torch.zeros(B, dtype=torch.int32, device=dev)
-    for _ in range(config.refine_iterations):
-        active = keep_going(prev, chi2, step, it, 1, config)
+    def body2(s):
+        x, _, chi2, it, inl, _ = s
         x2, new_chi2, inl2, step2 = one_round(x, inl)
         keep = torch.sum(inl2, dim=-1) >= config.min_num_inliers
-        upd = active & keep
-        x = torch.where(per_problem(upd, x), x2, x)
-        prev = torch.where(active, chi2, prev)
-        chi2 = torch.where(upd, new_chi2, chi2)
-        inl = torch.where(upd[:, None], inl2, inl)
-        step = torch.where(active, torch.where(keep, step2, 0.0), step)
-        it = it + active.to(torch.int32)
+        return (torch.where(per_problem(keep, x), x2, x), chi2,
+                torch.where(keep, new_chi2, chi2), it + 1,
+                torch.where(keep[:, None], inl2, inl), torch.where(keep, step2, 0.0))
+
+    x, _, chi2, _, inl, _ = control.while_loop(
+        lambda s: keep_going(s[1], s[2], s[5], s[3], 1, config), body2,
+        (x, inf, chi2, zero, inl, inf), config.refine_iterations, name="gn phase 2")
 
     _, _, final_chi2, final_inl = linearize(x, inl)
     if recount:

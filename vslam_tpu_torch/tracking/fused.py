@@ -10,17 +10,19 @@ spawn + refinement, the local-map trigger with its keyframe snapshot,
 the landmark eviction sweep, the adaptive search window, and one row of
 the per-frame result ring.
 
-No host reads: the three decisions the JAX package takes with lax.cond
-are taken on the device -- the retry ladder runs its attempts as one
-batched solve and selects the first accepted one, the keyframe snapshot
-is a write masked by the trigger, the eviction sweep a select on
-frame_idx.  The keyframe
-snapshot rings and the result ring are updated in place (they are large
-and only ever appended to); every other field of the state is replaced.
+No host reads: the decisions the JAX package takes with lax.cond and
+lax.while_loop are taken on the device, through ops/control.py -- the
+retry ladder's attempts 2 and 3 each under a cond on the earlier
+attempt's rejection, the keyframe snapshot under a cond on the trigger,
+the eviction sweep under one on frame_idx, and every Gauss-Newton phase
+a while_loop.  The keyframe snapshot rings and the result ring are
+updated in place (they are large and only ever appended to); every
+other field of the state is replaced.
 
 make_frame_step builds a FrameProgram: static buffers for the state and
 the frame's inputs, and on CUDA one captured CUDA graph of the step that
-every later frame replays (the JAX package's make_frame_step);
+every later frame replays (the JAX package's make_frame_step), its
+conds IF nodes and its loops WHILE nodes (control.graph_capture);
 FrameProgram.run_chunk replays it k times back to back (make_chunk_step).
 
 The split pipeline (tracking.batch_frontend, chunk_step_split) runs the
@@ -43,7 +45,7 @@ from vslam_tpu_torch.frontend import depth as depth_mod
 from vslam_tpu_torch.mapping import frame as frame_mod
 from vslam_tpu_torch.mapping import landmarks as lm_mod
 from vslam_tpu_torch.ops import camera as cam_ops
-from vslam_tpu_torch.ops import lie
+from vslam_tpu_torch.ops import control, lie
 from vslam_tpu_torch.solve import gn
 
 
@@ -284,61 +286,72 @@ def _spawn_and_update(cam, params: FusedParams, state: TrackerState, cur):
 
 
 def _take_snapshot(params, state, table, cur, T_world_cam, lm_backed, n_lm_backed, fire):
-    """The keyframe snapshot as a write masked by `fire` (the JAX
+    """The keyframe snapshot under control.cond on `fire` (the JAX
     package's lax.cond): ring row kf_count % KR of each snapshot ring is
     rewritten in place, with its old contents where fire is false.
-    Returns the table with the snapshotted slots protected from recycling
-    (also masked by fire)."""
-    KW = state.kf_slots.shape[1]
-    n_snap = torch.clamp(n_lm_backed, max=KW)
-    perm = frame_mod.stable_partition_perm(lm_backed)[:KW]
-    rank = torch.arange(KW, device=perm.device)
-    slots_s = torch.where(rank < n_snap, cur.landmark_slot[perm], -1)
-    g = torch.clamp(slots_s, min=0).to(torch.int64)
+    Returns the table with the snapshotted slots protected from recycling."""
     row = (state.kf_count % params.kf_ring_size).to(torch.int64).reshape(1)
-    for ring, new in ((state.kf_pose, T_world_cam), (state.kf_frame_idx, state.frame_idx),
-                      (state.kf_n, n_snap), (state.kf_slots, slots_s),
-                      (state.kf_xyz, table.xyz_w[g]), (state.kf_desc, table.desc[g]),
-                      (state.kf_uv4, cur.uv4[perm])):
-        ring.index_copy_(0, row, torch.where(fire, new.to(ring.dtype)[None],
-                                             ring.index_select(0, row)))
-    return table._replace(
-        protected=frame_mod._put_rows(table.protected, g, fire & (slots_s >= 0), True))
+    rings = (state.kf_pose, state.kf_frame_idx, state.kf_n, state.kf_slots, state.kf_xyz,
+             state.kf_desc, state.kf_uv4)
+
+    def take():
+        KW = state.kf_slots.shape[1]
+        n_snap = torch.clamp(n_lm_backed, max=KW)
+        perm = frame_mod.stable_partition_perm(lm_backed)[:KW]
+        rank = torch.arange(KW, device=perm.device)
+        slots_s = torch.where(rank < n_snap, cur.landmark_slot[perm], -1)
+        g = torch.clamp(slots_s, min=0).to(torch.int64)
+        new = (T_world_cam, state.frame_idx, n_snap, slots_s, table.xyz_w[g], table.desc[g],
+               cur.uv4[perm])
+        return (tuple(n.to(r.dtype)[None] for r, n in zip(rings, new)),
+                frame_mod._put_rows(table.protected, g, slots_s >= 0, True))
+
+    def keep():
+        return tuple(r.index_select(0, row) for r in rings), table.protected
+
+    rows, protected = control.cond(fire, take, keep, name="snapshot")
+    for ring, new in zip(rings, rows):
+        ring.index_copy_(0, row, new)
+    return table._replace(protected=protected)
 
 
 def _evict(params, state, table, cur, free_list, free_count):
     """Invalidate stale low-quality unprotected slots (and protected ones
     unseen for much longer), none referenced by the live frame, and push
-    them on the free stack in slot order.  The sweep runs on frames with
-    frame_idx % evict_every == evict_every - 1: on the others it is
-    computed and discarded (the JAX package's lax.cond as a select)."""
+    them on the free stack in slot order: a control.cond on the frames
+    with frame_idx % evict_every == evict_every - 1 (the JAX package's
+    lax.cond)."""
     F = free_list.shape[0]
     cap = table.capacity
     dev = free_list.device
-    age = state.frame_idx - table.last_seen
-    referenced = frame_mod._put_rows(
-        torch.zeros(cap, dtype=torch.bool, device=dev),
-        torch.clamp(cur.landmark_slot, min=0).to(torch.int64),
-        cur.landmark_slot >= 0, True,
-    )
-    cand_unprot = (~table.protected & (age > params.evict_age_frames)
-                   & (table.n_updates <= params.evict_max_updates))
-    cand_prot = table.protected & (age > params.evict_protected_age_frames)
-    cand = table.valid & ~referenced & (cand_unprot | cand_prot)
-    dest = free_count + torch.cumsum(cand.to(torch.int32), 0, dtype=torch.int32) - 1
-    push = cand & (dest < F)
-    n_push = push.sum(dtype=torch.int32)
-    ids = torch.arange(cap, dtype=torch.int32, device=dev)
-    pushed_ids = torch.sort(torch.where(push, ids, cap)).values
-    pos = torch.arange(F, dtype=torch.int32, device=dev)
-    appended = pushed_ids[torch.clamp(pos - free_count, 0, cap - 1).to(torch.int64)]
-    in_window = (pos >= free_count) & (pos < free_count + n_push)
-    sweep = state.frame_idx % params.evict_every == params.evict_every - 1
-    push = push & sweep
-    table = table._replace(valid=table.valid & ~push,
-                           protected=table.protected & ~push)
-    return (table, torch.where(in_window & sweep, appended, free_list),
-            free_count + torch.where(sweep, n_push, 0))
+
+    def sweep(valid, protected, free_list, free_count):
+        age = state.frame_idx - table.last_seen
+        referenced = frame_mod._put_rows(
+            torch.zeros(cap, dtype=torch.bool, device=dev),
+            torch.clamp(cur.landmark_slot, min=0).to(torch.int64),
+            cur.landmark_slot >= 0, True,
+        )
+        cand_unprot = (~protected & (age > params.evict_age_frames)
+                       & (table.n_updates <= params.evict_max_updates))
+        cand_prot = protected & (age > params.evict_protected_age_frames)
+        cand = valid & ~referenced & (cand_unprot | cand_prot)
+        dest = free_count + torch.cumsum(cand.to(torch.int32), 0, dtype=torch.int32) - 1
+        push = cand & (dest < F)
+        n_push = push.sum(dtype=torch.int32)
+        ids = torch.arange(cap, dtype=torch.int32, device=dev)
+        pushed_ids = torch.sort(torch.where(push, ids, cap)).values
+        pos = torch.arange(F, dtype=torch.int32, device=dev)
+        appended = pushed_ids[torch.clamp(pos - free_count, 0, cap - 1).to(torch.int64)]
+        in_window = (pos >= free_count) & (pos < free_count + n_push)
+        return (valid & ~push, protected & ~push, torch.where(in_window, appended, free_list),
+                free_count + n_push)
+
+    due = state.frame_idx % params.evict_every == params.evict_every - 1
+    valid, protected, free_list, free_count = control.cond(
+        due, sweep, lambda *a: a, (table.valid, table.protected, free_list, free_count),
+        name="eviction")
+    return table._replace(valid=valid, protected=protected), free_list, free_count
 
 
 def _ladder_inputs(params: FusedParams, state: TrackerState, T_guess):
@@ -370,23 +383,25 @@ def _accept(params: FusedParams, r) -> torch.Tensor:
 
 
 def _register(cam, params: FusedParams, state: TrackerState, cur, T_guess):
-    """The retry ladder decided on the device: every attempt runs, as one
-    batched solve (frame.track_and_align_batch), and the first accepted
-    one is selected -- the JAX package's lax.cond as it runs under vmap.
-    No attempt's inputs depend on an earlier one's result, so the
-    selection is the attempt that a host ladder stopping at the first
-    accepted one would return."""
+    """The retry ladder: attempt 1, then attempt 2 under a control.cond on
+    attempt 1's rejection and attempt 3 under one on attempt 2's (the JAX
+    package's nested lax.cond), each solved alone
+    (frame.track_and_align_batch at A = 1).  The result is the first
+    accepted attempt's, else the last's."""
     weights = lm_mod.landmark_weights(state.table, state.prev.landmark_slot)
-    radius, gate, guess = (torch.stack(x) for x in zip(*_ladder_inputs(params, state,
-                                                                      T_guess)))
-    res = frame_mod.track_and_align_batch(cam, state.prev, cur, guess, radius,
-                                          gate.to(torch.int32), weights, params.gn_config,
-                                          depth=params.mode != "stereo")
-    ok = _accept(params, res)
-    out = [f[-1] for f in res]
-    for a in reversed(range(len(ok) - 1)):
-        out = [torch.where(ok[a], f[a], o) for f, o in zip(res, out)]
-    return frame_mod.TrackResult(*out)
+    ladder = _ladder_inputs(params, state, T_guess)
+
+    def attempt(k):
+        radius, gate, guess = ladder[k]
+        return frame_mod._one_attempt(cam, state.prev, cur, guess, radius,
+                                      gate.to(torch.int32), weights, params.gn_config,
+                                      depth=params.mode != "stereo")
+
+    res = attempt(0)
+    for k in range(1, len(ladder)):
+        res = control.cond(_accept(params, res), lambda r: r,
+                           lambda r, k=k: attempt(k), (res,), name=f"attempt {k + 1}")
+    return res
 
 
 def _step_tail(cam, params: FusedParams, state: TrackerState, cur, n_kp, n_fp,
@@ -660,11 +675,15 @@ class _Program:
 
     On CUDA the first frame runs eagerly (it builds the kernels and makes
     every cache, cuBLAS handle and launcher attribute call outside any
-    capture); the second captures one frame with torch.cuda.graph (which
-    executes nothing, so the state does not advance) and replays it, and
-    every later frame is one replay: the host enqueues the graph and
-    reads nothing.  A failed capture or replay raises.  On the CPU the
-    same body runs into the same buffers, so only the replay differs.
+    capture; its loops run to their caps and its conds compute both
+    branches); the second captures one frame with control.graph_capture
+    (which executes nothing, so the state does not advance; the conds
+    become IF nodes and the loops WHILE nodes) and replays it, and every
+    later frame is one replay: the host enqueues the graph and reads
+    nothing.  A failed capture or replay raises.  On the CPU the same body
+    runs into the same buffers, so only the replay differs.  `record`
+    holds the capture's control.Record: after a replay, its loops'
+    iterations and its conds' predicates.
 
     Kernel launch counts (dense_brief.kernel_counters) count Python
     calls; a replay adds the launches its capture made once each, and
@@ -684,6 +703,7 @@ class _Program:
         self.graph = None
         self.frames = 0  # frames run
         self.capture_seconds = None
+        self.record = None  # control.Record of the capture
         # Per replay: kernel name -> (launches, launches by batch size).
         self.replay_launches: dict[str, tuple[int, Counter]] = {}
 
@@ -702,8 +722,10 @@ class _Program:
                                "CUDA first")
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with withheld_launches(self.replay_launches), torch.cuda.graph(graph):
+        with withheld_launches(self.replay_launches), \
+                control.graph_capture(graph, self.device) as record:
             self._body()
+        self.record = record
         self.capture_seconds = time.perf_counter() - t0
         self.graph = graph
 
