@@ -198,17 +198,42 @@ Phases (each raises on failure; the exit code is then non-zero):
                yaw-perturbed odometry): the IF nodes of attempts 2 and 3
                take their retries on exactly the frames where a host
                ladder reaches those attempts.
+ 22. bench — bench.py on the port (eval/workloads.run_bench), its one JSON
+               line printed: an engine over the BA-enabled closed loop's
+               128 frames and the pose-graph, BA and ICP warm-ups, then the
+               timed closed and ba-closed engines, fresh, on the programs the
+               warm-up captured (fused.make_frame_step and the ICP buckets
+               are one per process): phases 7-8's events and ATE to every
+               digit, no eager frame, no capture and no eager ICP batch
+               inside either timed loop (fused.EVENTS, relocalizer.EVENTS),
+               one replay a frame; the open-loop tracker-only rates (fused,
+               and the split front-end), the device-only rate (every frame's
+               replay back to back, one sync), the stage ms/frame, the
+               warm-up's seconds and each timed engine's first handle;
+               launches zeroed before and read after: K1 once a frame in
+               five 128-frame runs and once a split chunk, no K2/K3/K4;
+ 23. scale — the KITTI-00-scale run inside phase 22 (eval/scale_run.py,
+               1,024 frames of 2.5 laps of a 65 m circle through 26,000
+               points, windowed BA every 128 frames, blocks of 128 frames
+               rendered and prestaged off the clock), counted on its own:
+               ate_ok, 0 breaks, closures after local map 150, 1,024 K1
+               launches; local maps, closures, optimizations, BA runs,
+               merged landmarks, DB rows, live table rows, peak device
+               memory, ms/frame and the stage table.
+Every drive_slice run (phases 6, 9-11, 15-16) and phases 7-8 start from
+an empty program cache (fresh_programs), so the engine's first frame
+runs eagerly there, as before the programs were shared.
 Every run of the fused tracker (phases 6-17) steps through that program
 (phases 15-16: the chunk's front-end eagerly, then each frame's tail as
 a replay): each replay adds its capture's launches to the counts.  Phase
 20 (the modular tracker) runs eagerly, as its JAX counterpart does.  Phases 7 and 8 are also held to the events and ATE this
 script printed before the program existed (CARD_CLOSED, CARD_BA_CLOSED).
 The phases run in the order 1-5, 21, 6a, 6b, 15, 16, 18, 6c, 7, 8, 20,
-9-14, 17, 19: phases 15-16 next to the runs they are compared with.
+9-14, 17, 19, 22-23: phases 15-16 next to the runs they are compared with.
 The JAX counts printed beside phases 6-11, 15-16 and 20 come from
 chip_smoke_jax_reference.py.  The script then prints its wall time, the
 kernel record (one JSON line: launches summed over the runs of phases
-6-10, 12-16, 20 and 21, bit-equality, times, bound, share of the bound,
+6-10, 12-16 and 20-23, bit-equality, times, bound, share of the bound,
 shared-load floor, blocks per SM, loads a pixel; K3's times at 480x640;
 K1 and K2 at the split chunk's B = 64 as entries of their own), the card's name
 and power limit (nvidia-smi), and last {"ok": true, "device": {...}}.
@@ -603,9 +628,21 @@ def phase_k2_probe(card):
     torch.cuda.synchronize()
 
 
+def fresh_programs():
+    """Forget the shared tracker and ICP programs: the engine built next
+    runs its first frame (and its first ICP batch a bucket) eagerly, as
+    the first engine of a process does."""
+    from vslam_tpu_torch.loop import relocalizer as rl
+    from vslam_tpu_torch.tracking import fused
+
+    fused.clear_programs()
+    rl.clear_icp_programs()
+
+
 def run_engine(cam, cfg, frames, device, n_frames, harvest_every=None):
     from vslam_tpu_torch.system.engine import SlamEngine
 
+    fresh_programs()
     engine = SlamEngine(cam, cfg, landmark_capacity=65536, device=device)
     if harvest_every is not None:
         engine.tracker.harvest_every = harvest_every
@@ -730,6 +767,7 @@ def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card_before, card
 
     n = len(frames)
     ba_on = cfg.graph_optimization.enable_full_bundle_adjustment
+    fresh_programs()
     engine = SlamEngine(cam, cfg, landmark_capacity=65536, device="cuda")
     handles = engine.tracker.prestage(frames)
     sizes = []  # (P, L) of each BA problem
@@ -812,7 +850,7 @@ def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card_before, card
     if ba_on:
         print(f"[{label}] {rep['n_ba_runs']} BA runs; (P cameras, L landmarks) of each "
               f"problem: {sizes}")
-    icp_check(label, engine, icp_events, drains, card)
+    icp_check(label, icp_events, drains, card)
     if counts != {"K1": n, "K2": 0, "K3": 0, "K4": 0}:
         raise AssertionError(f"{label}: launches {counts}, expected {n} K1 only")
     if rep["n_track_breaks"] != 0:
@@ -839,14 +877,17 @@ def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card_before, card
     return counts
 
 
-def icp_check(label, engine, icp_events, drains, card):
-    """The closure ICP programs of a closed-loop run: each captured
+def icp_check(label, icp_events, drains, card):
+    """The closure ICP programs of a closed-loop run (the process's
+    shared programs, emptied by fresh_programs before the run): each captured
     bucket's last replay bit-equal to the eager solve of the same padded
     batch (its input buffers still hold it); the device ms of the ICP
     batches (CUDA events around each ICPProgram.run) by route, and ICP ms
     a drain that dispatched ICP (the capturing batch, whose window holds
     the host's capture, left out)."""
-    progs = engine.relocalizer.icp_programs
+    from vslam_tpu_torch.loop import relocalizer as rl
+
+    progs = rl._PROGRAMS
     captured = [(key, p) for key, p in progs.items() if p.graph is not None]
     timing = []
     for key, prog in captured:
@@ -1084,7 +1125,7 @@ def program_parity(label, cam, cfg, frames, card, measure=False):
     thr0 = fp.detector_threshold_starting_value
 
     def program():
-        return fused.make_frame_step(cam, params, fused.init_state(cam, params, 65536, thr0),
+        return fused.FrameProgram(cam, params, fused.init_state(cam, params, 65536, thr0),
                                      motion_on, staged.dtype, depth_calib=calib)
 
     eager = fused.init_state(cam, params, 65536, thr0)
@@ -1223,7 +1264,7 @@ def guided_ladder(card):
     cfg.framepoint_generation.border_pixels = 12
     params = ttr.params_from_config(cam, cfg, dev)
     eager = fused.init_state(cam, params, 16384, 20.0)
-    prog = fused.make_frame_step(cam, params, fused.init_state(cam, params, 16384, 20.0),
+    prog = fused.FrameProgram(cam, params, fused.init_state(cam, params, 16384, 20.0),
                                  True, torch.uint8, odometry=True)
     reached, taken = [], []
     for t in range(8):
@@ -1277,7 +1318,7 @@ def split_program_parity(cam, cfg, frames, card):
     thr0 = cfg.framepoint_generation.detector_threshold_starting_value
     chunk = torch.from_numpy(np.stack([np.stack(f) for f in frames]).astype(np.uint8)).to(dev)
     eager = fused.init_state(cam, params, 65536, thr0)
-    prog = fused.make_track_step(cam, params, fused.init_state(cam, params, 65536, thr0), True)
+    prog = fused.TrackProgram(cam, params, fused.init_state(cam, params, 65536, thr0), True)
     reset_counts()
     imgs = fused._chunk_images(cam, params, chunk)
     front = fused.chunk_front_end(cam, params, eager.threshold.clone(), imgs)
@@ -2226,6 +2267,100 @@ def phase_sharded(closed, ba_closed, card):
           f"{float(outs[0]['ba_seconds']):.3f} s a sharded solve ({card})")
 
 
+def phase_bench(card):
+    """Phases 22-23: run_bench as bench.py runs it (an empty program
+    cache first, so its warm engine and warm-ups do the warming), the
+    scale run inside it counted on its own (launches and peak memory
+    around scale_run.run_scale).  The timed closed and ba-closed engines
+    are held to phases 7-8's events and ATE and to no eager frame, no
+    capture and no eager ICP batch.  Returns (bench launches, scale
+    launches)."""
+    from vslam_tpu_torch.eval import scale_run, workloads
+
+    fresh_programs()
+    run_scale, scale = scale_run.run_scale, {}
+
+    def scale_counted(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = read_counts()
+        out = run_scale(*args, **kwargs)
+        scale.update(out=dict(out), launches={k: v - before[k] for k, v in read_counts().items()},
+                     peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+        return out
+
+    scale_run.run_scale = scale_counted
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        line = workloads.run_bench("cuda")
+    finally:
+        scale_run.run_scale = run_scale
+    wall = time.perf_counter() - t0
+    total = read_counts()
+    if "launches" not in scale:
+        raise AssertionError("[scale] run_bench did not run the scale run")
+    bench = {k: total[k] - scale["launches"][k] for k in total}
+    x = line["extra"]
+    print(json.dumps(line))
+    n = x["n_frames"]
+    print(f"[bench] {wall:.1f} s in all; warm-up {x['warmup_s']:.2f} s (an engine over the BA "
+          f"run's {n} frames, then the pose-graph, BA and ICP warm-ups); closed "
+          f"{x['ms_per_frame']:.2f} ms/frame ({line['value']} fps), its first handle "
+          f"{x['first_chunk_ms_per_frame']:.2f} ms/frame; ba-closed "
+          f"{x['ms_per_frame_with_ba']:.2f} ms/frame, first handle "
+          f"{x['first_chunk_ms_per_frame_with_ba']:.2f}; tracker only "
+          f"{x['tracker_only_fps']} fps, split front-end {x['tracker_split_frontend_fps']} fps; "
+          f"device only {x['device_compute_fps']} fps ({x['device_ms_per_frame']} ms/frame) "
+          f"({card})")
+    print(f"[bench] stage ms/frame of the closed run: {x['stage_ms_per_frame']}")
+    print(f"[bench] program events inside the timed runs: closed {x['program_events']}, "
+          f"ba-closed {x['program_events_with_ba']}; launches {bench} (by batch size "
+          f"{read_batches()})")
+    got = {"n_local_maps": x["n_local_maps"], "n_optimizations": x["n_pose_graph_optimizations"],
+           "n_merged_landmarks": x["n_merged_landmarks"], "ate_m": x["ate_rmse_m"],
+           "closures": [tuple(c) for c in x["closures"]]}
+    if got != CARD_CLOSED or x["tracking_breaks"] != 0:
+        raise AssertionError(f"[bench] closed: {got}, {x['tracking_breaks']} breaks; phase 7 "
+                             f"gives {CARD_CLOSED}")
+    got_ba = {"n_ba_runs": x["n_ba_runs"], "ate_m": x["ate_rmse_m_with_ba"]}
+    if got_ba != CARD_BA_CLOSED or x["tracking_breaks_with_ba"] != 0:
+        raise AssertionError(f"[bench] ba-closed: {got_ba}; phase 8 gives {CARD_BA_CLOSED}")
+    for run in ("program_events", "program_events_with_ba"):
+        ev = x[run]
+        if any(ev.get(k, 0) for k in ("eager", "capture", "icp eager", "icp capture")) or (
+                ev.get("replay", 0) != n):
+            raise AssertionError(f"[bench] {run}: {ev}: a timed engine ran an eager frame, a "
+                                 f"capture or an eager ICP batch, or not {n} replays")
+    # Warm-up, closed, ba-closed, tracker only and device only one K1 a
+    # frame; the split front-end one a chunk of 32 frames (B = 64).
+    want = {"K1": 5 * n + -(-n // SPLIT_CHUNK), "K2": 0, "K3": 0, "K4": 0}
+    if bench != want:
+        raise AssertionError(f"[bench] launches {bench}, expected {want}")
+
+    out = scale["out"]
+    print(f"[scale] {out['n_frames']} frames of a {out['path_length_m']} m circuit: ATE "
+          f"{out['ate_rmse_m']} m (ate_ok {out['ate_ok']}), {out['n_local_maps']} local maps, "
+          f"{out['n_closures']} closures ({out['closures_after_map_150']} after map 150), "
+          f"{out['n_pose_graph_optimizations']} optimizations, {out['n_ba_runs']} BA runs, "
+          f"{out['n_merged_landmarks']} merged, {out['reloc_db_rows']} DB rows, "
+          f"{out['landmark_table_live_rows']} live table rows, {out['tracking_breaks']} breaks, "
+          f"launches {scale['launches']}, peak device memory {scale['peak_mib']:.1f} MiB")
+    print(f"[scale] {1e3 / out['fps']:.2f} ms/frame ({out['fps']} fps; process "
+          f"{out['process_s']} s, render {out['render_s']} s off the clock) ({card})")
+    for stage, row in out["stage_table"].items():
+        print(f"[scale] stage {stage:24s} {row['seconds']:9.4f} s in {row['calls']} calls")
+    if out["n_frames"] != workloads.SCALE_FRAMES:
+        raise AssertionError(f"[scale] {out['n_frames']} frames, not {workloads.SCALE_FRAMES}")
+    if not (out["ate_ok"] and out["tracking_breaks"] == 0
+            and out["closures_after_map_150"] > 0):
+        raise AssertionError(f"[scale] ate_ok {out['ate_ok']}, {out['tracking_breaks']} "
+                             f"breaks, {out['closures_after_map_150']} closures after map 150")
+    if scale["launches"] != {"K1": out["n_frames"], "K2": 0, "K3": 0, "K4": 0}:
+        raise AssertionError(f"[scale] launches {scale['launches']}")
+    return bench, scale["launches"]
+
+
 def mark(t_start, label):
     """The smoke's clock at the start of a phase (where the time goes)."""
     print(f"[smoke] {time.perf_counter() - t_start:.1f} s: {label}", flush=True)
@@ -2302,6 +2437,9 @@ def main():
     mark(t_start, "fast-icp, sharded")
     phase_fast_icp(closed, card)
     phase_sharded(closed, ba_closed, card)
+    mark(t_start, "bench, scale")
+    for counts in phase_bench(card):
+        launches = {k: launches[k] + counts[k] for k in launches}
 
     sources = {"K1": ("fast_brief_frontend_pair", "fast_brief_frontend.cu",
                       "vslam_tpu/frontend/pallas_frontend.py:196")}

@@ -190,17 +190,50 @@ def test_cli_dump_without_matplotlib_fails_before_the_run(kitti_seq, tmp_path):
     assert not (tmp_path / "est.txt").exists()
 
 
+# The keys of bench.py's JSON line and of its "extra" (bench.py:248-283).
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "extra")
+BENCH_EXTRA_KEYS = (
+    "ate_rmse_m", "ba_enabled", "fps_with_ba", "ate_rmse_m_with_ba", "n_ba_runs",
+    "loop_length_m", "n_frames", "resolution", "backend", "n_local_maps", "n_closures",
+    "n_pose_graph_optimizations", "n_recovered_landmarks", "tracking_breaks",
+    "tracker_only_fps", "tracker_split_frontend_fps", "device_compute_fps",
+    "device_ms_per_frame", "stage_ms_per_frame", "kitti00_scale_run")
+# scripts/scale_run.py's keys, without the stage table bench.py drops.
+SCALE_KEYS = (
+    "n_frames", "ate_ok", "fps", "render_s", "process_s", "ate_rmse_m", "path_length_m",
+    "n_local_maps", "n_closures", "n_pose_graph_optimizations", "n_ba_runs",
+    "n_merged_landmarks", "reloc_db_rows", "landmark_table_live_rows", "landmarks_spawned",
+    "tracking_breaks", "closures_after_map_150")
+
+
 def test_cli_bench_runs_the_workload(capsys, monkeypatch):
-    """`bench` prints one JSON line: the closed-loop workload and its
-    BA-enabled variant, here on the first 4 frames on the CPU."""
-    from vslam_tpu_torch.eval import workloads
+    """`bench` prints bench.py's one JSON line from the port's runs: the
+    warmed closed loop and its BA-enabled variant, the tracker-only and
+    device-only rates, the stage ms/frame and the scale run, here on the
+    first 4 frames (the scale run on 6 frames of a small circle) on the
+    CPU."""
+    from vslam_tpu_torch.eval import scale_run, workloads
 
     monkeypatch.setattr(workloads, "run_bench",
                         functools.partial(workloads.run_bench, n_frames=4))
+    monkeypatch.setattr(workloads, "SCALE_FRAMES", 6)
+    monkeypatch.setattr(scale_run, "run_scale", functools.partial(
+        scale_run.run_scale, radius=13.0, laps=0.05, n_points=3000, block=4))
     tcli.main(["bench", "--device", "cpu"])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert line["device"] == "cpu" and line["card"] is None and line["frames"] == 4
-    for run in (line, line["ba"]):
-        assert np.isfinite(run["ms_per_frame"]) and run["ms_per_frame"] > 0
-        assert run["n_track_breaks"] == 0 and run["ate_rmse_m"] < 0.05
-        assert run["n_local_maps"] >= 1 and run["n_ba_runs"] == 0
+    assert set(BENCH_KEYS) <= set(line) and line["metric"] == "closed_loop_frames_per_second"
+    extra = line["extra"]
+    assert set(BENCH_EXTRA_KEYS) <= set(extra)
+    assert extra["backend"] == "cpu" and extra["card"] is None and extra["n_frames"] == 4
+    assert line["value"] > 0 and line["vs_baseline"] == round(line["value"] / 40.0, 3)
+    for k in ("fps_with_ba", "tracker_only_fps", "tracker_split_frontend_fps",
+              "device_compute_fps", "device_ms_per_frame", "ms_per_frame", "warmup_s",
+              "first_chunk_ms_per_frame", "ms_per_frame_with_ba"):
+        assert np.isfinite(extra[k]) and extra[k] > 0, k
+    assert extra["tracking_breaks"] == 0 and extra["ate_rmse_m"] < 0.05
+    assert extra["tracking_breaks_with_ba"] == 0 and extra["ate_rmse_m_with_ba"] < 0.05
+    assert extra["n_ba_runs"] == 0 and extra["n_local_maps_with_ba"] >= 1
+    assert extra["n_local_maps"] >= 1 and "frame_step_dispatch" in extra["stage_ms_per_frame"]
+    scale = extra["kitti00_scale_run"]
+    assert set(scale) == set(SCALE_KEYS), scale
+    assert scale["n_frames"] == 6 and scale["tracking_breaks"] == 0 and scale["ate_ok"]

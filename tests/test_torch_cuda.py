@@ -505,7 +505,7 @@ def test_frame_program_equals_the_eager_step_on_the_card(route):
     staged = torch.from_numpy(np.stack(frames)).to(dev)
     params = ttracker.params_from_config(cam, cfg, dev)
     eager = fused.init_state(cam, params, 8192, 20.0)
-    prog = fused.make_frame_step(cam, params, fused.init_state(cam, params, 8192, 20.0),
+    prog = fused.FrameProgram(cam, params, fused.init_state(cam, params, 8192, 20.0),
                                  True, staged.dtype)
     counters = db.kernel_counters()
     for i, imgs in enumerate(staged):
@@ -550,7 +550,7 @@ def test_track_program_equals_the_eager_tails_on_the_card():
                                        for t in range(8)]).astype(np.uint8)).to(dev)
     params = ttracker.params_from_config(cam, cfg, dev)
     eager = fused.init_state(cam, params, 8192, 20.0)
-    prog = fused.make_track_step(cam, params, fused.init_state(cam, params, 8192, 20.0), True)
+    prog = fused.TrackProgram(cam, params, fused.init_state(cam, params, 8192, 20.0), True)
     imgs = fused._chunk_images(cam, params, chunk)
     front = fused.chunk_front_end(cam, params, eager.threshold.clone(), imgs)
     for i in range(8):
@@ -752,3 +752,41 @@ def test_captured_icp_batch_equals_its_eager_batch():
         assert bool(got.converged[:B].all())
     assert prog.graph is not None and prog.uses == 4
     assert [kind for kind, _, _ in prog.record.read()] == ["while", "while"]
+
+
+@pytest.mark.cuda
+def test_engine_after_a_warm_engine_replays_from_its_first_frame():
+    """bench.py's order on the card: an engine over the frames, the ICP
+    warm-up, then a fresh engine of the same configuration.  The second
+    engine replays the first one's captured program from its first frame
+    (no eager frame, no capture) and gives its trajectory bit for bit."""
+    _need_card()
+    from vslam_tpu_torch.loop import relocalizer as rl
+    from vslam_tpu_torch.tracking import fused
+
+    cam = cam_ops.make_camera(fx=300.0, fy=300.0, cx=256.0, cy=96.0, baseline_m=0.4,
+                              rows=192, cols=512, device="cpu")
+    world = synthetic.make_world(cam, n_points=1500, seed=21,
+                                 poses=synthetic.circle_trajectory(48, radius=7.0))
+    frames = [synthetic.render_frame(world, t)[:2] for t in range(24)]
+    cfg = ParameterCollection()
+    cfg.framepoint_generation.capacity = 256
+    cfg.parallelism.frames_per_chunk = 8
+    fused.clear_programs()
+    rl.clear_icp_programs()
+
+    def run():
+        eng = SlamEngine(cam, cfg, landmark_capacity=8192, device="cuda")
+        for h in eng.tracker.prestage(frames):
+            eng.process_prestaged(h)
+        return eng, eng.trajectory
+
+    warm, want = run()
+    rl.warm_icp_batches(cfg.relocalization, device="cuda")
+    assert all(p.graph is not None for p in rl._PROGRAMS.values())
+    before = fused.EVENTS.copy()
+    eng, got = run()
+    assert eng.tracker.program is warm.tracker.program
+    delta = fused.EVENTS - before
+    assert delta["eager"] == 0 and delta["capture"] == 0 and delta["replay"] == len(frames)
+    np.testing.assert_array_equal(got, want)

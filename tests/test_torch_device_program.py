@@ -330,7 +330,7 @@ def test_forced_retries_match_jax_make_frame_step(guided, jax_setup):
         js, _ = jstep(jc, js, jnp.asarray(imgs[None]), 0, jnp.asarray(True),
                       jnp.asarray(T[None]), jnp.asarray(True))
     params = ttracker.params_from_config(cam, _fused_config(TConfig), CPU)
-    prog = tfused.make_frame_step(cam, params, tfused.init_state(cam, params, 16384, 20.0),
+    prog = tfused.FrameProgram(cam, params, tfused.init_state(cam, params, 16384, 20.0),
                                   True, torch.uint8, odometry=True)
     for imgs, T in zip(torch.from_numpy(frames), torch.from_numpy(odom)):
         prog.run(imgs, T)
@@ -354,7 +354,7 @@ def test_program_equals_the_eager_step():
     params = ttracker.params_from_config(cam, cfg, CPU)._replace(
         evict_every=5, evict_age_frames=2, evict_max_updates=100)
     eager = tfused.init_state(cam, params, 8192, 20.0)
-    prog = tfused.make_frame_step(cam, params, tfused.init_state(cam, params, 8192, 20.0),
+    prog = tfused.FrameProgram(cam, params, tfused.init_state(cam, params, 8192, 20.0),
                                   True, torch.uint8)
     buffers = [t for _, t in tfused.state_tensors(prog.state)]
     freed = 0
@@ -382,7 +382,7 @@ def test_run_chunk_matches_jax_make_chunk_step(guided, jax_setup):
     jchunk = jfused.make_chunk_step(jparams)
     js = jfused.init_state(jc, jparams, 16384, 20.0)
     params = ttracker.params_from_config(cam, _fused_config(TConfig), CPU)
-    prog = tfused.make_frame_step(cam, params, tfused.init_state(cam, params, 16384, 20.0),
+    prog = tfused.FrameProgram(cam, params, tfused.init_state(cam, params, 16384, 20.0),
                                   True, torch.uint8, odometry=True)
     for start, k in ((0, 4), (4, 2)):
         buf = np.zeros((C,) + frames.shape[1:], np.uint8)
@@ -518,7 +518,7 @@ def test_track_program_equals_chunk_step_split():
     chunk = torch.from_numpy(np.stack([np.stack(f) for f in frames[:8]]).astype(np.uint8))
     eager = tfused.chunk_step_split(cam, params, tfused.init_state(cam, params, 2048, 60.0),
                                     chunk, 8, True)
-    prog = tfused.make_track_step(cam, params, tfused.init_state(cam, params, 2048, 60.0), True)
+    prog = tfused.TrackProgram(cam, params, tfused.init_state(cam, params, 2048, 60.0), True)
     imgs = tfused._chunk_images(cam, params, chunk)
     front = tfused.chunk_front_end(cam, params, prog.state.threshold.clone(), imgs)
     for i in range(8):
@@ -564,7 +564,7 @@ def test_state_writers_refuse_another_shape_or_dtype():
     tr.state = st._replace(T_world_cam=st.T_world_cam + 1.0, T_last_kf=st.T_world_cam)
     assert torch.equal(tr.state.T_last_kf, torch.eye(4))
     with pytest.raises(ValueError, match="share memory"):
-        tfused.make_frame_step(cam, tr.params, st._replace(last_motion=st.T_world_cam), True,
+        tfused.FrameProgram(cam, tr.params, st._replace(last_motion=st.T_world_cam), True,
                                torch.uint8)
 
 
@@ -601,7 +601,7 @@ def test_replays_add_the_launches_their_capture_withheld(monkeypatch):
         cam = tcam.make_camera(fx=300, fy=300, cx=64, cy=32, baseline_m=0.4, rows=64,
                                cols=128, device="cpu")
         params = ttracker.params_from_config(cam, TConfig(), CPU)
-        prog = tfused.make_frame_step(cam, params, tfused.init_state(cam, params, 256, 20.0),
+        prog = tfused.FrameProgram(cam, params, tfused.init_state(cam, params, 256, 20.0),
                                       True, torch.uint8)
         prog.graph, prog.replay_launches = _FakeGraph(), record
         n = 7

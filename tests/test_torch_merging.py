@@ -11,6 +11,7 @@ rtol 1e-6 on top (measured 1.9e-7: one ulp).
 """
 
 import os
+import subprocess
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +33,31 @@ if os.environ.get("PYTEST_XDIST_WORKER"):
 
 CAP = 256
 INT_FIELDS = ("desc", "n_updates", "last_seen", "valid", "origin_kf", "protected")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def native_lib(tmp_path_factory):
+    """The native library, built privately from native/src (the JAX
+    package's lazy shared build may race under xdist or be missing), as
+    tests/test_torch_io.py builds it."""
+    so = tmp_path_factory.mktemp("native") / "libvslam_native.so"
+    subprocess.run(["g++", "-O3", "-fPIC", "-std=c++17",
+                    os.path.join(REPO, "native", "src", "vslam_native.cpp"), "-o", str(so),
+                    "-shared", "-lz", "-lpthread"], check=True, timeout=300)
+    return str(so)
+
+
+def _pin_library(library, monkeypatch, native_lib):
+    """The JAX union-find's route: the private native build, or the
+    Python fallback."""
+    if library == "fallback":
+        monkeypatch.setattr(native, "get_lib", lambda: None)
+        return
+    monkeypatch.setattr(native, "_SO_PATH", native_lib)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_lib_tried", False)
+    assert native.available()
 
 
 def _pairs(seed=0):
@@ -44,11 +70,8 @@ def _pairs(seed=0):
 
 
 @pytest.mark.parametrize("library", ["native", "fallback"])
-def test_union_find_remap_matches_jax(library, monkeypatch):
-    if library == "fallback":
-        monkeypatch.setattr(native, "get_lib", lambda: None)
-    elif not native.available():
-        pytest.skip("native library not built")  # as tests/test_native.py
+def test_union_find_remap_matches_jax(library, monkeypatch, native_lib):
+    _pin_library(library, monkeypatch, native_lib)
     for seed in range(3):
         pairs = _pairs(seed)
         want = native.union_find(pairs)
@@ -118,15 +141,12 @@ class _Allocator:
 
 
 @pytest.mark.parametrize("library", ["native", "fallback"])
-def test_merge_landmarks_matches_jax(library, monkeypatch):
+def test_merge_landmarks_matches_jax(library, monkeypatch, native_lib):
     """The JAX package releases the absorbed slots in its union-find's
     remap order: ascending with the native library, insertion order with
     its Python fallback (used where the library is not built).  The port
     always releases them ascending, as the native library does."""
-    if library == "fallback":
-        monkeypatch.setattr(native, "get_lib", lambda: None)
-    elif not native.available():
-        pytest.skip("native library not built")  # as tests/test_native.py
+    _pin_library(library, monkeypatch, native_lib)
     jt = _table(seed=2)
     corr = _pairs(seed=4)
     jalloc = jlm.SlotAllocator(CAP)

@@ -28,6 +28,7 @@ the ranks' winners are combined (parallel/sharded_search.py).
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass
 from itertools import chain
 
@@ -197,7 +198,11 @@ class ICPProgram:
 
     capture=False keeps every use eager: FAST-ICP's Procrustes step calls
     torch.linalg.svd, whose error check reads the card, so it cannot be
-    captured."""
+    captured.
+
+    The relocalizers of a process share one program a key (icp_program,
+    the JAX package's memoized _batched_icp_solver); on CUDA, EVENTS
+    counts their eager batches, captures and replays."""
 
     def __init__(self, solve, config: gn.GNConfig, B: int, cap: int, device,
                  capture: bool = True):
@@ -230,18 +235,67 @@ class ICPProgram:
         self.fix[n:].zero_()
         self.mask[n:].fill_(False)
         self.T0[n:].copy_(self.eye.expand_as(self.T0[n:]))
-        if self.device.type != "cuda" or self.uses == 0 or not self.capture:
+        cuda = self.device.type == "cuda"
+        if not cuda or self.uses == 0 or not self.capture:
             res = self._solve()
+            if cuda:
+                EVENTS["eager"] += 1
         else:
             if self.graph is None:
                 graph = torch.cuda.CUDAGraph()
                 with control.graph_capture(graph, self.device) as record:
                     self.out = self._solve()
                 self.graph, self.record = graph, record
+                EVENTS["capture"] += 1
             self.graph.replay()
+            EVENTS["replay"] += 1
             res = gn.GNResult(*(t.clone() for t in self.out))
         self.uses += 1
         return res
+
+
+# Eager batches, captures and replays of every ICPProgram (CUDA only).
+EVENTS: Counter = Counter()
+# The process's ICP programs, by (aligner, bucket, cap, config, device).
+_PROGRAMS: dict[tuple, ICPProgram] = {}
+
+
+def icp_program(p: RelocalizationParameters, bucket: int, device) -> ICPProgram:
+    """The process's closure ICP program for a bucket of this
+    configuration on this device (one per key, as the JAX package's
+    memoized _batched_icp_solver and its jit cache)."""
+    cap, config, device = int(p.icp_correspondence_cap), _icp_config(p), resolve_device(device)
+    key = (p.aligner_type, bucket, cap, config, device)
+    if key not in _PROGRAMS:
+        fast = p.aligner_type == "FAST-ICP"
+        _PROGRAMS[key] = ICPProgram(anderson.fast_icp_align if fast else aligners.icp_align,
+                                    config, bucket, cap, device, capture=not fast)
+    return _PROGRAMS[key]
+
+
+def clear_icp_programs() -> None:
+    """Forget every shared ICP program."""
+    _PROGRAMS.clear()
+
+
+def warm_icp_batches(params: RelocalizationParameters, buckets=ICP_BUCKETS,
+                     device=DEFAULT_DEVICE) -> None:
+    """Run the batched ICP program of each bucket on the JAX package's
+    warm-up problem (no points, every row masked in, the identity guess)
+    until it is captured, so a later closure batch replays it (the JAX
+    package's warm_icp_batches, which compiles the buckets).  FAST-ICP's
+    programs stay eager; one batch warms them."""
+    for B in buckets:
+        prog = icp_program(params, B, device)
+        cap, dev = prog.mov.shape[1], prog.device
+        zeros = torch.zeros((B, cap, 3), dtype=torch.float32, device=dev)
+        args = (zeros, zeros, torch.ones((B, cap), dtype=torch.bool, device=dev),
+                torch.eye(4, dtype=torch.float32, device=dev).repeat(B, 1, 1))
+        prog.run(*args)
+        if dev.type == "cuda" and prog.capture and prog.graph is None:
+            prog.run(*args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 class Relocalizer:
@@ -279,8 +333,6 @@ class Relocalizer:
         self._slot_maps: dict[int, list[int]] = {}
         self._slot_in_db: set[int] = set()
         self._map_slot_row: dict[int, dict[int, int]] = {}
-        # (aligner, bucket, cap) -> ICPProgram
-        self.icp_programs: dict[tuple, ICPProgram] = {}
 
     def _active_prefix(self) -> int:
         """Power-of-two bucket (>= 1024) covering the live rows."""
@@ -524,13 +576,7 @@ class Relocalizer:
                 mov[i, :c.n] = c.query.xyz_kf[c.q_rows[:c.n]]
                 fix[i, :c.n] = c.reference.xyz_kf[c.r_rows[:c.n]]
             mov, fix = torch.from_numpy(mov).to(dev), torch.from_numpy(fix).to(dev)
-        key = (p.aligner_type, icp_bucket(B), cap)
-        prog = self.icp_programs.get(key)
-        if prog is None:
-            fast = p.aligner_type == "FAST-ICP"
-            prog = self.icp_programs[key] = ICPProgram(
-                anderson.fast_icp_align if fast else aligners.icp_align, _icp_config(p),
-                key[1], cap, dev, capture=not fast)
+        prog = icp_program(p, icp_bucket(B), dev)
         batch = ICPBatch(res_dev=prog.run(mov, fix, mask, torch.from_numpy(T0).to(dev)))
         return [ICPJob(query=c.query, reference=c.reference, q_rows=c.q_rows,
                        r_rows=c.r_rows, n=c.n, batch=batch, index=i)

@@ -14,8 +14,9 @@ keyframe / trajectory bookkeeping.
 
 Against the JAX runner: the landmark count is the true one (JAX pads it
 to a power of two for its compile cache; padded rows are masked and
-change nothing), there is no warm-up compile, and the observations always
-ride the harvest in f32, so no archive fetch exists.
+change nothing), and the observations always ride the harvest in f32, so
+no archive fetch exists.  warm_windowed_ba runs one solve at JAX's
+warm-up size before a timed run, as JAX compiles it there.
 """
 
 from __future__ import annotations
@@ -231,3 +232,33 @@ def run_windowed_ba(engine, iterations: int | None = None) -> np.ndarray | None:
     if engine.world_map._last_T is not None:
         engine.world_map._last_T = (C_last @ engine.world_map._last_T).astype(np.float32)
     return C_last
+
+
+def warm_windowed_ba(engine) -> None:
+    """Solve one windowed problem at the JAX package's warm-up size (L =
+    2048 landmarks seen twice by the first camera, P = WINDOW cameras)
+    with the engine's BAConfig, on its device or its landmark mesh, so
+    the first BA of a timed run meets warm kernels and libraries (the JAX
+    package's warm_windowed_ba, which compiles it).  Nothing when BA is
+    off or the engine runs on the CPU, as in JAX."""
+    if not engine.cfg.graph_optimization.enable_full_bundle_adjustment:
+        return
+    if engine.device.type == "cpu":
+        return
+    L, dev = 2048, engine.device
+    rng = np.random.default_rng(0)
+    xyz = rng.uniform(-5, 5, (L, 3)).astype(np.float32)
+    xyz[:, 2] += 10.0
+    eye = torch.eye(4, dtype=torch.float32, device=dev).repeat(WINDOW, 1, 1)
+    prob = ba_mod.BAProblem(
+        T_wc=eye, xyz=torch.from_numpy(xyz).to(dev),
+        obs_cam=torch.zeros((L, OMAX), dtype=torch.int64, device=dev),
+        obs_uv4=torch.zeros((L, OMAX, 4), dtype=torch.float32, device=dev),
+        obs_weight=torch.ones((L, OMAX), dtype=torch.float32, device=dev),
+        obs_mask=(torch.arange(OMAX, device=dev) < 2)[None, :].repeat(L, 1),
+        lm_valid=torch.ones(L, dtype=torch.bool, device=dev),
+        cam_fixed=torch.arange(WINDOW, device=dev) == 0,
+        odo_T=eye.clone(), odo_weight=torch.ones(WINDOW, dtype=torch.float32, device=dev),
+        odo_info=torch.ones(6, dtype=torch.float32, device=dev))
+    solve_window(engine, prob, ba_config(engine))
+    torch.cuda.synchronize(dev)

@@ -11,8 +11,10 @@ with subcommands:
             (trajectory_analyzer.cpp parity)
   convert   trajectory/pose-graph format conversion
             (trajectory_converter.cpp parity)
-  bench     the port's closed-loop benchmark workload and its BA-enabled
-            variant (eval/workloads.py)
+  bench     bench.py on the port (eval/workloads.py): the warmed closed
+            loop and its BA-enabled variant, the tracker-only and
+            device-only rates, the stage ms/frame and the KITTI-00-scale
+            run, as bench.py's one JSON line
 
 `run` and `bench` run on the card (--device cuda, the default) unless
 --device cpu is given; without a card the default raises.
@@ -259,8 +261,7 @@ def cmd_bench(args):
     from vslam_tpu_torch.eval import workloads
 
     out = workloads.run_bench(args.device)
-    out["device"] = args.device
-    out["card"] = card_line() if args.device != "cpu" else None
+    out["extra"]["card"] = card_line() if out["extra"]["backend"] == "cuda" else None
     print(json.dumps(out))
 
 
@@ -332,7 +333,7 @@ def build_parser() -> argparse.ArgumentParser:
     pc.add_argument("--output-format", default="kitti", choices=["kitti", "tum"])
     pc.set_defaults(func=cmd_convert)
 
-    pb = sub.add_parser("bench", help="the closed-loop benchmark workload (one JSON line)")
+    pb = sub.add_parser("bench", help="bench.py's benchmark on the port (one JSON line)")
     pb.add_argument("--device", default="cuda",
                     help="torch device to run on (cuda, the default, or cpu)")
     pb.set_defaults(func=cmd_bench)

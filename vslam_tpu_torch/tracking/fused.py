@@ -24,6 +24,11 @@ the frame's inputs, and on CUDA one captured CUDA graph of the step that
 every later frame replays (the JAX package's make_frame_step), its
 conds IF nodes and its loops WHILE nodes (control.graph_capture);
 FrameProgram.run_chunk replays it k times back to back (make_chunk_step).
+Like the JAX package's memoized step functions, make_frame_step and
+make_track_step return one program per key for the whole process, so a
+second tracker of the same configuration replays the graph the first
+captured; trackers hand its state buffers to one another
+(FusedPoseTracker._hold_program).
 
 The split pipeline (tracking.batch_frontend, chunk_step_split) runs the
 front-end of a whole chunk at once -- one K1 launch over its 2C images,
@@ -666,6 +671,10 @@ def withheld_launches(record: dict):
             c.batches.update(b0)
 
 
+# Frames run eagerly, captures and replays of every program (CUDA only).
+EVENTS: Counter = Counter()
+
+
 class _Program:
     """One frame's work as one device program over static buffers: the
     TrackerState (`state`), the motion flag, T_odom (4, 4) when odometry
@@ -687,7 +696,13 @@ class _Program:
 
     Kernel launch counts (dense_brief.kernel_counters) count Python
     calls; a replay adds the launches its capture made once each, and
-    the capture itself counts none."""
+    the capture itself counts none.  On CUDA, EVENTS counts the frames
+    every program ran eagerly ("eager"), its captures ("capture") and its
+    replays ("replay").
+
+    A program of make_frame_step / make_track_step is shared by the
+    trackers of equal keys; `holder` is a weak reference to the tracker
+    whose state its buffers hold (None: nobody's)."""
 
     def __init__(self, cam, params: FusedParams, state: TrackerState, motion_model_on: bool,
                  odometry: bool):
@@ -706,6 +721,7 @@ class _Program:
         self.record = None  # control.Record of the capture
         # Per replay: kernel name -> (launches, launches by batch size).
         self.replay_launches: dict[str, tuple[int, Counter]] = {}
+        self.holder = None
 
     @property
     def device(self) -> torch.device:
@@ -728,6 +744,7 @@ class _Program:
         self.record = record
         self.capture_seconds = time.perf_counter() - t0
         self.graph = graph
+        EVENTS["capture"] += 1
 
     def _replay(self):
         self.graph.replay()
@@ -739,12 +756,16 @@ class _Program:
     def _execute(self, T_odom: torch.Tensor | None):
         if self.T_odom is not None:
             self.T_odom.copy_(self._eye if T_odom is None else T_odom)
-        if self.device.type != "cuda" or self.frames == 0:
+        if self.device.type != "cuda":
             self._body()
+        elif self.frames == 0:
+            self._body()
+            EVENTS["eager"] += 1
         else:
             if self.graph is None:
                 self.capture()
             self._replay()
+            EVENTS["replay"] += 1
         self.frames += 1
 
 
@@ -781,13 +802,23 @@ class FrameProgram(_Program):
             self.run(chunk[i], None if odom_chunk is None else odom_chunk[i])
 
 
-def make_frame_step(cam, params: FusedParams, state: TrackerState, motion_model_on: bool,
+def make_frame_step(cam, params: FusedParams, landmark_capacity: int,
                     frame_dtype: torch.dtype, odometry: bool = False,
                     depth_calib=None) -> FrameProgram:
-    """The FrameProgram over `state`'s tensors, which become its static
-    buffers (write them with assign_state only)."""
-    return FrameProgram(cam, params, state, motion_model_on, frame_dtype, odometry,
-                        depth_calib)
+    """The process's FrameProgram for these values (the JAX package's
+    memoized make_frame_step): equal keys (_memo_key) give the same
+    program, so a later tracker replays the graph an earlier one captured.
+    The program owns its camera, calibration and state buffers; trackers
+    take turns on it through a hand-off (FusedPoseTracker._hold_program).
+    Code that holds a program against the eager step builds an unshared
+    FrameProgram itself."""
+    key = ("frame",) + _memo_key(cam, params, landmark_capacity, frame_dtype, odometry,
+                                 depth_calib)
+    if key not in _PROGRAMS:
+        cam, depth_calib = _own_copy(cam), _own_copy(depth_calib)
+        _PROGRAMS[key] = FrameProgram(cam, params, init_state(cam, params, landmark_capacity, 0.0),
+                                      False, frame_dtype, odometry, depth_calib)
+    return _PROGRAMS[key]
 
 
 class TrackProgram(_Program):
@@ -824,7 +855,55 @@ class TrackProgram(_Program):
         self._execute(T_odom)
 
 
-def make_track_step(cam, params: FusedParams, state: TrackerState, motion_model_on: bool,
+def make_track_step(cam, params: FusedParams, landmark_capacity: int,
                     odometry: bool = False) -> TrackProgram:
-    """The TrackProgram over `state`'s tensors (see make_frame_step)."""
-    return TrackProgram(cam, params, state, motion_model_on, odometry)
+    """The process's TrackProgram for these values (the JAX package's
+    memoized make_track_step; see make_frame_step)."""
+    key = ("track",) + _memo_key(cam, params, landmark_capacity, None, odometry, None)
+    if key not in _PROGRAMS:
+        cam = _own_copy(cam)
+        _PROGRAMS[key] = TrackProgram(cam, params, init_state(cam, params, landmark_capacity, 0.0),
+                                      False, odometry)
+    return _PROGRAMS[key]
+
+
+# The programs of make_frame_step and make_track_step, by _memo_key.
+_PROGRAMS: dict[tuple, _Program] = {}
+
+
+def _values(t) -> tuple:
+    return tuple(t.detach().cpu().reshape(-1).tolist())
+
+
+def _memo_key(cam, params: FusedParams, landmark_capacity: int, frame_dtype, odometry: bool,
+              depth_calib) -> tuple:
+    """Everything a captured program bakes in, by value: the camera's
+    tensors and sizes, the parameters, the landmark capacity, the frame
+    dtype, the odometry flag, the depth calibration and the device.  The
+    motion flag is a buffer of the program, set by the tracker holding it."""
+    return (_values(cam.K), _values(cam.baseline_m), cam.rows, cam.cols,
+            _values(cam.T_cam_robot), _values(cam.K_inv), cam.depth_scale, params,
+            int(landmark_capacity), frame_dtype, bool(odometry),
+            None if depth_calib is None else tuple(map(_values, depth_calib)), cam.device)
+
+
+def _own_copy(x):
+    """A camera (or calibration pair) whose tensors are the program's own:
+    a captured graph reads them by address."""
+    if x is None:
+        return None
+    if isinstance(x, cam_ops.CameraParams):
+        return x._replace(K=x.K.clone(), baseline_m=x.baseline_m.clone(),
+                          T_cam_robot=x.T_cam_robot.clone(), K_inv=x.K_inv.clone())
+    return tuple(t.clone() for t in x)
+
+
+def clear_programs() -> None:
+    """Forget every shared program (the next tracker builds its own)."""
+    _PROGRAMS.clear()
+
+
+def clone_state(state: TrackerState) -> TrackerState:
+    """A copy of the state in tensors of its own, field by field."""
+    return TrackerState(*(type(v)(*(t.clone() for t in v)) if isinstance(v, tuple)
+                          else v.clone() for v in state))

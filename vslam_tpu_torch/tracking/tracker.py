@@ -16,6 +16,7 @@ closure path synchronously after every frame."""
 from __future__ import annotations
 
 import time
+import weakref
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -441,7 +442,15 @@ class FusedPoseTracker:
     threshold of the chunk's first frame, then the per-frame tails (here
     replays of the track program).  A
     flush dispatches a partial chunk; the rest of that chunk keeps its
-    threshold, so a flush does not change the results."""
+    threshold, so a flush does not change the results.
+
+    The program is the process's one for the tracker's configuration
+    (fused.make_frame_step / make_track_step), so a tracker built after
+    another of the same configuration replays its captured graph from
+    its first frame.  Its buffers hold one tracker's state at a time: a
+    tracker takes them over when it is built and again before it steps
+    after another took them (_hold_program); the one that held them
+    keeps its state in tensors of its own."""
 
     def __init__(self, cam: cam_ops.CameraParams, config: ParameterCollection,
                  landmark_capacity: int = 65536, device=DEFAULT_DEVICE):
@@ -455,8 +464,10 @@ class FusedPoseTracker:
         # tracker's upload (FAST scores and ties are those of the integer
         # image); RGB-D frames as f32, for depth in meters.
         self._frame_dtype = np.uint8 if self.mode == "stereo" else np.float32
-        self._state = fused.init_state(self.cam, self.params, landmark_capacity,
-                                       fp.detector_threshold_starting_value)
+        # The state in tensors of this tracker's own while another tracker
+        # holds the program's buffers; None while this one holds them.
+        self._own = fused.init_state(self.cam, self.params, landmark_capacity,
+                                     fp.detector_threshold_starting_value)
         self.motion_model_on = tr.motion_model == "CONSTANT_VELOCITY"
         self.odometry_on = (tr.motion_model == "CAMERA_ODOMETRY"
                             or config.command_line.option_use_odometry)
@@ -464,13 +475,15 @@ class FusedPoseTracker:
                               if self.device.type == "cuda" else 1)
         self.split = bool(tr.batch_frontend)
         # The split front-end replays its per-frame tail (make_track_step);
-        # every other route the whole frame (make_frame_step).
+        # every other route the whole frame (make_frame_step).  Either is
+        # the process's program for this configuration, shared with every
+        # other tracker of it.
         if self.split:
-            self.program = fused.make_track_step(self.cam, self.params, self._state,
-                                                 self.motion_model_on, self.odometry_on)
+            self.program = fused.make_track_step(self.cam, self.params, landmark_capacity,
+                                                 self.odometry_on)
         else:
             self.program = fused.make_frame_step(
-                self.cam, self.params, self._state, self.motion_model_on,
+                self.cam, self.params, landmark_capacity,
                 torch.uint8 if self.mode == "stereo" else torch.float32,
                 odometry=self.odometry_on, depth_calib=self.depth_calib)
         self._buf: list[torch.Tensor] = []  # split: device frames awaiting their chunk
@@ -493,6 +506,7 @@ class FusedPoseTracker:
         self._last_status = LOCALIZING
         # Frame indices where registration failed (track re-rooted).
         self._break_frames: list[int] = []
+        self._hold_program()
 
     @property
     def status(self) -> str:
@@ -501,12 +515,31 @@ class FusedPoseTracker:
 
     @property
     def state(self) -> fused.TrackerState:
-        """The device state: the program's static buffers."""
-        return self._state
+        """The device state: the program's static buffers while this
+        tracker holds them, else its own copy."""
+        return self.program.state if self._own is None else self._own
 
     @state.setter
     def state(self, new: fused.TrackerState):
-        fused.assign_state(self._state, new)
+        fused.assign_state(self.state, new)
+
+    def _hold_program(self):
+        """Make the program's buffers this tracker's state: at
+        construction and before every step while another tracker of the
+        configuration may have taken them over (the program is shared).
+        The tracker that held them takes its state out into tensors of its
+        own first, so no tracker sees or changes another's; then this
+        one's state is copied in."""
+        if self._own is None:
+            return
+        prog = self.program
+        other = prog.holder() if prog.holder is not None else None
+        if other is not None:
+            other._own = fused.clone_state(prog.state)
+        fused.assign_state(prog.state, self._own)
+        prog.motion.fill_(self.motion_model_on)
+        prog.holder = weakref.ref(self)
+        self._own = None
 
     @property
     def step_route(self) -> str:
@@ -567,6 +600,7 @@ class FusedPoseTracker:
         if self.split:
             self._buffer(staged, [None] * len(staged))
         else:
+            self._hold_program()
             done = 0
             while done < len(staged):
                 # Replays back to back up to the next drain.
@@ -591,6 +625,17 @@ class FusedPoseTracker:
         if self.device.type != "cuda":
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _dispatch_staged(self, staged: torch.Tensor):
+        """Step a prestaged handle's frames back to back with no drain
+        after them (the JAX tracker's _dispatch_staged; bench's
+        device-only rate).  The per-frame route only."""
+        if self.split:
+            raise ValueError("_dispatch_staged steps the per-frame program; the split "
+                             "front-end steps its chunks through compute_prestaged")
+        self._hold_program()
+        self.program.run_chunk(staged, len(staged))
+        self._dispatched += len(staged)
 
     def _odometry(self, odometry) -> torch.Tensor:
         return self._upload(np.eye(4, dtype=np.float32) if odometry is None
@@ -620,6 +665,7 @@ class FusedPoseTracker:
         imgs = fused._chunk_images(self.cam, self.params, torch.stack(self._buf),
                                    self.depth_calib)
         self._buf, self._odom_buf = [], []
+        self._hold_program()
         front = fused.chunk_front_end(self.cam, self.params, self._chunk_threshold, imgs)
         for i in range(k):
             self.program.run(front, imgs, i, None if odom is None else odom[i])
@@ -628,6 +674,7 @@ class FusedPoseTracker:
             self._drain()
 
     def _step(self, imgs: torch.Tensor, odometry):
+        self._hold_program()
         self.program.run(imgs, self._odometry(odometry) if self.odometry_on else None)
         self._dispatched += 1
         if self._dispatched - self._harvested >= self.harvest_every:
