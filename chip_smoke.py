@@ -146,7 +146,11 @@ Phases (each raises on failure; the exit code is then non-zero):
                translation gap printed: two robust estimators); JAX's
                GN-agreement problem on the card within 5e-3 m of GN ICP; the
                host synchronizations of one batch (torch's sync debug mode),
-               ms a batch;
+               ms a batch; the batches again through FAST-ICP's closure ICP
+               programs (one a bucket, captured): two replays of each batch
+               bit-equal to each other and to its eager batch, the verdicts of the eager batch and of GN
+               ICP, no synchronization inside a replayed run, ms a batch
+               eager and replayed;
  18. chain-pg — optimize_pose_graph_chain on a 64-pose chain with three
                closures, card against CPU within 1e-4, with and without
                Levenberg damping; ms a call;
@@ -204,9 +208,10 @@ Phases (each raises on failure; the exit code is then non-zero):
                timed closed and ba-closed engines, fresh, on the programs the
                warm-up captured (fused.make_frame_step and the ICP buckets
                are one per process): phases 7-8's events and ATE to every
-               digit, no eager frame, no capture and no eager ICP batch
-               inside either timed loop (fused.EVENTS, relocalizer.EVENTS),
-               one replay a frame; the open-loop tracker-only rates (fused,
+               digit, no eager frame, no capture and no eager ICP batch,
+               pose-graph solve or BA inside either timed loop
+               (fused.EVENTS, relocalizer.EVENTS, pose_graph.EVENTS,
+               ba.EVENTS), one replay a frame; the open-loop tracker-only rates (fused,
                and the split front-end), the device-only rate (every frame's
                replay back to back, one sync), the stage ms/frame, the
                warm-up's seconds and each timed engine's first handle;
@@ -219,7 +224,19 @@ Phases (each raises on failure; the exit code is then non-zero):
                ate_ok, 0 breaks, closures after local map 150, 1,024 K1
                launches; local maps, closures, optimizations, BA runs,
                merged landmarks, DB rows, live table rows, peak device
-               memory, ms/frame and the stage table.
+               memory, ms/frame, the stage table and the programs' events
+               over the run and its warm-ups; its largest pose graph padded
+               against tight as phase 24 holds it;
+ 24. backend programs — fresh on the card: the pose-graph junction solve
+               at Jp 64, 128 and 256 (two laps of a drifting circle) and
+               its distribution, and the BA program on phase 8's last
+               window (P 16, L padded to 2048): each captured, a replay
+               bit-equal to the eager run of the same padded shape and to a
+               second replay, no host synchronization inside a replayed
+               run, padded against tight (pose graph: within 1e-5 or 3x the
+               tight f32 solve's distance from f64, also on phase 7's own
+               graph, chi2 1e-3; BA: poses 1e-5, points 1e-3 m, chi2
+               1e-4), ms a solve eager and replayed.
 Every drive_slice run (phases 6, 9-11, 15-16) and phases 7-8 start from
 an empty program cache (fresh_programs), so the engine's first frame
 runs eagerly there, as before the programs were shared.
@@ -229,7 +246,8 @@ a replay): each replay adds its capture's launches to the counts.  Phase
 20 (the modular tracker) runs eagerly, as its JAX counterpart does.  Phases 7 and 8 are also held to the events and ATE this
 script printed before the program existed (CARD_CLOSED, CARD_BA_CLOSED).
 The phases run in the order 1-5, 21, 6a, 6b, 15, 16, 18, 6c, 7, 8, 20,
-9-14, 17, 19, 22-23: phases 15-16 next to the runs they are compared with.
+9-14, 17, 19, 24, 22-23: phases 15-16 next to the runs they are compared
+with.
 The JAX counts printed beside phases 6-11, 15-16 and 20 come from
 chip_smoke_jax_reference.py.  The script then prints its wall time, the
 kernel record (one JSON line: launches summed over the runs of phases
@@ -378,7 +396,8 @@ PROFILED_REPLAYS = 8
 FIXED_CAP_PROGRAM = {"kernels": 38595, "busy_ms": 50.80, "ms_frame": 47.72}
 FLOAT_DETECTORS = ("HARRIS", "GFTT", "DOG", "KAZE")
 CLOSURE_STAGES = ("relocalization", "reloc_vote_icp", "pose_graph_optimization",
-                  "pg_solve", "pg_propagate", "landmark_merging")
+                  "pg_assembly", "pg_junction_solve", "pg_distribution", "pg_propagate",
+                  "landmark_merging")
 
 
 def bench_setup():
@@ -629,14 +648,19 @@ def phase_k2_probe(card):
 
 
 def fresh_programs():
-    """Forget the shared tracker and ICP programs: the engine built next
-    runs its first frame (and its first ICP batch a bucket) eagerly, as
-    the first engine of a process does."""
+    """Forget the shared tracker, ICP, pose-graph and BA programs: the
+    engine built next runs its first frame (and its first ICP batch a
+    bucket, its first pose-graph solve and BA a size) eagerly, as the
+    first engine of a process does."""
+    from vslam_tpu_torch.backend import ba
+    from vslam_tpu_torch.backend import pose_graph as pg
     from vslam_tpu_torch.loop import relocalizer as rl
     from vslam_tpu_torch.tracking import fused
 
     fused.clear_programs()
     rl.clear_icp_programs()
+    pg.clear_programs()
+    ba.clear_programs()
 
 
 def run_engine(cam, cfg, frames, device, n_frames, harvest_every=None):
@@ -756,8 +780,10 @@ def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card_before, card
     requires >= 1 BA run and prints each BA problem's size and the BA
     stage.  Returns the launch counts.  `record` (a dict) receives the
     inputs of every closure ICP batch ("icp": (data, mask, T0, config)),
-    the last BA window problem and its config ("ba") and the engine
-    ("engine"), for phases 17 and 19."""
+    the last BA window problem, its config and its true (P, L) ("ba"),
+    the inputs of the last pose-graph solve ("pg": args, kwargs) and the
+    engine ("engine"), for phases 17, 19 and 24."""
+    from vslam_tpu_torch.backend import pose_graph as pg
     from vslam_tpu_torch.eval import trajectory as traj_eval
     from vslam_tpu_torch.loop import relocalizer as rl
     from vslam_tpu_torch.solve import aligners
@@ -770,8 +796,8 @@ def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card_before, card
     fresh_programs()
     engine = SlamEngine(cam, cfg, landmark_capacity=65536, device="cuda")
     handles = engine.tracker.prestage(frames)
-    sizes = []  # (P, L) of each BA problem
-    build = ba_runner.build_window_problem
+    sizes = []  # (P, L) of each BA problem: true, then padded
+    build, solve_pg = ba_runner.build_window_problem, pg.optimize_pose_graph_hierarchical
     run_icp, dispatch = rl.ICPProgram.run, rl.Relocalizer.dispatch_icp_batch
     icp_events, drains = [], []  # (start, end, how) of each ICP batch; jobs a dispatch
     if record is not None:
@@ -780,10 +806,16 @@ def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card_before, card
     def build_and_record(*args, **kwargs):
         built = build(*args, **kwargs)
         if built is not None:
-            sizes.append((built[0].T_wc.shape[0], built[0].xyz.shape[0]))
+            prob, kf_ids, slots = built
+            sizes.append(((len(kf_ids), len(slots)), (prob.T_wc.shape[0], prob.xyz.shape[0])))
             if record is not None:
-                record["ba"] = (built[0], ba_runner.ba_config(engine))
+                record["ba"] = (prob, ba_runner.ba_config(engine), (len(kf_ids), len(slots)))
         return built
+
+    def pg_recorded(*args, **kwargs):
+        if record is not None:
+            record["pg"] = (args, kwargs)
+        return solve_pg(*args, **kwargs)
 
     def icp_timed(prog, mov, fix, mask, T0):
         """One ICP batch between two CUDA events; its inputs recorded."""
@@ -791,8 +823,7 @@ def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card_before, card
             record["icp"].append((aligners.ICPData(mov.clone(), fix.clone(),
                                                    torch.ones(mov.shape[:2], device="cuda")),
                                   mask.clone(), T0.clone(), prog.config))
-        how = ("eager" if prog.uses == 0 or not prog.capture else
-               "capture" if prog.graph is None else "replay")
+        how = "eager" if prog.uses == 0 else "capture" if prog.graph is None else "replay"
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         res = run_icp(prog, mov, fix, mask, T0)
@@ -807,6 +838,7 @@ def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card_before, card
         return jobs
 
     ba_runner.build_window_problem = build_and_record
+    pg.optimize_pose_graph_hierarchical = pg_recorded
     rl.ICPProgram.run = icp_timed
     rl.Relocalizer.dispatch_icp_batch = dispatch_counted
     torch.cuda.synchronize()
@@ -824,6 +856,7 @@ def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card_before, card
         torch.cuda.synchronize()
     finally:
         ba_runner.build_window_problem = build
+        pg.optimize_pose_graph_hierarchical = solve_pg
         rl.ICPProgram.run, rl.Relocalizer.dispatch_icp_batch = run_icp, dispatch
     wall = time.perf_counter() - t0
     counts = read_counts()
@@ -849,7 +882,7 @@ def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card_before, card
         print(f"[{label}] stage {stage:24s} {row['seconds']:8.4f} s in {row['calls']} calls")
     if ba_on:
         print(f"[{label}] {rep['n_ba_runs']} BA runs; (P cameras, L landmarks) of each "
-              f"problem: {sizes}")
+              f"problem, true and padded: {sizes}")
     icp_check(label, icp_events, drains, card)
     if counts != {"K1": n, "K2": 0, "K3": 0, "K4": 0}:
         raise AssertionError(f"{label}: launches {counts}, expected {n} K1 only")
@@ -891,7 +924,7 @@ def icp_check(label, icp_events, drains, card):
     captured = [(key, p) for key, p in progs.items() if p.graph is not None]
     timing = []
     for key, prog in captured:
-        want = prog._solve()
+        want = prog.eager()
         for name, a, b in zip(want._fields, prog.out, want):
             if not torch.equal(a, b):
                 raise AssertionError(f"[{label}] ICP bucket {key}: the replay's {name} "
@@ -901,7 +934,7 @@ def icp_check(label, icp_events, drains, card):
         eager_ms, replay_ms = [], []
         for _ in range(3):
             start.record()
-            prog._solve()
+            prog.eager()
             end.record()
             torch.cuda.synchronize()
             eager_ms.append(start.elapsed_time(end))
@@ -1919,6 +1952,21 @@ def _icp_verdicts(res, mask, p):
             & (inl / np.maximum(n, 1) >= p.icp_minimum_inlier_ratio))
 
 
+def count_syncs(fn):
+    """The host synchronizations torch's sync debug mode reports in fn."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
 def gn_match_problem(n=120, noise=0.005, seed=11):
     """JAX's tests/test_anderson.py test_fast_icp_matches_gn_icp problem: 120
     points in a 10 m cube, a fixed twist, 5 mm noise on the fixed set."""
@@ -1943,9 +1991,12 @@ def phase_fast_icp(record, card):
     the two optima lie centimeters apart on the bench's closure batches
     (3.6-7.4 cm on a CPU and on an H100); the gap is printed.  The host
     synchronizations of one batch are counted by torch's sync debug
-    mode."""
-    import warnings
-
+    mode.  The batches also run through FAST-ICP's closure ICP programs
+    (relocalizer.ICPProgram, one a bucket, fresh: eager, captured,
+    replayed): two replays of each batch bit-equal to each other and to
+    the eager solve of its padded batch, the verdicts of the eager batch and of GN ICP, no host
+    synchronization inside a replay; ms a batch eager and replayed."""
+    from vslam_tpu_torch.loop import relocalizer as rl
     from vslam_tpu_torch.solve import aligners, anderson, gn
 
     p = record["engine"].relocalizer.params
@@ -1991,26 +2042,62 @@ def phase_fast_icp(record, card):
         raise AssertionError(f"fast-icp: {d_test:.4f} m from GN ICP on JAX's problem")
     data, mask, T0, config = batches[0]
 
-    def count_syncs(fn):
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.synchronize()
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                fn()
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        return sum("synchroniz" in str(w.message) for w in caught)
-
     syncs = count_syncs(lambda: anderson.fast_icp_align(data, mask, T0, config))
     B = T0.shape[0]
     m3 = torch.eye(3, device="cuda").repeat(B, 1, 1) + 0.1
     m5 = torch.eye(5, device="cuda").repeat(B, 1, 1)
-    per_op = {"svd": count_syncs(lambda: torch.linalg.svd(m3)),
-              "det": count_syncs(lambda: torch.linalg.det(m3)),
+    per_op = {"svd (before PR 14)": count_syncs(lambda: torch.linalg.svd(m3)),
+              "rotation_fit": count_syncs(lambda: anderson.rotation_fit(m3)),
               "solve_ex": count_syncs(lambda: torch.linalg.solve_ex(m5, m5[..., 0]))}
     ms_fast = _ms_per_call(lambda: anderson.fast_icp_align(data, mask, T0, config), runs=5)
     ms_gn = _ms_per_call(lambda: aligners.icp_align(data, mask, T0, config), runs=5)
+
+    # The closure ICP programs with FAST-ICP, fresh, one a bucket.
+    progs, replay_syncs = {}, []
+    for data, mask, T0, config in batches:
+        n = T0.shape[0]
+        bucket = rl.icp_bucket(n)
+        prog = progs.setdefault(bucket, rl.ICPProgram(anderson.fast_icp_align, config, bucket,
+                                                      mask.shape[1], "cuda"))
+        args = (data.p_moving, data.p_fixed, mask, T0)
+        res = prog.run(*args)
+        if prog.graph is None:  # eager: capture on the same batch
+            res = prog.run(*args)
+        again = []
+        replay_syncs.append(count_syncs(lambda: again.append(prog.run(*args))))
+        want = prog.eager()
+        if not all(torch.equal(a, b) and torch.equal(b, c)
+                   for a, b, c in zip(res, again[0], want)):
+            raise AssertionError(f"fast-icp: the bucket-{bucket} replays differ from each other "
+                                 "or from their eager batch")
+        v_prog = _icp_verdicts(gn.GNResult(*(t[:n] for t in res)), mask, p)
+        v_eager = _icp_verdicts(anderson.fast_icp_align(data, mask, T0, config), mask, p)
+        v_gn = _icp_verdicts(aligners.icp_align(data, mask, T0, config), mask, p)
+        if not (np.array_equal(v_prog, v_eager) and np.array_equal(v_prog, v_gn)):
+            raise AssertionError(f"fast-icp: program verdicts {v_prog}, eager {v_eager}, GN "
+                                 f"ICP {v_gn}")
+    if not all(prog.graph is not None for prog in progs.values()) or any(replay_syncs):
+        raise AssertionError(f"fast-icp: buckets captured "
+                             f"{[b for b, q in progs.items() if q.graph is not None]} of "
+                             f"{list(progs)}; host synchronizations a replay {replay_syncs}")
+    timing = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for bucket, prog in sorted(progs.items()):
+        ms = {}
+        for how, fn in (("eager", prog.eager), ("replay", prog.graph.replay)) * 3:
+            torch.cuda.synchronize()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            ms.setdefault(how, []).append(start.elapsed_time(end))
+        timing.append(f"bucket {bucket}: eager {statistics.median(ms['eager']):.3f} ms, "
+                      f"replay {statistics.median(ms['replay']):.3f} ms")
+    print(f"[fast-icp] the batches through FAST-ICP's closure ICP programs: "
+          f"{len(batches)} runs, buckets {sorted(progs)} captured, two replays of each batch "
+          f"bit-equal to each other and to its eager batch, the verdicts of the eager batch and of GN ICP; host "
+          f"synchronizations a replayed run {replay_syncs}; a batch (median of 3, CUDA "
+          f"events): {'; '.join(timing)} ({card})")
     print(f"[fast-icp] {len(batches)} ICP batches of phase 7, {n_cand} candidates, {n_acc} "
           f"accepted: FAST-ICP on the card and on the CPU give the same verdicts, accepted "
           f"transforms within {worst_cpu:.2e} (rejected ones {worst_rej:.2e}); GN ICP the same "
@@ -2186,7 +2273,7 @@ def phase_sharded(closed, ba_closed, card):
     interspace = rl.params.preliminary_minimum_interspace_queries
     bound = torch.repeat_interleave(torch.tensor([m.map_id - interspace for m in maps],
                                                  dtype=torch.int32), rl.QUERY_CAP)
-    prob, config = ba_closed["ba"]
+    prob, config, _ = ba_closed["ba"]
     inputs = dict(db_desc=rl.db_desc[:prefix], db_map_id=rl.db_map_id[:prefix], q=q,
                   bound=bound, max_distance=torch.tensor(rl.params.maximum_descriptor_distance),
                   min_margin=torch.tensor(rl.params.minimum_second_best_margin),
@@ -2267,6 +2354,198 @@ def phase_sharded(closed, ba_closed, card):
           f"{float(outs[0]['ba_seconds']):.3f} s a sharded solve ({card})")
 
 
+# Phase 24: the junction-solve tiers (keyframes, closures): two laps of
+# a circle with closures 4 keyframes apart give J = 2 + 2 C junctions and
+# E = J - 1 + C edges, so (Jp, Ep) = (64, 128), (128, 256), (256, 512).
+PG_TIERS = ((160, 20), (320, 40), (640, 80))
+PG_TIER_JP = (64, 128, 256)
+
+
+def drifted_hierarchical(P, C, radius=12.0, seed=5):
+    """The hierarchical solve's inputs on two laps of a circle of P
+    keyframes with drifting odometry and C ground-truth closures from the
+    second lap onto the first, 4 keyframes apart (none compacted with
+    another): (poses, odometry, weights, closures)."""
+    from vslam_tpu_torch.ops import lie
+
+    rng = np.random.default_rng(seed)
+    a = np.linspace(0, 4 * np.pi, P, endpoint=False)
+    gt = np.tile(np.eye(4, dtype=np.float32), (P, 1, 1))
+    gt[:, 0, 0] = gt[:, 2, 2] = np.cos(a)
+    gt[:, 0, 2], gt[:, 2, 0] = np.sin(a), -np.sin(a)
+    gt[:, 0, 3], gt[:, 2, 3] = radius * np.cos(a), radius * np.sin(a)
+    xi = np.zeros((P - 1, 6), np.float32)
+    xi[:, :3] = 2e-3 * (1 + 0.1 * rng.normal(size=(P - 1, 3)))
+    xi[:, 4] = 5e-4 * (1 + 0.1 * rng.normal(size=P - 1))
+    odo = (np.linalg.inv(gt[:-1]) @ gt[1:] @ lie.exp_se3(torch.from_numpy(xi)).numpy())
+    est = gt.copy()
+    for k in range(P - 1):
+        est[k + 1] = est[k] @ odo[k]
+    lap = P // 2
+    clo = [(j - lap, j, np.linalg.inv(gt[j - lap]) @ gt[j])
+           for j in range(lap + 2, lap + 2 + 4 * C, 4)]
+    return est, odo.astype(np.float32), np.ones(P - 1, np.float32), clo
+
+
+def program_checks(label, prog, inputs):
+    """A fresh StaticProgram on the card: its first run eager, then the
+    capture (host seconds), a replayed run with no host synchronization
+    (torch's sync debug mode), that replay bit-equal to the eager solve of
+    the same buffers and to a second replay.  Returns (outputs, eager ms,
+    replay ms, capture s): medians of 3, CUDA events."""
+    from torch.utils import _pytree as pytree
+
+    if prog.uses != 0:
+        raise AssertionError(f"[backend] {label}: the program is not fresh")
+    prog.run(inputs)
+    t0 = time.perf_counter()
+    prog.capture()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    syncs = count_syncs(lambda: prog.run(inputs))
+    first = pytree.tree_map(torch.clone, prog.out)
+    prog.graph.replay()
+    second = prog.out
+    eager = prog.eager()
+    leaves = [pytree.tree_leaves(x) for x in (eager, first, second)]
+    if syncs or not all(torch.equal(a, b) and torch.equal(b, c) for a, b, c in zip(*leaves)):
+        raise AssertionError(f"[backend] {label}: {syncs} host synchronizations in a replayed "
+                             "run, or a replay differs from the eager solve or the next replay")
+    ms = {}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for how, fn in (("eager", prog.eager), ("replay", prog.graph.replay)) * 3:
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms.setdefault(how, []).append(start.elapsed_time(end))
+    return (first, statistics.median(ms["eager"]), statistics.median(ms["replay"]), capture_s)
+
+
+def padded_against_tight(poses, odometry, odo_weight, closures, **kw):
+    """The junction solve of one hierarchical problem padded to its
+    buckets against the tight one, eagerly on the card, beside the tight
+    f32 solve's own error (its distance from the tight solve in f64):
+    (J, Jp, Ep, max |dpose| padded - tight, the f32 error, chi2 padded against
+    tight and tight f32 against f64, relative).
+    padding_ok holds padded within 1e-5 of tight, or within 3x the f32
+    error (the system carries a 1e6 gauge anchor beside 1e-3 damping: its f32
+    Cholesky is off by 5e-5 to 1.2e-3 of f64 at the tiers of phase 24,
+    and padding then moves the f32 answer as much as any other sum
+    order does; padded and tight agree to 1e-12 in f64)."""
+    from vslam_tpu_torch.backend import pose_graph as pg
+
+    opts = dict(iterations=kw.get("iterations", 10),
+                robust_kernel_chi2=kw.get("robust_kernel_chi2", 1.0),
+                levenberg=kw.get("levenberg", False))
+    args = (poses, odometry, odo_weight, closures, 10.0, kw.get("closure_bucket", 4))
+
+    def dev(g, dtype=torch.float32):
+        return pg.PoseGraph(*(torch.as_tensor(a).cuda().to(
+            dtype if a.dtype == np.float32 else None) for a in g))
+
+    g, _, J, _ = pg.junction_graph(*args)
+    tight = pg.junction_graph(*args, pad=False)[0]
+    pad_T, pad_chi2 = pg.optimize_pose_graph(dev(g), **opts)
+    T, chi2 = pg.optimize_pose_graph(dev(tight), **opts)
+    T64, chi2_64 = pg.optimize_pose_graph(dev(tight, torch.float64), **opts)
+    d = float((pad_T[:J] - T).abs().max())
+    e32 = float((T.double() - T64).abs().max())
+    rel = lambda a, b: abs(float(a) / max(float(b), 1e-30) - 1)  # noqa: E731
+    return (J, len(g.poses), len(g.edge_i), d, e32, rel(pad_chi2, chi2), rel(chi2, chi2_64))
+
+
+def padding_ok(d, e32, dchi2, echi2):
+    """Poses padded within 1e-5 of tight, or within 3x the tight f32
+    solve's own distance from f64; chi2 within 1e-3 relative (a final
+    chi2 of ~1e-4 is known in f32 to ~1e-4 relative: echi2)."""
+    return (d <= 1e-5 or d <= 3 * e32) and dchi2 <= 1e-3
+
+
+def phase_backend_programs(closed, ba_closed, card):
+    """Phase 24: the back end's device programs, fresh, on the card.  The
+    pose-graph junction solve at tiers Jp 64, 128 and 256 (PG_TIERS) and
+    its distribution: each captured, a replay bit-equal to the eager run
+    at the same padded shape and to a second replay, no host
+    synchronization inside a replayed run, the padded solve against the
+    tight one (padding_ok; also on phase 7's own graph);
+    ms a solve eager and replayed.  The BA program on phase 8's last
+    window (P 16, L padded to 2048): the same checks, its poses within
+    1e-5 of the tight solve's, its points within 1e-3 m (two f32 sum
+    orders of this window's far landmarks, phase 19), chi2 within 1e-4.
+    (Phase 17 holds FAST-ICP's programs.)"""
+    from vslam_tpu_torch.backend import ba
+    from vslam_tpu_torch.backend import pose_graph as pg
+
+    fresh_programs()
+    dev = lambda a: torch.as_tensor(a).cuda()  # noqa: E731
+    for (P, C), tier in zip(PG_TIERS, PG_TIER_JP):
+        est, odo, w, clo = drifted_hierarchical(P, C)
+        g, junc, J, E = pg.junction_graph(est, odo, w, clo)
+        Jp, Ep = len(g.poses), len(g.edge_i)
+        if Jp != tier:
+            raise AssertionError(f"[backend] {P} keyframes, {C} closures: Jp {Jp}, not {tier}")
+        prog = pg.junction_program(Jp, Ep, 10, False, "cuda")
+        (opt, chi2), e_ms, r_ms, cap_s = program_checks(
+            f"junction {Jp}", prog, (pg.PoseGraph(*map(dev, g)), dev(np.float32(1.0))))
+        _, _, _, d, e32, dchi2, echi2 = padded_against_tight(est, odo, w, clo)
+        if not padding_ok(d, e32, dchi2, echi2):
+            raise AssertionError(f"[backend] junction {Jp}: padded and tight solves {d:.2e} "
+                                 f"apart (the f32 solve {e32:.2e} from f64), chi2 {dchi2:.2e} "
+                                 "relative")
+        corr = opt[:J].cpu().numpy() @ np.linalg.inv(est[junc])
+        P_pad = pg.pow2(P, pg.P_FLOOR)
+        owner = np.clip(np.searchsorted(junc, np.arange(P), side="right") - 1, 0, J - 2)
+        s = (np.arange(P) - np.asarray(junc)[owner]) / np.maximum(
+            np.asarray(junc)[owner + 1] - np.asarray(junc)[owner], 1)
+        eye = np.eye(4, dtype=np.float32)
+        dist = pg.distribute_program(P_pad, Jp, "cuda")
+        _, de_ms, dr_ms, dcap_s = program_checks(
+            f"distribute {P_pad}", dist,
+            (dev(pg._padded(est, P_pad, eye)), dev(pg._padded(corr.astype(np.float32), Jp, eye)),
+             dev(pg._padded(owner.astype(np.int64), P_pad, 0)),
+             dev(pg._padded(s.astype(np.float32), P_pad, 0.0))))
+        print(f"[backend] pose graph, {P} keyframes and {C} closures: junction solve at (Jp "
+              f"{Jp}, Ep {Ep}) for J {J}, E {E}: eager {e_ms:.3f} ms, replayed {r_ms:.3f} ms "
+              f"(capture {cap_s:.2f} s), chi2 {float(chi2):.4e}; padded against tight "
+              f"{d:.2e} (the tight f32 solve {e32:.2e} from f64), chi2 {dchi2:.1e} relative "
+              f"({echi2:.1e} tight f32 against f64); distribution "
+              f"at {P_pad}: eager {de_ms:.3f} ms, replayed {dr_ms:.3f} ms (capture "
+              f"{dcap_s:.2f} s); each replay bit-equal to its eager run and to the next "
+              f"replay, 0 host synchronizations in a replayed run ({card})")
+    args, kwargs = closed["pg"]
+    J, Jp, Ep, d, e32, dchi2, echi2 = padded_against_tight(*args, **kwargs)
+    print(f"[backend] phase 7's pose graph (its last solve, {len(args[0])} keyframes, J {J}): "
+          f"padded to (Jp {Jp}, Ep {Ep}) against tight {d:.2e} (the tight f32 solve {e32:.2e} "
+          f"from f64), chi2 {dchi2:.1e} relative")
+    if not padding_ok(d, e32, dchi2, echi2):
+        raise AssertionError(f"[backend] phase 7's pose graph: padded and tight {d:.2e} apart")
+
+    prob, config, (n_kf, n) = ba_closed["ba"]
+    cam = ba_closed["engine"].cam
+    P, (L, O) = prob.T_wc.shape[0], prob.obs_cam.shape
+    prog = ba.ba_program(cam, P, L, O, config, True, "cuda")
+    (T, X, chi2s), e_ms, r_ms, cap_s = program_checks(
+        f"BA ({P}, {L})", prog, ((cam.K, cam.baseline_m), prob))
+    cut = {f: getattr(prob, f)[:n] for f in ("xyz", "obs_cam", "obs_uv4", "obs_weight",
+                                             "obs_mask", "lm_valid")}
+    cut.update({f: getattr(prob, f)[:n_kf] for f in ("T_wc", "cam_fixed", "odo_T",
+                                                     "odo_weight")})
+    Tt, Xt, ct = ba.bundle_adjust(cam, prob._replace(**cut), config)
+    dT = float((T[:n_kf] - Tt).abs().max())
+    dX = float((X[:n] - Xt).abs().max())
+    dc = float((chi2s / ct - 1).abs().max())
+    print(f"[backend] BA on phase 8's last window (true P {n_kf}, L {n}; padded P {P}, L "
+          f"{L}): eager {e_ms:.3f} ms, replayed {r_ms:.3f} ms (capture {cap_s:.2f} s); "
+          f"each replay bit-equal to its eager run and to the next replay, 0 host "
+          f"synchronizations in a replayed run; padded against tight: poses {dT:.2e}, "
+          f"points {dX:.2e} m, chi2 {dc:.1e} relative ({card})")
+    if not (dT <= 1e-5 and dX <= 1e-3 and dc <= 1e-4):
+        raise AssertionError(f"[backend] BA: padded and tight solves apart: poses {dT:.2e}, "
+                             f"points {dX:.2e} m, chi2 {dc:.2e}")
+
+
 def phase_bench(card):
     """Phases 22-23: run_bench as bench.py runs it (an empty program
     cache first, so its warm engine and warm-ups do the warming), the
@@ -2275,18 +2554,29 @@ def phase_bench(card):
     are held to phases 7-8's events and ATE and to no eager frame, no
     capture and no eager ICP batch.  Returns (bench launches, scale
     launches)."""
+    from vslam_tpu_torch.backend import pose_graph as pg
     from vslam_tpu_torch.eval import scale_run, workloads
 
     fresh_programs()
-    run_scale, scale = scale_run.run_scale, {}
+    run_scale, solve_pg, scale = scale_run.run_scale, pg.optimize_pose_graph_hierarchical, {}
+
+    def pg_largest(*args, **kwargs):
+        if "pg" not in scale or len(args[0]) >= len(scale["pg"][0][0]):
+            scale["pg"] = (args, kwargs)
+        return solve_pg(*args, **kwargs)
 
     def scale_counted(*args, **kwargs):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        before = read_counts()
-        out = run_scale(*args, **kwargs)
+        before, events = read_counts(), workloads.program_events()
+        pg.optimize_pose_graph_hierarchical = pg_largest
+        try:
+            out = run_scale(*args, **kwargs)
+        finally:
+            pg.optimize_pose_graph_hierarchical = solve_pg
         scale.update(out=dict(out), launches={k: v - before[k] for k, v in read_counts().items()},
-                     peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+                     peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                     events=dict(workloads.program_events() - events))
         return out
 
     scale_run.run_scale = scale_counted
@@ -2326,12 +2616,18 @@ def phase_bench(card):
     got_ba = {"n_ba_runs": x["n_ba_runs"], "ate_m": x["ate_rmse_m_with_ba"]}
     if got_ba != CARD_BA_CLOSED or x["tracking_breaks_with_ba"] != 0:
         raise AssertionError(f"[bench] ba-closed: {got_ba}; phase 8 gives {CARD_BA_CLOSED}")
+    one_time = [f"{prog}{how}" for prog in ("", "icp ", "pose graph ",
+                                            "pose graph distribute ", "ba ")
+                for how in ("eager", "capture")]
     for run in ("program_events", "program_events_with_ba"):
         ev = x[run]
-        if any(ev.get(k, 0) for k in ("eager", "capture", "icp eager", "icp capture")) or (
-                ev.get("replay", 0) != n):
+        if any(ev.get(k, 0) for k in one_time) or ev.get("replay", 0) != n:
             raise AssertionError(f"[bench] {run}: {ev}: a timed engine ran an eager frame, a "
-                                 f"capture or an eager ICP batch, or not {n} replays")
+                                 f"capture, an eager ICP batch, an eager pose-graph solve or an "
+                                 f"eager BA, or not {n} replays")
+    if not (x["program_events"].get("pose graph replay", 0) >= 1
+            and x["program_events_with_ba"].get("ba replay", 0) >= 1):
+        raise AssertionError("[bench] the timed runs replayed no pose-graph or no BA program")
     # Warm-up, closed, ba-closed, tracker only and device only one K1 a
     # frame; the split front-end one a chunk of 32 frames (B = 64).
     want = {"K1": 5 * n + -(-n // SPLIT_CHUNK), "K2": 0, "K3": 0, "K4": 0}
@@ -2350,6 +2646,14 @@ def phase_bench(card):
           f"{out['process_s']} s, render {out['render_s']} s off the clock) ({card})")
     for stage, row in out["stage_table"].items():
         print(f"[scale] stage {stage:24s} {row['seconds']:9.4f} s in {row['calls']} calls")
+    print(f"[scale] program events over the run and its warm-ups: {scale['events']}")
+    args, kwargs = scale["pg"]
+    J, Jp, Ep, d, e32, dchi2, echi2 = padded_against_tight(*args, **kwargs)
+    print(f"[scale] its largest pose graph ({len(args[0])} keyframes, J {J}): padded to (Jp "
+          f"{Jp}, Ep {Ep}) against tight {d:.2e} (the tight f32 solve {e32:.2e} from f64), "
+          f"chi2 {dchi2:.1e} relative")
+    if not padding_ok(d, e32, dchi2, echi2):
+        raise AssertionError(f"[scale] the largest pose graph: padded and tight {d:.2e} apart")
     if out["n_frames"] != workloads.SCALE_FRAMES:
         raise AssertionError(f"[scale] {out['n_frames']} frames, not {workloads.SCALE_FRAMES}")
     if not (out["ate_ok"] and out["tracking_breaks"] == 0
@@ -2434,9 +2738,10 @@ def main():
     counts = phase_disk(card)
     launches = {k: launches[k] + counts[k] for k in launches}
     # Phases 17 and 19 last, on phases 7-8's records.
-    mark(t_start, "fast-icp, sharded")
+    mark(t_start, "fast-icp, sharded, backend programs")
     phase_fast_icp(closed, card)
     phase_sharded(closed, ba_closed, card)
+    phase_backend_programs(closed, ba_closed, card)
     mark(t_start, "bench, scale")
     for counts in phase_bench(card):
         launches = {k: launches[k] + counts[k] for k in launches}

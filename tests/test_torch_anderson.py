@@ -2,8 +2,9 @@
 
   * tests/test_anderson.py's four problems, and a batch of 8 problems
     with mixed numbers of valid correspondences (the batched path): the
-    port's transforms within 1e-5 of JAX's (an SVD a round, f32, another
-    LAPACK call order), num_inliers and converged equal.
+    port's transforms within 1e-5 of JAX's (a rotation fit a round, f32:
+    JAX's SVD, the port's Horn quaternion), num_inliers and converged
+    equal.
   * JAX's four properties for the port alone: exact recovery, robustness
     to outliers, agreement with GN ICP (aligners.icp_align, translations
     within 5e-3 m) and a fast descent in 6 rounds.

@@ -177,9 +177,10 @@ def test_bundle_adjust_matches_jax(cams, odo):
 
 
 def test_padded_and_true_sizes_agree(cams):
-    """The JAX runner pads L to a power of two (invalid, masked rows) and P
-    to the window (frozen cameras with no observations and zero-weight
-    odometry); the port solves at the true size: the same answer."""
+    """The runners (the JAX package's, and the port's since its solve
+    became a program a bucket) pad L to a power of two (invalid, masked
+    rows) and P to the window (frozen cameras with no observations and
+    zero-weight odometry): the same answer as the true size."""
     _, tc = cams
     d = make_problem()
     P, L = d["T_wc"].shape[0], d["xyz"].shape[0]

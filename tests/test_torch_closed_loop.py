@@ -48,7 +48,8 @@ CAM_ARGS = dict(fx=300.0, fy=300.0, cx=256.0, cy=96.0, baseline_m=0.4, rows=192,
 N_FRAMES = 48
 EVENTS = ("n_local_maps", "n_closures", "n_optimizations", "n_track_breaks")
 CLOSURE_STAGES = ("relocalization", "reloc_vote_icp", "pose_graph_optimization",
-                  "pg_solve", "pg_propagate", "landmark_merging")
+                  "pg_assembly", "pg_junction_solve", "pg_distribution", "pg_propagate",
+                  "landmark_merging")
 
 
 def closed_loop_config(cls, border):

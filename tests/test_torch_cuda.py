@@ -790,3 +790,199 @@ def test_engine_after_a_warm_engine_replays_from_its_first_frame():
     delta = fused.EVENTS - before
     assert delta["eager"] == 0 and delta["capture"] == 0 and delta["replay"] == len(frames)
     np.testing.assert_array_equal(got, want)
+
+
+def _replays_its_eager_run(prog, inputs):
+    """A StaticProgram's first run eager, its second a capture and replay
+    bit-equal to it, a third replay bit-equal again and free of host
+    synchronization (inputs on the card).  Returns the eager outputs."""
+    from torch.utils import _pytree as pytree
+
+    eager = prog.run(inputs)
+    replayed = prog.run(inputs)
+    assert prog.graph is not None and prog.uses == 2
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = prog.run(inputs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for a, b, c in zip(*(pytree.tree_leaves(x) for x in (eager, replayed, again))):
+        assert torch.equal(a, b) and torch.equal(b, c)
+    return eager
+
+
+def _drifted_junction_graph(P=48, n_clo=6, seed=5):
+    """A 1.2-lap circle of P keyframes with drifting odometry and n_clo
+    closures from the second lap onto the first, as the hierarchical
+    solve's inputs (poses, odometry, weights, closures)."""
+    from vslam_tpu_torch.ops import lie
+
+    rng = np.random.default_rng(seed)
+    a = np.linspace(0, 2.4 * np.pi, P)
+    gt = np.tile(np.eye(4, dtype=np.float32), (P, 1, 1))
+    gt[:, 0, 0] = gt[:, 2, 2] = np.cos(a)
+    gt[:, 0, 2], gt[:, 2, 0] = np.sin(a), -np.sin(a)
+    gt[:, 0, 3], gt[:, 2, 3] = 12 * np.cos(a), 12 * np.sin(a)
+    drift = lie.exp_se3(torch.tensor(np.c_[1e-2 * (1 + 0.1 * rng.normal(size=(P - 1, 3))),
+                                           np.zeros(P - 1), 5e-3 * np.ones(P - 1),
+                                           np.zeros(P - 1)], dtype=torch.float32)).numpy()
+    odo = np.linalg.inv(gt[:-1]) @ gt[1:] @ drift
+    est = gt.copy()
+    for k in range(P - 1):
+        est[k + 1] = est[k] @ odo[k]
+    lap = int(P / 1.2)
+    clo = [(j - lap, j, np.linalg.inv(gt[j - lap]) @ gt[j])
+           for j in range(lap + 1, P, max((P - lap - 1) // n_clo, 1))][:n_clo]
+    return est, odo.astype(np.float32), np.ones(P - 1, np.float32), clo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levenberg", [False, True])
+def test_pose_graph_programs_replay_their_eager_solves(levenberg):
+    """The junction solve at (64, 128) and the distribution at 512 poses:
+    each captured, its replays bit-equal to its eager run and to each
+    other, no host synchronization inside a replay; the hierarchical
+    solve through them within 1e-5 of the same solve on the CPU; the
+    warm-up leaves its programs captured (the JAX package's three
+    problems land at Jp 64, 64 and 256: the middle one's closures compact
+    to 25)."""
+    _need_card()
+    from vslam_tpu_torch.backend import pose_graph as pg
+
+    est, odo, w, clo = _drifted_junction_graph()
+    g, junc, J, _ = pg.junction_graph(est, odo, w, clo)
+    pg.clear_programs()
+    dev = lambda a: torch.as_tensor(a).cuda()  # noqa: E731
+    prog = pg.junction_program(64, 128, 10, levenberg, "cuda")
+    opt, _ = _replays_its_eager_run(prog, (pg.PoseGraph(*map(dev, g)), dev(np.float32(1.0))))
+    corr = opt[:J].cpu().numpy() @ np.linalg.inv(est[junc])
+    owner = np.minimum(np.arange(512) * (J - 1) // 48, J - 2)
+    dist = pg.distribute_program(512, 64, "cuda")
+    _replays_its_eager_run(dist, (dev(pg._padded(est, 512, np.eye(4, dtype=np.float32))),
+                                  dev(pg._padded(corr.astype(np.float32), 64,
+                                                 np.eye(4, dtype=np.float32))),
+                                  dev(owner.astype(np.int64)),
+                                  dev((np.arange(512) % 7 / 7).astype(np.float32))))
+    got, chi2 = pg.optimize_pose_graph_hierarchical(est, odo, w, clo, levenberg=levenberg,
+                                                    device="cuda")
+    want, chi2_cpu = pg.optimize_pose_graph_hierarchical(est, odo, w, clo,
+                                                         levenberg=levenberg, device="cpu")
+    assert np.abs(got - want).max() <= 1e-5 * max(1.0, np.abs(want).max())
+    assert abs(chi2 / chi2_cpu - 1) <= 1e-4
+    pg.clear_programs()
+    before = pg.EVENTS.copy()
+    pg.warm_hierarchical_buckets(device="cuda")
+    assert all(p.graph is not None for p in pg._PROGRAMS.values())
+    assert {k[1] for k in pg._PROGRAMS if k[0] == "junction"} == {64, 256}
+    delta = pg.EVENTS - before
+    assert delta["capture"] == 2 and delta["distribute capture"] == 2
+
+
+@pytest.mark.cuda
+def test_ba_program_replays_its_eager_solve():
+    """The windowed BA program at P 16, L 512: captured, its replays
+    bit-equal to its eager solve and to each other, no host
+    synchronization inside a replay, the padded solve's poses within
+    1e-5 of the tight one's; warm_windowed_ba leaves the engine's
+    program at L 2048 captured."""
+    _need_card()
+    from vslam_tpu_torch.backend import ba
+    from vslam_tpu_torch.system import ba_runner
+
+    cam, prob = _ba_problem("cuda")
+    P, (L, O) = prob.T_wc.shape[0], prob.obs_cam.shape
+    pad = lambda t, n, fill: torch.cat(  # noqa: E731
+        [t, fill.expand((n - len(t),) + t.shape[1:]).to(t.dtype)])
+    eye = torch.eye(4, device="cuda")
+    zero = torch.zeros((), device="cuda")
+    padded = prob._replace(
+        T_wc=pad(prob.T_wc, 16, eye), xyz=pad(prob.xyz, 512, zero),
+        obs_cam=pad(prob.obs_cam, 512, zero), obs_uv4=pad(prob.obs_uv4, 512, zero),
+        obs_weight=pad(prob.obs_weight, 512, zero), obs_mask=pad(prob.obs_mask, 512, zero),
+        lm_valid=pad(prob.lm_valid, 512, zero), cam_fixed=pad(prob.cam_fixed, 16, zero + 1),
+        odo_T=pad(prob.odo_T, 16, eye),
+        odo_weight=pad(prob.odo_weight[:P - 1], 16, zero))
+    config = ba.BAConfig()
+    ba.clear_programs()
+    prog = ba.ba_program(cam, 16, 512, O, config, True, "cuda")
+    T, X, _ = _replays_its_eager_run(prog, ((cam.K, cam.baseline_m), padded))
+    Tt, Xt, _ = ba.bundle_adjust(cam, prob, config)
+    assert (T[:P] - Tt).abs().max() <= 1e-5
+    assert (X[:L] - Xt).abs().max() <= 1e-3
+
+    cfg = ParameterCollection()
+    cfg.graph_optimization.enable_full_bundle_adjustment = True
+    eng = SlamEngine(cam, cfg, landmark_capacity=4096, device="cuda")
+    before = ba.EVENTS.copy()
+    ba_runner.warm_windowed_ba(eng)
+    delta = ba.EVENTS - before
+    assert delta == {"eager": 1, "capture": 1, "replay": 1}
+    key = (ba_runner.WINDOW, 2048, ba_runner.OMAX, ba_runner.ba_config(eng), True,
+           torch.device("cuda", torch.cuda.current_device()))
+    assert ba._PROGRAMS[key].graph is not None
+
+
+@pytest.mark.cuda
+def test_fast_icp_program_replays_its_eager_batch():
+    """relocalizer.ICPProgram with FAST-ICP at bucket 8: captured (the
+    rotation fit and the mixing solve read nothing back), each replay
+    bit-equal to the eager solve of the same padded batch, no host
+    synchronization inside a replay, the verdicts the CPU's."""
+    _need_card()
+    from vslam_tpu_torch.loop import relocalizer as rl
+    from vslam_tpu_torch.ops import lie
+    from vslam_tpu_torch.solve import aligners, anderson, gn
+
+    cfg = gn.GNConfig(kernel_max_error=0.25, min_num_inliers=8, max_iterations=50)
+    prog = rl.ICPProgram(anderson.fast_icp_align, cfg, 8, 256, "cuda")
+    rng = np.random.default_rng(4)
+    for B in (5, 5, 8, 3):
+        xi = torch.from_numpy((rng.normal(size=(B, 6)) * 0.1).astype(np.float32))
+        mov = torch.from_numpy(rng.uniform(-5, 5, (B, 256, 3)).astype(np.float32))
+        fix = lie.transform_points(lie.exp_se3(xi)[:, None], mov)
+        fix = fix + torch.from_numpy(rng.normal(0, 0.05, (B, 256, 3)).astype(np.float32))
+        mask = torch.from_numpy(np.arange(256)[None] < rng.integers(40, 256, (B, 1)))
+        T0 = torch.eye(4).repeat(B, 1, 1)
+        args = [t.cuda() for t in (mov, fix, mask, T0)]
+        torch.cuda.synchronize()
+        if prog.graph is not None:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = prog.run(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        want = prog.eager()
+        for name, a, b in zip(got._fields, got, want):
+            assert torch.equal(a, b), (B, name)
+        cpu = anderson.fast_icp_align(aligners.ICPData(mov, fix, torch.ones(B, 256)), mask,
+                                      T0, cfg)
+        assert torch.equal(got.converged[:B].cpu(), cpu.converged)
+        assert torch.equal(got.num_inliers[:B].cpu(), cpu.num_inliers)
+    assert prog.graph is not None and prog.uses == 4
+
+
+@pytest.mark.cuda
+def test_capture_without_conditional_nodes_keeps_its_slots():
+    """control.graph_capture zeroes its record slots at the start of every
+    replay.  A program with no WHILE or IF node keeps them through its
+    Record: after the capture's other references are gone, memory the
+    allocator hands out next is not written by a replay."""
+    _need_card()
+    import gc
+
+    from vslam_tpu_torch.ops import control
+
+    x = torch.arange(16, dtype=torch.float32, device="cuda")
+    graph = torch.cuda.CUDAGraph()
+    with control.graph_capture(graph, "cuda") as record:
+        y = x * 2
+    assert record.entries == [] and record.slots is not None
+    gc.collect()
+    held = [torch.full((control.MAX_SLOTS,), 7, dtype=torch.int32, device="cuda")
+            for _ in range(8)]
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert all(bool((h == 7).all()) for h in held)
+    assert torch.equal(y, x * 2)

@@ -17,19 +17,25 @@ Differences from the JAX package, same answer:
   * a failed Cholesky (cholesky_ex info != 0) gives the zero camera step
     that JAX's NaN-returning cho_factor gives after its isfinite guard.
 
+ba_program gives the solve at one (P, L, O) bucket as a device program
+(ops/program.StaticProgram; on the card one captured graph, replayed),
+as the JAX package jits bundle_adjust at the runner's padded sizes.
+
 Robust kernel: chi2 clamping as IRLS weights (reference-style).
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import NamedTuple
 
 import torch
 
 from vslam_tpu_torch.backend import pose_graph as pg
 from vslam_tpu_torch.ops import camera as cam_ops
-from vslam_tpu_torch.ops import lie
+from vslam_tpu_torch.ops import lie, program
 from vslam_tpu_torch.solve.gn import inv3
+from vslam_tpu_torch.utils.device import resolve_device
 
 
 class BAProblem(NamedTuple):
@@ -124,7 +130,7 @@ def build_reduced_system(cam, T_wc, prob: BAProblem, config: BAConfig):
     eye3 = torch.eye(3, dtype=dt, device=T_wc.device)
     Winv = inv3(W + config.damping * eye3)
 
-    E = torch.nn.functional.one_hot(prob.obs_cam, P).to(dt)  # (L, O, P)
+    E = pg._one_hot(prob.obs_cam, P, dt)  # (L, O, P)
     eyeP = torch.eye(P, dtype=dt, device=T_wc.device)
     YW = Y @ Winv[:, None]  # (L, O, 6, 3)
     # Block diagonal and gradient, per observation's camera.
@@ -154,8 +160,8 @@ def _odometry_terms(T_wc, prob: BAProblem):
     Hij = torch.einsum("eri,e,r,erj->eij", Ji, w, om, Jj)
     bi = torch.einsum("eri,e,r,er->ei", Ji, w, om, r_o)
     bj = torch.einsum("eri,e,r,er->ei", Jj, w, om, r_o)
-    Ei = torch.nn.functional.one_hot(ks, P).to(dt)
-    Ej = torch.nn.functional.one_hot(jj, P).to(dt)
+    Ei = pg._one_hot(ks, P, dt)
+    Ej = pg._one_hot(jj, P, dt)
     H = (torch.einsum("ep,eq,eij->piqj", Ei, Ei, Hii)
          + torch.einsum("ep,eq,eij->piqj", Ej, Ej, Hjj)
          + torch.einsum("ep,eq,eij->piqj", Ei, Ej, Hij)
@@ -208,3 +214,57 @@ def bundle_adjust(cam: cam_ops.CameraParams, prob: BAProblem,
         T_wc, xyz = solve_reduced_and_backsub(T_wc, p, S, b_S, Winv, b_l, Y, config)
         chi2s.append(chi2)
     return T_wc, xyz, torch.stack(chi2s)
+
+
+# Eager solves, captures and replays of the BA programs (CUDA only).
+EVENTS: Counter = Counter()
+# The process's programs, by (P, L, O, config, odometry, device).
+_PROGRAMS: dict[tuple, program.StaticProgram] = {}
+
+
+def ba_program(cam: cam_ops.CameraParams, P: int, L: int, O: int, config: BAConfig,
+               odometry: bool = True, device=None) -> program.StaticProgram:
+    """The process's bundle_adjust program for problems of P cameras, L
+    landmarks and O observation slots (with the odometry factors or
+    without) under config.  Its inputs are ((K, baseline_m), BAProblem):
+    the camera is an input too (a graph reads its tensors by address);
+    its outputs bundle_adjust's (T_wc, xyz, chi2_history)."""
+    device = resolve_device(cam.device if device is None else device)
+    key = (P, L, O, config, odometry, device)
+    if key not in _PROGRAMS:
+        f32 = dict(dtype=torch.float32, device=device)
+        eye = torch.eye(4, **f32)
+        prob = BAProblem(
+            T_wc=eye.repeat(P, 1, 1), xyz=torch.zeros((L, 3), **f32),
+            obs_cam=torch.zeros((L, O), dtype=torch.int64, device=device),
+            obs_uv4=torch.zeros((L, O, 4), **f32), obs_weight=torch.zeros((L, O), **f32),
+            obs_mask=torch.zeros((L, O), dtype=torch.bool, device=device),
+            lm_valid=torch.zeros(L, dtype=torch.bool, device=device),
+            cam_fixed=torch.ones(P, dtype=torch.bool, device=device),
+            odo_T=eye.repeat(P, 1, 1) if odometry else None,
+            odo_weight=torch.zeros(P, **f32) if odometry else None,
+            odo_info=torch.zeros(6, **f32) if odometry else None)
+        template = cam._replace(K=torch.eye(3, **f32))
+
+        def solve(bufs):
+            (K, baseline), p = bufs
+            return bundle_adjust(template._replace(K=K, baseline_m=baseline), p, config)
+
+        bufs = ((torch.eye(3, **f32), torch.zeros((), **f32)), prob)
+        _PROGRAMS[key] = program.StaticProgram(solve, bufs, EVENTS)
+    return _PROGRAMS[key]
+
+
+def clear_programs() -> None:
+    """Forget every shared BA program."""
+    _PROGRAMS.clear()
+
+
+def bundle_adjust_program(cam: cam_ops.CameraParams, prob: BAProblem,
+                          config: BAConfig = BAConfig()):
+    """bundle_adjust through the program of prob's sizes on prob's device:
+    on the card its first use at a size is eager, its second captures it
+    and every later use replays it."""
+    P, (L, O) = prob.T_wc.shape[0], prob.obs_cam.shape
+    prog = ba_program(cam, P, L, O, config, prob.odo_T is not None, prob.T_wc.device)
+    return prog.run(((cam.K, cam.baseline_m), prob))

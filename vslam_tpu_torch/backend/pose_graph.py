@@ -14,20 +14,29 @@ The chain solver of the JAX package (optimize_pose_graph_chain: odometry
 chain + closures solved in increment space by Woodbury) is here too; only
 tests and the chip smoke call it.
 
-The JAX package pads the junction graph and the pose list to power-of-two
-compile buckets; padded vertices are decoupled (no edges, a 1e12
-diagonal), so the port solves at the true size and gets the same answer.
+The junction solve and the distribution run as device programs at the
+JAX package's compile buckets (ops/program.StaticProgram: on the card
+one captured graph a bucket, replayed): the junction graph padded to
+Jp = pow2(J, floor 64) poses and Ep = max(pow2(E, floor 128), 2 Jp)
+edges, the pose list to pow2(P, floor 512).  Padded poses are decoupled
+(no edges, a 1e12 diagonal) and padded edges weigh 0, so the padded
+solve is the true-size one.  The normal equations are assembled by
+one-hot products, not scatter-adds: every junction is the endpoint of
+two or more edges, and a scatter-add with repeated indices sums in a
+different order from run to run on CUDA.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from vslam_tpu_torch.ops import lie
+from vslam_tpu_torch.ops import lie, program
 from vslam_tpu_torch.solve import gn
+from vslam_tpu_torch.utils import log
 from vslam_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -54,8 +63,38 @@ def _edge_residual_jac(poses, i, j, T_ij):
     return r, -Jj, Jj
 
 
+def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """(..., n) indicator of idx (torch's one_hot reads its input's range
+    back on the CPU)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def normal_equations(r, Ji, Jj, w, ii, jj, P):
+    """The Gauss-Newton system of the edge residuals r (E, 6) with
+    Jacobians Ji, Jj (E, 6, 6) and weights w (E,) between poses ii, jj:
+    H (P, 6, P, 6) and b (P, 6), by one-hot products in a fixed order.
+    The four blocks of edge e go to (i, i), (j, j), (i, j) and (j, i);
+    the last is the transpose of the third, so H = D + O + O^T with D
+    block diagonal and O = sum_e E_i[e]^T (Ji^T w Jj)[e] E_j[e]."""
+    E, dt = r.shape[0], r.dtype
+    Ei, Ej = _one_hot(ii, P, dt), _one_hot(jj, P, dt)
+    Hii = torch.einsum("eri,e,erj->eij", Ji, w, Ji)
+    Hjj = torch.einsum("eri,e,erj->eij", Jj, w, Jj)
+    Hij = torch.einsum("eri,e,erj->eij", Ji, w, Jj)
+    bi = torch.einsum("eri,e,er->ei", Ji, w, r)
+    bj = torch.einsum("eri,e,er->ei", Jj, w, r)
+    diag = (Ei.T @ Hii.reshape(E, 36) + Ej.T @ Hjj.reshape(E, 36)).reshape(P, 6, 6)
+    eyeP = torch.eye(P, dtype=dt, device=r.device)
+    D = (diag[:, :, None, :] * eyeP[:, None, :, None]).reshape(6 * P, 6 * P)
+    O = (Ei.T @ (Ej[:, :, None, None] * Hij[:, None]).reshape(E, P * 36))
+    O = O.reshape(P, P, 6, 6).permute(0, 2, 1, 3).reshape(6 * P, 6 * P)
+    H = (D + O + O.T).reshape(P, 6, P, 6)
+    b = Ei.T @ bi + Ej.T @ bj
+    return H, b
+
+
 def optimize_pose_graph(graph: PoseGraph, iterations: int = 10, damping: float = 1e-3,
-                        robust_kernel_chi2: float = 1.0, anchor_weight: float = 1e6,
+                        robust_kernel_chi2=1.0, anchor_weight: float = 1e6,
                         levenberg: bool = False):
     """Dense damped GN; returns (optimized poses (P, 4, 4), final chi2).
 
@@ -64,19 +103,22 @@ def optimize_pose_graph(graph: PoseGraph, iterations: int = 10, damping: float =
     returns the best (poses, chi2) seen — the reference's LEVENBERG (and
     DOGLEG) optimization_algorithm.  A failed Cholesky (cholesky_ex info
     != 0) counts as a non-finite step: the poses are kept, as the JAX
-    package's NaN-returning cho_factor does."""
+    package's NaN-returning cho_factor does.  robust_kernel_chi2: a
+    float or a 0-d tensor (a program's buffer).  Nothing is read back and
+    no tensor is made from host data, so the solve captures."""
     P = graph.poses.shape[0]
     dev, dt = graph.poses.device, graph.poses.dtype
     ii, jj = graph.edge_i, graph.edge_j
     pr = torch.arange(P, device=dev)
     eye6 = torch.eye(6, dtype=dt, device=dev)
+    eyeP = torch.eye(P, dtype=dt, device=dev)
     diag_w = (anchor_weight * (pr == 0).to(dt)
               + torch.where(graph.pose_valid, 0.0, 1e12).to(dt))
 
     poses = graph.poses
-    mu = torch.tensor(damping, dtype=dt, device=dev)
+    mu = torch.full((), damping, dtype=dt, device=dev)
     best_poses = poses
-    best_chi2 = torch.tensor(float("inf"), dtype=dt, device=dev)
+    best_chi2 = torch.full((), float("inf"), dtype=dt, device=dev)
     total_chi2 = best_chi2
     for _ in range(iterations):
         r, Ji, Jj = _edge_residual_jac(poses, ii, jj, graph.edge_T_ij)
@@ -84,22 +126,11 @@ def optimize_pose_graph(graph: PoseGraph, iterations: int = 10, damping: float =
         w = torch.where(chi2 > robust_kernel_chi2,
                         robust_kernel_chi2 / torch.clamp(chi2, min=1e-12), 1.0)
         w = w * graph.edge_weight * graph.edge_valid
-
-        Hii = torch.einsum("eri,e,erj->eij", Ji, w, Ji)
-        Hjj = torch.einsum("eri,e,erj->eij", Jj, w, Jj)
-        Hij = torch.einsum("eri,e,erj->eij", Ji, w, Jj)
-        bi = torch.einsum("eri,e,er->ei", Ji, w, r)
-        bj = torch.einsum("eri,e,er->ei", Jj, w, r)
-        H = torch.zeros((P, P, 6, 6), dtype=dt, device=dev)
-        H.index_put_((ii, ii), Hii, accumulate=True)
-        H.index_put_((jj, jj), Hjj, accumulate=True)
-        H.index_put_((ii, jj), Hij, accumulate=True)
-        H.index_put_((jj, ii), Hij.transpose(-1, -2), accumulate=True)
-        b = torch.zeros((P, 6), dtype=dt, device=dev).index_add(0, ii, bi).index_add(0, jj, bj)
+        H, b = normal_equations(r, Ji, Jj, w, ii, jj, P)
         # Gauge anchor on vertex 0 + damping; invalid poses frozen.
-        H.index_put_((pr, pr), (mu + diag_w)[:, None, None] * eye6, accumulate=True)
+        H = H + torch.einsum("p,pq,ij->piqj", mu + diag_w, eyeP, eye6)
 
-        L, info = torch.linalg.cholesky_ex(H.permute(0, 2, 1, 3).reshape(6 * P, 6 * P))
+        L, info = torch.linalg.cholesky_ex(H.reshape(6 * P, 6 * P))
         dx = -torch.cholesky_solve(b.reshape(6 * P, 1), L).reshape(P, 6)
         norm = torch.linalg.vector_norm(dx, dim=1, keepdim=True)
         dx = dx * torch.clamp(1.0 / torch.clamp(norm, min=1e-12), max=1.0)
@@ -308,23 +339,99 @@ def _distribute_corrections(est, corr, owner, s):
     return lie.orthonormalize_transform(Ck @ est)
 
 
-def optimize_pose_graph_hierarchical(poses, odometry, odo_weight, closures,
-                                     iterations: int = 10,
-                                     robust_kernel_chi2: float = 1.0,
-                                     closure_weight: float = 10.0,
-                                     closure_bucket: int = 4,
-                                     levenberg: bool = False, device=DEFAULT_DEVICE):
-    """Hierarchical pose-graph optimization (the engine's back-end).
+# ---------------------------------------------------------------------------
+# The junction solve and the distribution as device programs
+# ---------------------------------------------------------------------------
 
-    poses: (P, 4, 4) np current keyframe poses; odometry: (P-1, 4, 4) np
-    measured T_{k,k+1}; odo_weight: (P-1,) np break-aware edge weights;
-    closures: list of (ref_id, query_id, T_ij) np closure edges.  The
-    junction solve and the distribution run on `device`.
-    Returns (optimized (P, 4, 4) np poses, final junction chi2)."""
+# The JAX package's bucket floors (log2): junctions, edges, keyframes.
+J_FLOOR, E_FLOOR, P_FLOOR = 6, 7, 9  # 64, 128, 512
+# Eager solves, captures and replays of the pose-graph programs (CUDA
+# only): the junction solves under "eager", "capture", "replay", the
+# distributions under "distribute eager", ... .
+EVENTS: Counter = Counter()
+# The process's programs, by ("junction", Jp, Ep, iterations, levenberg,
+# device) or ("distribute", P_pad, Jp, device).
+_PROGRAMS: dict[tuple, program.StaticProgram] = {}
+
+
+def pow2(x: int, floor: int) -> int:
+    """The power-of-two bucket of x, at least 2 ** floor."""
+    return 1 << max(int(np.ceil(np.log2(max(x, 1)))), floor)
+
+
+def junction_buckets(J: int, E: int) -> tuple[int, int]:
+    """(Jp, Ep): the JAX package's padded junction and edge counts (the
+    edge bucket tied to the junction tier, E ~ 1.5 J)."""
+    Jp = pow2(J, J_FLOOR)
+    return Jp, max(pow2(E, E_FLOOR), 2 * Jp)
+
+
+def junction_program(Jp: int, Ep: int, iterations: int, levenberg: bool,
+                     device) -> program.StaticProgram:
+    """The process's junction-solve program at (Jp, Ep): the inputs are a
+    PoseGraph at that size and the robust kernel (a 0-d buffer, as the
+    JAX package traces it); the outputs (poses (Jp, 4, 4), chi2)."""
     device = resolve_device(device)
+    key = ("junction", Jp, Ep, iterations, levenberg, device)
+    if key not in _PROGRAMS:
+        f32 = dict(dtype=torch.float32, device=device)
+        eye = torch.eye(4, **f32)
+        graph = PoseGraph(
+            poses=eye.repeat(Jp, 1, 1),
+            edge_i=torch.zeros(Ep, dtype=torch.int64, device=device),
+            edge_j=torch.zeros(Ep, dtype=torch.int64, device=device),
+            edge_T_ij=eye.repeat(Ep, 1, 1),
+            edge_weight=torch.zeros(Ep, **f32),
+            edge_valid=torch.zeros(Ep, dtype=torch.bool, device=device),
+            pose_valid=torch.zeros(Jp, dtype=torch.bool, device=device))
+
+        def solve(bufs):
+            g, robust = bufs
+            return optimize_pose_graph(g, iterations=iterations, robust_kernel_chi2=robust,
+                                       levenberg=levenberg)
+
+        _PROGRAMS[key] = program.StaticProgram(solve, (graph, torch.ones((), **f32)), EVENTS)
+    return _PROGRAMS[key]
+
+
+def distribute_program(P_pad: int, Jp: int, device) -> program.StaticProgram:
+    """The process's distribution program: inputs (est (P_pad, 4, 4),
+    corr (Jp, 4, 4), owner (P_pad,), s (P_pad,)), output the corrected
+    poses (P_pad, 4, 4)."""
+    device = resolve_device(device)
+    key = ("distribute", P_pad, Jp, device)
+    if key not in _PROGRAMS:
+        f32 = dict(dtype=torch.float32, device=device)
+        eye = torch.eye(4, **f32)
+        bufs = (eye.repeat(P_pad, 1, 1), eye.repeat(Jp, 1, 1),
+                torch.zeros(P_pad, dtype=torch.int64, device=device), torch.zeros(P_pad, **f32))
+        _PROGRAMS[key] = program.StaticProgram(lambda b: _distribute_corrections(*b), bufs,
+                                               EVENTS, label="distribute")
+    return _PROGRAMS[key]
+
+
+def clear_programs() -> None:
+    """Forget every shared pose-graph program."""
+    _PROGRAMS.clear()
+
+
+def _padded(a: np.ndarray, n: int, fill) -> np.ndarray:
+    """a with its leading axis padded to n rows of `fill`."""
+    out = np.empty((n,) + a.shape[1:], a.dtype)
+    out[:len(a)] = a
+    out[len(a):] = fill
+    return out
+
+
+def junction_graph(poses, odometry, odo_weight, closures, closure_weight: float = 10.0,
+                   closure_bucket: int = 4, pad: bool = True):
+    """The junction graph of the hierarchical solve, assembled on the
+    host: closures compacted, the odometry chain between closure
+    endpoints ("junctions") composed into super-edges.  Returns
+    (PoseGraph of numpy arrays, junction keyframe ids, J, E); with pad,
+    at the junction_buckets size, padded as the JAX package pads it:
+    identity poses frozen by pose_valid, edges 0 -> 0 of weight 0."""
     P = len(poses)
-    if P < 3 or not closures:
-        return poses.copy(), 0.0
     cc = compact_closures(closures, bucket=closure_bucket)
     junc = sorted({0, P - 1} | {int(i) for i, _, _ in cc} | {int(j) for _, j, _ in cc})
     jidx = {k: n for n, k in enumerate(junc)}
@@ -348,41 +455,77 @@ def optimize_pose_graph_hierarchical(poses, odometry, odo_weight, closures,
         se_T.append(np.asarray(T_ij, np.float32))
         se_w.append(closure_weight)
 
-    def dev(a, dtype=torch.float32):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-
     E = len(se_i)
+    Jp, Ep = junction_buckets(J, E) if pad else (J, E)
+    eye = np.eye(4, dtype=np.float32)
     graph = PoseGraph(
-        poses=dev(poses[junc].astype(np.float32)),
-        edge_i=dev(se_i, torch.int64),
-        edge_j=dev(se_j, torch.int64),
-        edge_T_ij=dev(np.stack(se_T).astype(np.float32)),
-        edge_weight=dev(np.asarray(se_w, np.float32)),
-        edge_valid=torch.ones(E, dtype=torch.bool, device=device),
-        pose_valid=torch.ones(J, dtype=torch.bool, device=device),
-    )
-    opt, chi2 = optimize_pose_graph(graph, iterations=iterations,
-                                    robust_kernel_chi2=robust_kernel_chi2,
-                                    levenberg=levenberg)
-    opt = opt.cpu().numpy()
+        poses=_padded(poses[junc].astype(np.float32), Jp, eye),
+        edge_i=_padded(np.asarray(se_i, np.int64), Ep, 0),
+        edge_j=_padded(np.asarray(se_j, np.int64), Ep, 0),
+        edge_T_ij=_padded(np.stack(se_T).astype(np.float32), Ep, eye),
+        edge_weight=_padded(np.asarray(se_w, np.float32), Ep, 0.0),
+        edge_valid=np.arange(Ep) < E,
+        pose_valid=np.arange(Jp) < J)
+    return graph, junc, J, E
 
-    corr = np.einsum("jab,jbc->jac", opt, np.linalg.inv(poses[junc])).astype(np.float32)
-    junc_arr = np.asarray(junc)
-    k_idx = np.arange(P)
-    owner = np.clip(np.searchsorted(junc_arr, k_idx, side="right") - 1, 0, J - 2)
-    seg_len = np.maximum(junc_arr[owner + 1] - junc_arr[owner], 1)
-    s = ((k_idx - junc_arr[owner]) / seg_len).astype(np.float32)
-    out = _distribute_corrections(dev(poses.astype(np.float32)), dev(corr),
-                                  dev(owner, torch.int64), dev(s))
-    return out.cpu().numpy(), float(chi2)
+
+def optimize_pose_graph_hierarchical(poses, odometry, odo_weight, closures,
+                                     iterations: int = 10,
+                                     robust_kernel_chi2: float = 1.0,
+                                     closure_weight: float = 10.0,
+                                     closure_bucket: int = 4,
+                                     levenberg: bool = False, device=DEFAULT_DEVICE):
+    """Hierarchical pose-graph optimization (the engine's back-end).
+
+    poses: (P, 4, 4) np current keyframe poses; odometry: (P-1, 4, 4) np
+    measured T_{k,k+1}; odo_weight: (P-1,) np break-aware edge weights;
+    closures: list of (ref_id, query_id, T_ij) np closure edges.  The
+    junction solve and the distribution run on `device` as the programs
+    of their buckets; the stage clock splits the call into the host
+    assembly (pg_assembly), the junction program (pg_junction_solve) and
+    the distribution (pg_distribution), each ending in its host read.
+    Returns (optimized (P, 4, 4) np poses, final junction chi2)."""
+    device = resolve_device(device)
+    P = len(poses)
+    if P < 3 or not closures:
+        return poses.copy(), 0.0
+    with log.measure("pg_assembly"):
+        graph, junc, J, _ = junction_graph(poses, odometry, odo_weight, closures,
+                                           closure_weight, closure_bucket)
+        Jp, Ep = len(graph.poses), len(graph.edge_i)
+    with log.measure("pg_junction_solve"):
+        prog = junction_program(Jp, Ep, iterations, levenberg, device)
+        opt, chi2 = prog.run((graph, np.float32(robust_kernel_chi2)))
+        opt = opt.cpu().numpy()[:J]
+        chi2 = float(chi2)
+
+    with log.measure("pg_distribution"):
+        corr = np.einsum("jab,jbc->jac", opt, np.linalg.inv(poses[junc])).astype(np.float32)
+        junc_arr = np.asarray(junc)
+        k_idx = np.arange(P)
+        owner = np.clip(np.searchsorted(junc_arr, k_idx, side="right") - 1, 0, J - 2)
+        seg_len = np.maximum(junc_arr[owner + 1] - junc_arr[owner], 1)
+        s = ((k_idx - junc_arr[owner]) / seg_len).astype(np.float32)
+        P_pad = pow2(P, P_FLOOR)
+        eye = np.eye(4, dtype=np.float32)
+        dist = distribute_program(P_pad, Jp, device)
+        out = dist.run((_padded(poses.astype(np.float32), P_pad, eye), _padded(corr, Jp, eye),
+                        _padded(owner.astype(np.int64), P_pad, 0),
+                        _padded(s, P_pad, 0.0)))
+        out = out.cpu().numpy()[:P]
+    return out, chi2
 
 
 def warm_hierarchical_buckets(max_keyframes: int = 512, device=DEFAULT_DEVICE) -> None:
-    """Run the hierarchical solver once at each of the JAX package's
-    three program tiers (P poses, C closures: max_keyframes / 4 and 24,
-    / 2 and 50, - 2 and 110) on `device`, so the first closure of a timed
-    run meets a warm device (the JAX package's warm_hierarchical_buckets,
-    which compiles them)."""
+    """Run the hierarchical solver on each of the JAX package's three
+    warm-up problems (P poses, C closures: max_keyframes / 4 and 24, / 2
+    and 50, - 2 and 110) on `device` until its junction and distribution
+    programs are captured, so the closures of a timed run replay them
+    (the JAX package's warm_hierarchical_buckets, which compiles them).
+    At the default the problems land at Jp 64, 64 and 256 (the middle
+    one's closures, 2 keyframes apart, compact to 25), as in JAX: a
+    graph of 65-128 junctions still captures its program in the run."""
+    device = resolve_device(device)
     for P, C in ((max_keyframes // 4, 24), (max_keyframes // 2, 50),
                  (max_keyframes - 2, 110)):
         poses = np.tile(np.eye(4, dtype=np.float32), (P, 1, 1))
@@ -391,5 +534,8 @@ def warm_hierarchical_buckets(max_keyframes: int = 512, device=DEFAULT_DEVICE) -
         odo[:, 0, 3] = 1.0
         closures = [(i * ((P // 2) // C), P // 2 + i * ((P // 2) // C),
                      np.eye(4, dtype=np.float32)) for i in range(C)]
-        optimize_pose_graph_hierarchical(poses, odo, np.ones(P - 1, np.float32), closures,
-                                         iterations=10, device=device)
+        for _ in range(2 if device.type == "cuda" else 1):
+            optimize_pose_graph_hierarchical(poses, odo, np.ones(P - 1, np.float32),
+                                             closures, iterations=10, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

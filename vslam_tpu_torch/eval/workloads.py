@@ -90,13 +90,20 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _events() -> Counter:
-    """The programs' eager frames, captures and replays so far (CUDA):
-    the tracker's ("eager", ...) and the closure ICP's ("icp eager", ...)."""
+def program_events() -> Counter:
+    """The programs' eager runs, captures and replays so far (CUDA): the
+    tracker's ("eager", ...), the closure ICP's ("icp eager", ...), the
+    pose graph's ("pose graph eager", ..., "pose graph distribute
+    eager", ...) and the windowed BA's ("ba eager", ...)."""
+    from vslam_tpu_torch.backend import ba
+    from vslam_tpu_torch.backend import pose_graph as pg
     from vslam_tpu_torch.loop import relocalizer as rl
     from vslam_tpu_torch.tracking import fused
 
-    return fused.EVENTS + Counter({f"icp {k}": v for k, v in rl.EVENTS.items()})
+    out = Counter(fused.EVENTS)
+    for prefix, events in (("icp", rl.EVENTS), ("pose graph", pg.EVENTS), ("ba", ba.EVENTS)):
+        out.update({f"{prefix} {k}": v for k, v in events.items()})
+    return out
 
 
 def _engine(cfg, device):
@@ -118,7 +125,7 @@ def _timed_run(cfg, world, frames, device) -> dict:
     engine = _engine(cfg, device)
     handles = engine.tracker.prestage(frames)
     _sync(device)
-    events0 = _events()
+    events0 = program_events()
     t0 = time.perf_counter()
     first = None
     for h in handles:
@@ -128,7 +135,7 @@ def _timed_run(cfg, world, frames, device) -> dict:
     engine._flush_tracker()
     _sync(device)
     wall = time.perf_counter() - t0
-    events = _events() - events0
+    events = program_events() - events0
     rmse, _, _ = traj_eval.ate_rmse(np.stack(engine.tracker.trajectory),
                                     world.poses[:len(frames)])
     rep = engine.report()

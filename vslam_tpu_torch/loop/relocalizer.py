@@ -37,7 +37,7 @@ import torch
 
 from vslam_tpu_torch.io.config import RelocalizationParameters
 from vslam_tpu_torch.mapping.local_maps import Closure, LocalMap
-from vslam_tpu_torch.ops import control, hamming
+from vslam_tpu_torch.ops import hamming, program
 from vslam_tpu_torch.parallel import mesh as mesh_mod
 from vslam_tpu_torch.parallel import sharded_search
 from vslam_tpu_torch.solve import aligners, anderson, gn
@@ -186,48 +186,46 @@ def icp_bucket(B: int) -> int:
     return next(b for b in ICP_BUCKETS if B <= b)
 
 
-class ICPProgram:
+class ICPProgram(program.StaticProgram):
     """The closure ICP solve at one batch bucket as one device program
     (the JAX package's _batched_icp_solver, jitted per bucket): static
     input buffers of B = bucket problems, the rows past the batch masked
     out (no points, the identity guess).  On CUDA its first use runs
     eagerly, its second captures it (control.graph_capture: each GN
-    phase a WHILE node) and every use replays it; results are copied out
-    of the program's outputs, which the next replay overwrites.  On the
-    CPU every use runs the same solve eagerly on the same buffers.
-
-    capture=False keeps every use eager: FAST-ICP's Procrustes step calls
-    torch.linalg.svd, whose error check reads the card, so it cannot be
-    captured.
+    phase a WHILE node; FAST-ICP's fixed rounds as they are) and every
+    use replays it; results are copied out of the program's outputs,
+    which the next replay overwrites.  On the CPU every use runs the
+    same solve eagerly on the same buffers.
 
     The relocalizers of a process share one program a key (icp_program,
     the JAX package's memoized _batched_icp_solver); on CUDA, EVENTS
     counts their eager batches, captures and replays."""
 
-    def __init__(self, solve, config: gn.GNConfig, B: int, cap: int, device,
-                 capture: bool = True):
+    def __init__(self, solve, config: gn.GNConfig, B: int, cap: int, device):
         f32 = dict(dtype=torch.float32, device=device)
-        self.solve, self.config, self.device = solve, config, torch.device(device)
-        self.capture = capture
+        self.solve, self.config = solve, config
         self.mov = torch.zeros((B, cap, 3), **f32)
         self.fix = torch.zeros((B, cap, 3), **f32)
         self.weight = torch.ones((B, cap), **f32)
         self.mask = torch.zeros((B, cap), dtype=torch.bool, device=device)
         self.eye = torch.eye(4, **f32)
         self.T0 = self.eye.repeat(B, 1, 1)
-        self.uses = 0
-        self.graph = None
-        self.out = None
-        self.record = None  # control.Record of the capture
+        super().__init__(self._solve, (self.mov, self.fix, self.weight, self.mask, self.T0),
+                         EVENTS)
 
-    def _solve(self) -> gn.GNResult:
-        return self.solve(aligners.ICPData(self.mov, self.fix, self.weight), self.mask,
-                          self.T0, self.config)
+    def _solve(self, bufs) -> gn.GNResult:
+        mov, fix, weight, mask, T0 = bufs
+        return self.solve(aligners.ICPData(mov, fix, weight), mask, T0, self.config)
 
     def run(self, mov, fix, mask, T0) -> gn.GNResult:
         """Solve n <= B problems: mov, fix (n, cap, 3), mask (n, cap), T0
         (n, 4, 4) on the program's device.  The result has the bucket's
         B rows; rows n.. are the padding's."""
+        self.load_batch(mov, fix, mask, T0)
+        return self.evaluate()
+
+    def load_batch(self, mov, fix, mask, T0) -> None:
+        """The batch into the buffers, the rows past it masked out."""
         n = mov.shape[0]
         for buf, src in ((self.mov, mov), (self.fix, fix), (self.mask, mask), (self.T0, T0)):
             buf[:n].copy_(src)
@@ -235,23 +233,6 @@ class ICPProgram:
         self.fix[n:].zero_()
         self.mask[n:].fill_(False)
         self.T0[n:].copy_(self.eye.expand_as(self.T0[n:]))
-        cuda = self.device.type == "cuda"
-        if not cuda or self.uses == 0 or not self.capture:
-            res = self._solve()
-            if cuda:
-                EVENTS["eager"] += 1
-        else:
-            if self.graph is None:
-                graph = torch.cuda.CUDAGraph()
-                with control.graph_capture(graph, self.device) as record:
-                    self.out = self._solve()
-                self.graph, self.record = graph, record
-                EVENTS["capture"] += 1
-            self.graph.replay()
-            EVENTS["replay"] += 1
-            res = gn.GNResult(*(t.clone() for t in self.out))
-        self.uses += 1
-        return res
 
 
 # Eager batches, captures and replays of every ICPProgram (CUDA only).
@@ -269,7 +250,7 @@ def icp_program(p: RelocalizationParameters, bucket: int, device) -> ICPProgram:
     if key not in _PROGRAMS:
         fast = p.aligner_type == "FAST-ICP"
         _PROGRAMS[key] = ICPProgram(anderson.fast_icp_align if fast else aligners.icp_align,
-                                    config, bucket, cap, device, capture=not fast)
+                                    config, bucket, cap, device)
     return _PROGRAMS[key]
 
 
@@ -283,19 +264,14 @@ def warm_icp_batches(params: RelocalizationParameters, buckets=ICP_BUCKETS,
     """Run the batched ICP program of each bucket on the JAX package's
     warm-up problem (no points, every row masked in, the identity guess)
     until it is captured, so a later closure batch replays it (the JAX
-    package's warm_icp_batches, which compiles the buckets).  FAST-ICP's
-    programs stay eager; one batch warms them."""
+    package's warm_icp_batches, which compiles the buckets)."""
     for B in buckets:
         prog = icp_program(params, B, device)
         cap, dev = prog.mov.shape[1], prog.device
         zeros = torch.zeros((B, cap, 3), dtype=torch.float32, device=dev)
-        args = (zeros, zeros, torch.ones((B, cap), dtype=torch.bool, device=dev),
-                torch.eye(4, dtype=torch.float32, device=dev).repeat(B, 1, 1))
-        prog.run(*args)
-        if dev.type == "cuda" and prog.capture and prog.graph is None:
-            prog.run(*args)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        prog.load_batch(zeros, zeros, torch.ones((B, cap), dtype=torch.bool, device=dev),
+                        torch.eye(4, dtype=torch.float32, device=dev).repeat(B, 1, 1))
+        prog.warm()
 
 
 class Relocalizer:

@@ -11,6 +11,8 @@ are invalidated and returned to the free stack.
 
 from __future__ import annotations
 
+from collections import Counter
+
 import numpy as np
 import torch
 
@@ -55,13 +57,36 @@ def union_find(pairs: np.ndarray) -> dict[int, int]:
     return remap
 
 
+def _add_in_pair_order(rows: torch.Tensor, d: torch.Tensor, deltas: torch.Tensor,
+                       rounds: int) -> torch.Tensor:
+    """rows with each pair's delta (n, ...) added at its destination d
+    (n,), the deltas of one destination in pair order, as the JAX
+    package's .at[d].add sums them on the CPU.  Round r adds each
+    destination's r-th pair (its rank among the earlier pairs of the same
+    destination) and zeros from every other pair: a repeated index then
+    adds only exact zeros besides its one delta, so the sum does not
+    depend on the order a CUDA scatter takes.  `rounds` is at least the
+    largest number of pairs of one destination."""
+    same = d[:, None] == d[None, :]
+    rank = torch.tril(same, diagonal=-1).sum(dim=1)
+    shape = (-1,) + (1,) * (deltas.dim() - 1)
+    for r in range(rounds):
+        rows = rows.index_add(0, d, torch.where((rank == r).reshape(shape), deltas, 0.0))
+    return rows
+
+
 def _apply_merges(table: LandmarkTable, src: torch.Tensor, dst: torch.Tensor,
-                  use: torch.Tensor) -> LandmarkTable:
+                  use: torch.Tensor, rounds: int | None = None) -> LandmarkTable:
     """Batched absorb: for each used (src -> dst) pair, dst takes src's
     information and src is invalidated.  A pair whose slot is no longer
     valid (recycled since the snapshot) is skipped.  Several sources may
     merge into one destination: the deltas add, as the JAX package's
-    .at[].add/max/min do (index_add / scatter_reduce here)."""
+    .at[].add/max/min do (the float sums in pair order,
+    _add_in_pair_order, over `rounds` rounds: the most pairs of one
+    destination, None for the number of pairs; the integer sums and the
+    max/min by index_add and scatter_reduce, whose results do not depend
+    on the order)."""
+    rounds = len(src) if rounds is None else rounds
     s = torch.where(use, src, 0).to(torch.int64)
     d = torch.where(use, dst, 0).to(torch.int64)
     use = use & table.valid[s] & table.valid[d]
@@ -70,8 +95,10 @@ def _apply_merges(table: LandmarkTable, src: torch.Tensor, dst: torch.Tensor,
     tot = torch.clamp(w_src + w_dst, min=1.0)
     xyz_d = table.xyz_w[d]
     merged = xyz_d * (w_dst / tot)[:, None] + table.xyz_w[s] * (w_src / tot)[:, None]
-    xyz = table.xyz_w.index_add(0, d, torch.where(use[:, None], merged - xyz_d, 0.0))
-    H = table.H_acc.index_add(0, d, torch.where(use[:, None, None], table.H_acc[s], 0.0))
+    xyz = _add_in_pair_order(table.xyz_w, d, torch.where(use[:, None], merged - xyz_d, 0.0),
+                             rounds)
+    H = _add_in_pair_order(table.H_acc, d, torch.where(use[:, None, None], table.H_acc[s], 0.0),
+                           rounds)
     n = table.n_updates.index_add(
         0, d, torch.where(use, table.n_updates[s], 0).to(table.n_updates.dtype))
     last = table.last_seen.scatter_reduce(
@@ -98,6 +125,7 @@ def merge_landmarks(table: LandmarkTable, allocator, correspondences: np.ndarray
     dev = table.xyz_w.device
     src = torch.tensor(list(remap.keys()), dtype=torch.int32, device=dev)
     dst = torch.tensor(list(remap.values()), dtype=torch.int32, device=dev)
-    table = _apply_merges(table, src, dst, torch.ones_like(src, dtype=torch.bool))
+    rounds = max(Counter(remap.values()).values())
+    table = _apply_merges(table, src, dst, torch.ones_like(src, dtype=torch.bool), rounds)
     allocator.release(list(remap.keys()))
     return table, remap

@@ -105,6 +105,11 @@ class Entry:
 class Record:
     entries: list[Entry] = field(default_factory=list)
     _branch: list[tuple[int, bool]] = field(default_factory=list)
+    # A capture's slots, which every replay zeroes: whoever replays the
+    # graph keeps its Record, and the Record keeps the slots' memory from
+    # going back to the allocator (a program with no conditional node
+    # has no entry that would).
+    slots: torch.Tensor | None = None
 
     def add(self, kind: str, value: torch.Tensor, name: str = "") -> int:
         parent = self._branch[-1] if self._branch else None
@@ -211,7 +216,7 @@ class _Capture:
         self.routed = False
         self.slots = torch.zeros(MAX_SLOTS, dtype=torch.int32, device=device)
         self.n_slots = 0
-        self.record = Record()
+        self.record = Record(slots=self.slots)
 
     def slot(self) -> torch.Tensor:
         if self.n_slots == MAX_SLOTS:
@@ -277,7 +282,8 @@ def _capture() -> _Capture | None:
 def graph_capture(graph: torch.cuda.CUDAGraph, device=None):
     """torch.cuda.graph(graph) with conditional nodes: while_loop and cond
     inside the block become WHILE and IF nodes.  Yields the capture's
-    Record (its values are the slots every replay writes)."""
+    Record (its values are the slots every replay writes): keep it as
+    long as the graph is replayed, since it holds the slots."""
     index = None if device is None else torch.device(device).index
     device = torch.device("cuda", torch.cuda.current_device() if index is None else index)
     if getattr(_local, "capture", None) is not None:

@@ -9,9 +9,12 @@ come from an m x m solve with a 1e-10 ridge.  A round whose accelerated
 iterate raises the robust energy keeps the plain Procrustes iterate and
 restarts the history (the reference's energy check,
 fast_aligner.cpp:150-176).  The rounds are a Python loop to max_rounds
-with no host read: every decision is a torch.where.  On CUDA,
-torch.linalg.svd synchronizes with the host (its error check) once a
-round; the mixing solve uses solve_ex, which does not.
+with no host read: every decision is a torch.where.  The Procrustes
+rotation comes from rotation_fit (Horn's quaternion, a fixed count of
+f64 squarings) and the mixing solve from solve_ex: neither reads the
+card, so relocalizer.ICPProgram captures the whole solve
+(torch.linalg.svd, which the JAX package calls, synchronizes with the
+host once a call).
 """
 
 from __future__ import annotations
@@ -23,6 +26,48 @@ from vslam_tpu_torch.solve import gn
 from vslam_tpu_torch.solve.aligners import ICPData
 
 
+# Squarings of Horn's shifted 4x4 matrix: the top eigenvector's share
+# grows as ((l2 + s) / (l1 + s)) ** (2 ** SQUARINGS), which is below
+# f64's resolution for an eigenvalue gap of 1e-7 of the spectrum's scale
+# (a rotation that well-posed is unique; below it SVD's is arbitrary too).
+SQUARINGS = 32
+
+
+def rotation_fit(S: torch.Tensor) -> torch.Tensor:
+    """The rotation R maximizing tr(R^T S) for a batch of 3x3 S (B, 3, 3),
+    i.e. U diag(1, 1, det(U Vh)) Vh of S = U diag(s) Vh (Kabsch with the
+    reflection fix): Horn's unit quaternion, the eigenvector of the
+    largest eigenvalue of the symmetric 4x4 N(S^T).  It is found with no
+    host read by repeated squaring of N + |N|_F I (all eigenvalues >= 0,
+    the largest kept on top), normalized each time, in f64; the column of
+    largest norm is the quaternion.  S = 0 gives the identity."""
+    M = S.transpose(-1, -2).to(torch.float64)  # M[a, b] = sum m_a f_b
+    xx, xy, xz = M[:, 0, 0], M[:, 0, 1], M[:, 0, 2]
+    yx, yy, yz = M[:, 1, 0], M[:, 1, 1], M[:, 1, 2]
+    zx, zy, zz = M[:, 2, 0], M[:, 2, 1], M[:, 2, 2]
+    N = torch.stack([
+        xx + yy + zz, yz - zy, zx - xz, xy - yx,
+        yz - zy, xx - yy - zz, xy + yx, zx + xz,
+        zx - xz, xy + yx, -xx + yy - zz, yz + zy,
+        xy - yx, zx + xz, yz + zy, -xx - yy + zz,
+    ], dim=-1).reshape(-1, 4, 4)
+    eye = torch.eye(4, dtype=N.dtype, device=N.device)
+    shift = torch.linalg.matrix_norm(N) + 1e-300
+    A = N + shift[:, None, None] * eye
+    for _ in range(SQUARINGS):
+        A = A / A.abs().amax(dim=(1, 2), keepdim=True)
+        A = A @ A
+    col = torch.linalg.vector_norm(A, dim=1).argmax(dim=1)
+    q = torch.gather(A, 2, col[:, None, None].expand(-1, 4, 1))[..., 0]
+    w, x, y, z = (q / torch.linalg.vector_norm(q, dim=1, keepdim=True)).unbind(-1)
+    R = torch.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+        2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+        2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y),
+    ], dim=-1).reshape(-1, 3, 3)
+    return R.to(S.dtype)
+
+
 def _weighted_procrustes(p_mov: torch.Tensor, p_fix: torch.Tensor, w: torch.Tensor):
     """Closed-form weighted point-to-point alignment (Kabsch / Umeyama):
     (B, N, 3), (B, N, 3), (B, N) -> (B, 4, 4)."""
@@ -30,10 +75,7 @@ def _weighted_procrustes(p_mov: torch.Tensor, p_fix: torch.Tensor, w: torch.Tens
     mu_m = torch.einsum("bn,bni->bi", w, p_mov) / wsum
     mu_f = torch.einsum("bn,bni->bi", w, p_fix) / wsum
     S = torch.einsum("bn,bni,bnj->bij", w, p_fix - mu_f[:, None], p_mov - mu_m[:, None])
-    U, _, Vh = torch.linalg.svd(S)
-    d = torch.sign(torch.linalg.det(U @ Vh))
-    D = torch.diag_embed(torch.stack([torch.ones_like(d), torch.ones_like(d), d], dim=-1))
-    R = U @ D @ Vh
+    R = rotation_fit(S)
     t = mu_f - torch.einsum("bij,bj->bi", R, mu_m)
     return lie.make_transform(R, t)
 

@@ -12,11 +12,15 @@ engine's device (or landmark-sharded by parallel/sharded_ba.py over the
 engine's process group), and scattered back into the landmark table and the
 keyframe / trajectory bookkeeping.
 
-Against the JAX runner: the landmark count is the true one (JAX pads it
-to a power of two for its compile cache; padded rows are masked and
-change nothing), and the observations always ride the harvest in f32, so
-no archive fetch exists.  warm_windowed_ba runs one solve at JAX's
-warm-up size before a timed run, as JAX compiles it there.
+The problem is padded as the JAX runner pads it for its compile cache:
+P = WINDOW cameras (the padding frozen and unlinked) and L a power of two
+of at least 2048 landmarks on an accelerator, 64 on the CPU (the padding
+masked out), so one solve program a bucket serves every window
+(backend/ba.ba_program; on the card a captured graph, replayed).  The
+observations always ride the harvest in f32, so no archive fetch
+exists.  warm_windowed_ba captures the program at JAX's warm-up size
+before a timed run, as JAX compiles it there.  The landmark-sharded
+path stays eager and unpadded, as before the programs.
 """
 
 from __future__ import annotations
@@ -34,19 +38,27 @@ from vslam_tpu_torch.parallel import sharded_ba
 WINDOW = 16
 OMAX = 16
 MIN_OBS = 2  # landmarks observed once constrain nothing jointly
+# log2 of the landmark bucket floor: the JAX runner's accelerator and
+# CPU floors (2048, 64).
+L_FLOOR_DEVICE, L_FLOOR_CPU = 11, 6
 
 
 def build_window_problem(engine, window: int = WINDOW, omax: int = OMAX):
     """Assemble a BAProblem (on the engine's device) over the last
-    `window` keyframes, reading the landmark table once.
+    `window` keyframes, reading the landmark table once, padded to
+    `window` cameras and a power of two of landmarks as the JAX runner
+    pads it (unless the engine has a landmark mesh: its sharded path
+    solves the true sizes, as before the programs).
 
-    Returns (problem, kf_ids (P,) global keyframe ids, slots (L,) table
-    slots), or None if the window holds too few observations."""
+    Returns (problem, kf_ids (n_kf,) global keyframe ids, slots (n,) table
+    slots of the problem's first n landmarks), or None if the window
+    holds too few observations."""
     maps = [m for m in engine.world_map.local_maps[-window:] if m.uv4 is not None]
     if len(maps) < 2:
         return None
     kf_ids = [m.map_id for m in maps]
-    P = len(maps)
+    pad = engine.landmark_mesh is None
+    P = window if pad else len(maps)
     table = engine.tracker.table
     xyz_all = table.xyz_w.cpu().numpy()
     nup_all = table.n_updates.cpu().numpy()
@@ -96,7 +108,12 @@ def build_window_problem(engine, window: int = WINDOW, omax: int = OMAX):
     if len(slots) < 16:
         return None
 
-    L = len(slots)
+    n = len(slots)
+    floor = L_FLOOR_CPU if engine.device.type == "cpu" else L_FLOOR_DEVICE
+    L = 1 << max(int(np.ceil(np.log2(n))), floor) if pad else n
+    xyz = np.zeros((L, 3), np.float32)
+    xyz[:n] = xyz_all[slots]
+    lm_valid = np.arange(L) < n
     obs_cam = np.zeros((L, omax), np.int64)
     obs_uv4 = np.zeros((L, omax, 4), np.float32)
     obs_w = np.zeros((L, omax), np.float32)
@@ -109,8 +126,9 @@ def build_window_problem(engine, window: int = WINDOW, omax: int = OMAX):
         nup_all[all_slot[rows_kept]].astype(np.float64)).astype(np.float32)
     obs_mask[li, oj] = True
 
-    T_wc = np.stack([m.T_world_kf for m in maps]).astype(np.float32)
-    cam_fixed = np.zeros(P, bool)
+    T_wc = np.tile(np.eye(4, dtype=np.float32), (P, 1, 1))
+    T_wc[:len(maps)] = np.stack([m.T_world_kf for m in maps])
+    cam_fixed = np.arange(P) >= len(maps)  # the padding frozen
     cam_fixed[0] = True  # gauge: the oldest keyframe of the window
 
     # Pose-pose factors between consecutive window keyframes, measured
@@ -124,7 +142,7 @@ def build_window_problem(engine, window: int = WINDOW, omax: int = OMAX):
                   if gopt.free_translation_for_poses else info_rot)
     odo_T = np.tile(np.eye(4, dtype=np.float32), (P, 1, 1))
     odo_w = np.zeros(P, np.float32)
-    for ci in range(P - 1):
+    for ci in range(len(maps) - 1):
         a, b = kf_ids[ci], kf_ids[ci + 1]
         odo_T[ci] = (np.linalg.inv(engine.kf_poses[a]) @ engine.kf_poses[b]).astype(np.float32)
         ws = np.asarray(engine.kf_odom_weight[a:b], np.float32)
@@ -136,8 +154,8 @@ def build_window_problem(engine, window: int = WINDOW, omax: int = OMAX):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     prob = ba_mod.BAProblem(
-        T_wc=t(T_wc), xyz=t(xyz_all[slots]), obs_cam=t(obs_cam), obs_uv4=t(obs_uv4),
-        obs_weight=t(obs_w), obs_mask=t(obs_mask), lm_valid=t(np.ones(L, bool)),
+        T_wc=t(T_wc), xyz=t(xyz), obs_cam=t(obs_cam), obs_uv4=t(obs_uv4),
+        obs_weight=t(obs_w), obs_mask=t(obs_mask), lm_valid=t(lm_valid),
         cam_fixed=t(cam_fixed), odo_T=t(odo_T), odo_weight=t(odo_w),
         odo_info=t(np.asarray([info_trans] * 3 + [info_rot] * 3, np.float32)),
     )
@@ -157,13 +175,14 @@ def ba_config(engine, iterations: int | None = None) -> ba_mod.BAConfig:
 
 
 def solve_window(engine, prob: ba_mod.BAProblem, config: ba_mod.BAConfig):
-    """Solve a window problem: on one device, or with the engine's
-    landmark mesh (parallelism.shard_landmarks under a process group of
-    more than one rank) landmark-sharded, every rank its block, the
-    blocks gathered back.  Returns (T_wc, xyz)."""
+    """Solve a window problem: on one device through the program of its
+    bucket, or with the engine's landmark mesh (parallelism.shard_landmarks
+    under a process group of more than one rank) landmark-sharded and
+    eagerly, every rank its block, the blocks gathered back through the
+    host.  Returns (T_wc, xyz)."""
     mesh = engine.landmark_mesh
     if mesh is None:
-        return ba_mod.bundle_adjust(engine.cam, prob, config)[:2]
+        return ba_mod.bundle_adjust_program(engine.cam, prob, config)[:2]
     block, L = sharded_ba.shard_problem(prob, mesh)
     T_opt, xyz_block, _ = sharded_ba.bundle_adjust_sharded(engine.cam, block, mesh, config)
     return T_opt, mesh_mod.all_gather_rows(xyz_block, mesh)[:L]
@@ -179,7 +198,7 @@ def run_windowed_ba(engine, iterations: int | None = None) -> np.ndarray | None:
         return None
     prob, kf_ids, slots = built
     T_opt, xyz_opt = solve_window(engine, prob, ba_config(engine, iterations))
-    T_opt = T_opt.cpu().numpy()
+    T_opt, xyz_opt = T_opt.cpu().numpy(), xyz_opt[:len(slots)]
     if not (np.all(np.isfinite(T_opt)) and bool(torch.isfinite(xyz_opt).all())):
         return None
 
@@ -235,12 +254,12 @@ def run_windowed_ba(engine, iterations: int | None = None) -> np.ndarray | None:
 
 
 def warm_windowed_ba(engine) -> None:
-    """Solve one windowed problem at the JAX package's warm-up size (L =
+    """Solve the windowed problem at the JAX package's warm-up size (L =
     2048 landmarks seen twice by the first camera, P = WINDOW cameras)
-    with the engine's BAConfig, on its device or its landmark mesh, so
-    the first BA of a timed run meets warm kernels and libraries (the JAX
-    package's warm_windowed_ba, which compiles it).  Nothing when BA is
-    off or the engine runs on the CPU, as in JAX."""
+    with the engine's BAConfig until its program is captured (once,
+    eagerly, on a landmark mesh), so the BA of a timed run replays it
+    (the JAX package's warm_windowed_ba, which compiles it).  Nothing
+    when BA is off or the engine runs on the CPU, as in JAX."""
     if not engine.cfg.graph_optimization.enable_full_bundle_adjustment:
         return
     if engine.device.type == "cpu":
@@ -260,5 +279,6 @@ def warm_windowed_ba(engine) -> None:
         cam_fixed=torch.arange(WINDOW, device=dev) == 0,
         odo_T=eye.clone(), odo_weight=torch.ones(WINDOW, dtype=torch.float32, device=dev),
         odo_info=torch.ones(6, dtype=torch.float32, device=dev))
-    solve_window(engine, prob, ba_config(engine))
+    for _ in range(1 if engine.landmark_mesh is not None else 2):
+        solve_window(engine, prob, ba_config(engine))
     torch.cuda.synchronize(dev)

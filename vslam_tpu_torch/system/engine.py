@@ -418,18 +418,18 @@ class SlamEngine:
         if len(self.kf_poses) < 3 or not self.closure_edges:
             return None
         gopt = self.cfg.graph_optimization
-        with log.measure("pg_solve"):
-            opt, _ = pg.optimize_pose_graph_hierarchical(
-                np.stack(self.kf_poses).astype(np.float32),
-                np.stack(self.kf_odometry).astype(np.float32),
-                np.asarray(self.kf_odom_weight, np.float32),
-                self.closure_edges,
-                iterations=gopt.maximum_number_of_iterations,
-                robust_kernel_chi2=1.0 if gopt.enable_robust_kernel_for_poses else 1e12,
-                closure_bucket=gopt.closure_compaction_bucket,
-                levenberg=gopt.optimization_algorithm.upper() in ("LEVENBERG", "DOGLEG"),
-                device=self.device,
-            )
+        # Timed inside as pg_assembly, pg_junction_solve and pg_distribution.
+        opt, _ = pg.optimize_pose_graph_hierarchical(
+            np.stack(self.kf_poses).astype(np.float32),
+            np.stack(self.kf_odometry).astype(np.float32),
+            np.asarray(self.kf_odom_weight, np.float32),
+            self.closure_edges,
+            iterations=gopt.maximum_number_of_iterations,
+            robust_kernel_chi2=1.0 if gopt.enable_robust_kernel_for_poses else 1e12,
+            closure_bucket=gopt.closure_compaction_bucket,
+            levenberg=gopt.optimization_algorithm.upper() in ("LEVENBERG", "DOGLEG"),
+            device=self.device,
+        )
         with log.measure("pg_propagate"):
             C_last = self._propagate_corrections(opt)
         self.n_optimizations += 1
