@@ -165,14 +165,24 @@ Phases (each raises on failure; the exit code is then non-zero):
                an f64 solve printed beside the one-device BA's.
  20. modular-closed — phase 7's workload with tracking.use_fused_tracker
                false: the modular PoseTracker stepped through engine.process
-               frame by frame, keyframes and closures resolved synchronously
-               after every frame; launch counts zeroed just before and read
-               just after: 128 K1 and no K2/K3/K4 launches, 0 breaks, ATE
-               <= 0.05 m, local maps within +-15% of the JAX modular engine's
-               on a CPU, >= 1 closure, its optimization count (0: JAX's
-               three closures pass the residual gate), > 0 merged
-               landmarks; ms/frame, peak device memory and the closure
-               stages' timings.
+               frame by frame on its captured programs (tracking/modular.py:
+               front-end, track attempt, propagate, spawn, update; each eager
+               once, captured at its second use, replayed after), keyframes
+               and closures resolved synchronously after every frame (the
+               DB query a captured program a key); launch counts zeroed just
+               before and read just after: 128 K1 and no K2/K3/K4 launches,
+               0 breaks, ATE <= 0.05 m, local maps within +-15% of the JAX
+               modular engine's on a CPU, >= 1 closure, its optimization
+               count (0: JAX's three closures pass the residual gate), > 0
+               merged landmarks, and the events and ATE of the card's eager
+               modular run to every digit (CARD_MODULAR_CLOSED); one eager
+               run a program; ms/frame and the median after the first 16,
+               the program events, WHILE iterations a track replay, peak
+               device memory and the closure stages' timings; then each
+               program from the run's last state: its eager run and two
+               replays bit-equal, no synchronization inside a replay, its
+               WHILE nodes as the eager run's active rounds, eager and
+               replayed ms and capture s.
  21. device-program — the fused tracker's FrameProgram (make_frame_step:
                the state in static buffers, one captured CUDA graph a frame
                whose GN phases are WHILE nodes and whose retry ladder,
@@ -217,6 +227,10 @@ Phases (each raises on failure; the exit code is then non-zero):
                warm-up's seconds and each timed engine's first handle;
                launches zeroed before and read after: K1 once a frame in
                five 128-frame runs and once a split chunk, no K2/K3/K4;
+               the DB query's programs (relocalizer.query_program, warmed
+               by relocalizer.warm_query_programs up to the warm engine's
+               prefix): no eager query and no capture inside either timed
+               loop, >= 1 replay;
  23. scale — the KITTI-00-scale run inside phase 22 (eval/scale_run.py,
                1,024 frames of 2.5 laps of a 65 m circle through 26,000
                points, windowed BA every 128 frames, blocks of 128 frames
@@ -225,8 +239,10 @@ Phases (each raises on failure; the exit code is then non-zero):
                launches; local maps, closures, optimizations, BA runs,
                merged landmarks, DB rows, live table rows, peak device
                memory, ms/frame, the stage table and the programs' events
-               over the run and its warm-ups; its largest pose graph padded
-               against tight as phase 24 holds it;
+               over the run and its warm-ups, the query programs' (SB,
+               prefix) keys and uses and their replayed ms at the largest
+               prefix; peak device memory at most SCALE_PEAK_MIB; its
+               largest pose graph padded against tight as phase 24 holds it;
  24. backend programs — fresh on the card: the pose-graph junction solve
                at Jp 64, 128 and 256 (two laps of a drifting circle) and
                its distribution, and the BA program on phase 8's last
@@ -237,21 +253,38 @@ Phases (each raises on failure; the exit code is then non-zero):
                tight f32 solve's distance from f64, also on phase 7's own
                graph, chi2 1e-3; BA: poses 1e-5, points 1e-3 m, chi2
                1e-4), ms a solve eager and replayed.
+ 25. modular configs — configuration_kitti.yaml (staged: K2 + K3 launched
+               from the front-end program) and configuration_tum.yaml (RGB-D:
+               K3) on the modular tracker, 32 frames each of phases 6b and 9's
+               sequences: K2 32 and K3 64, and K3 32, the eager modular
+               route's launches; 0 breaks, ATE <= 0.05 m, local maps within
+               +-15% of the JAX engine's on a CPU, the first frames within
+               1e-3 m of the CPU; then the query programs on phase 7's own
+               query batches, each from the database it met, and one at the
+               scale run's largest prefix (65,536 rows, 45,839 live, 16
+               queries) on a random database: captured, eager run and two
+               replays bit-equal (best, ok, the database after the insert),
+               no synchronization inside a replay, eager and replayed ms,
+               the scale query's peak device memory.
 Every drive_slice run (phases 6, 9-11, 15-16) and phases 7-8 start from
 an empty program cache (fresh_programs), so the engine's first frame
 runs eagerly there, as before the programs were shared.
 Every run of the fused tracker (phases 6-17) steps through that program
 (phases 15-16: the chunk's front-end eagerly, then each frame's tail as
-a replay): each replay adds its capture's launches to the counts.  Phase
-20 (the modular tracker) runs eagerly, as its JAX counterpart does.  Phases 7 and 8 are also held to the events and ATE this
-script printed before the program existed (CARD_CLOSED, CARD_BA_CLOSED).
+a replay): each replay adds its capture's launches to the counts.  The
+modular tracker (phases 20, 25) runs its per-frame programs the same
+way, as its JAX counterpart runs jitted programs, and its host reads
+(each ladder attempt's verdict, the spawn mask) fall between them.
+Phases 7, 8 and 20 are also held to the events and ATE this script
+printed before their programs existed (CARD_CLOSED, CARD_BA_CLOSED,
+CARD_MODULAR_CLOSED).
 The phases run in the order 1-5, 21, 6a, 6b, 15, 16, 18, 6c, 7, 8, 20,
-9-14, 17, 19, 24, 22-23: phases 15-16 next to the runs they are compared
-with.
+25, 9-14, 17, 19, 24, 22-23: phases 15-16 next to the runs they are
+compared with, phase 25 after phase 7, whose query batches it replays.
 The JAX counts printed beside phases 6-11, 15-16 and 20 come from
 chip_smoke_jax_reference.py.  The script then prints its wall time, the
 kernel record (one JSON line: launches summed over the runs of phases
-6-10, 12-16 and 20-23, bit-equality, times, bound, share of the bound,
+6-10, 12-16, 20-23 and 25, bit-equality, times, bound, share of the bound,
 shared-load floor, blocks per SM, loads a pixel; K3's times at 480x640;
 K1 and K2 at the split chunk's B = 64 as entries of their own), the card's name
 and power limit (nvidia-smi), and last {"ok": true, "device": {...}}.
@@ -382,6 +415,20 @@ JAX_CPU_EUROC = {"n_local_maps": 7, "n_track_breaks": 0, "ate_m": 0.0318}
 JAX_CPU_MODULAR_CLOSED = {"n_local_maps": 42, "n_closures": 3, "n_optimizations": 0,
                           "n_merged_landmarks": 69, "n_track_breaks": 0, "ate_m": 0.0112,
                           "db_rows": 7149, "closures": [(39, 0), (40, 0), (41, 0)]}
+# Phase 20 on the card when the modular tracker ran eagerly, before its
+# programs existed: the captured programs must give the same events and
+# ATE.
+CARD_MODULAR_CLOSED = {"n_local_maps": 42, "n_optimizations": 0, "n_merged_landmarks": 69,
+                       "ate_m": 0.0112, "closures": [(39, 0), (40, 0), (41, 0)]}
+# Phase 25: 32 frames of kitti-config and of tum-config on the modular
+# tracker; the query program at the scale run's largest prefix on a
+# database of the scale run's rows (PERF.md), SB queries.
+MODULAR_CONFIG_FRAMES = 32
+SCALE_DB_ROWS, SCALE_PREFIX, SCALE_SB = 45839, 65536, 16
+# The scale run's peak device memory may not pass the highest it reached
+# before the query ran as programs in row blocks (10,076.6 MiB, H100
+# 80GB HBM3) + 10%.
+SCALE_PEAK_MIB = 11100
 # Phase 21 (device-program): the closed loop's first frames through the
 # eager step and the FrameProgram side by side; each other captured route
 # for PROGRAM_ROUTE_FRAMES frames (one eager, a capture, replays); device
@@ -648,16 +695,18 @@ def phase_k2_probe(card):
 
 
 def fresh_programs():
-    """Forget the shared tracker, ICP, pose-graph and BA programs: the
-    engine built next runs its first frame (and its first ICP batch a
-    bucket, its first pose-graph solve and BA a size) eagerly, as the
-    first engine of a process does."""
+    """Forget the shared tracker, modular, query, ICP, pose-graph and BA
+    programs: the engine built next runs its first frame (and its first
+    query a key, ICP batch a bucket, pose-graph solve and BA a size)
+    eagerly, as the first engine of a process does."""
     from vslam_tpu_torch.backend import ba
     from vslam_tpu_torch.backend import pose_graph as pg
     from vslam_tpu_torch.loop import relocalizer as rl
-    from vslam_tpu_torch.tracking import fused
+    from vslam_tpu_torch.tracking import fused, modular
 
     fused.clear_programs()
+    modular.clear_programs()
+    rl.clear_query_programs()
     rl.clear_icp_programs()
     pg.clear_programs()
     ba.clear_programs()
@@ -696,11 +745,15 @@ def drive_slice(label, cam, cfg, gt_poses, frames, expect, local_maps, cpu_frame
     the drains).  Returns the counts."""
     from vslam_tpu_torch.eval import trajectory as traj_eval
 
+    from vslam_tpu_torch.eval import workloads
+
     n = len(frames)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    events = workloads.program_events()
     engine, traj, wall, times = run_engine(cam, cfg, frames, "cuda", n)
     counts = read_counts()
+    events = workloads.program_events() - events
     BATCHES[label] = read_batches()
     rep = engine.report()
     if traj.shape != (n, 4, 4) or not np.all(np.isfinite(traj)):
@@ -712,6 +765,8 @@ def drive_slice(label, cam, cfg, gt_poses, frames, expect, local_maps, cpu_frame
           f"{rep['n_track_breaks']} breaks, "
           f"{rep['n_landmarks']} landmarks, {rep['n_recovered_landmarks']} recovered, "
           f"launches {counts}")
+    print(f"[{label}] program events: "
+          + ", ".join(f"{k} {v}" for k, v in sorted(events.items())))
     ms_frame = 1e3 * wall / n
     RUN_MS[label] = ms_frame
     # The second half alone: past the first runs' warm-ups, and for the
@@ -799,9 +854,10 @@ def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card_before, card
     sizes = []  # (P, L) of each BA problem: true, then padded
     build, solve_pg = ba_runner.build_window_problem, pg.optimize_pose_graph_hierarchical
     run_icp, dispatch = rl.ICPProgram.run, rl.Relocalizer.dispatch_icp_batch
+    query = rl.Relocalizer._query_and_insert
     icp_events, drains = [], []  # (start, end, how) of each ICP batch; jobs a dispatch
     if record is not None:
-        record.update(icp=[], engine=engine)
+        record.update(icp=[], query=[], engine=engine)
 
     def build_and_record(*args, **kwargs):
         built = build(*args, **kwargs)
@@ -837,10 +893,24 @@ def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card_before, card
             drains.append(len(jobs))
         return jobs
 
+    def query_recorded(rel, q_desc, dest, row_map_id, max_map_id, prefix):
+        """A drain's query program run; its key, inputs and the database
+        before it recorded (phase 25)."""
+        if record is not None:
+            p = rel.params
+            key = (q_desc.shape[0], q_desc.shape[1], prefix, rel.capacity,
+                   int(p.maximum_descriptor_distance), int(p.minimum_second_best_margin),
+                   rel.device)
+            record["query"].append((key, (q_desc.clone(), dest.copy(), row_map_id.copy(),
+                                          max_map_id.copy()),
+                                    rel.db_desc.clone(), rel.db_map_id.clone()))
+        return query(rel, q_desc, dest, row_map_id, max_map_id, prefix)
+
     ba_runner.build_window_problem = build_and_record
     pg.optimize_pose_graph_hierarchical = pg_recorded
     rl.ICPProgram.run = icp_timed
     rl.Relocalizer.dispatch_icp_batch = dispatch_counted
+    rl.Relocalizer._query_and_insert = query_recorded
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     log.chronometers.clear()
@@ -858,6 +928,7 @@ def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card_before, card
         ba_runner.build_window_problem = build
         pg.optimize_pose_graph_hierarchical = solve_pg
         rl.ICPProgram.run, rl.Relocalizer.dispatch_icp_batch = run_icp, dispatch
+        rl.Relocalizer._query_and_insert = query
     wall = time.perf_counter() - t0
     counts = read_counts()
     rep = engine.report()
@@ -959,12 +1030,79 @@ def icp_check(label, icp_events, drains, card):
           f"its last batch again (median of 3, CUDA events): {'; '.join(timing)} ({card})")
 
 
+def replay_checks(label, progs, state, card):
+    """Each program of `progs` (name -> StaticProgram; one that ran only
+    once, eagerly, is captured here) from the state its run ended in
+    (`state()`: the tensors the programs read and write, put back before
+    every run): its eager run and two replays give the same outputs and
+    state bit for bit, the replays under torch.cuda.set_sync_debug_mode(
+    "error") (a synchronization inside raises); its conditional nodes decide as the eager run's loops
+    (check_record: each WHILE node's iterations against the eager loop's
+    active rounds); eager and replayed ms (kernel_timing.cuda_ms, medians
+    of 3, the state put back before each) and capture s.  Returns {name:
+    (eager ms, replayed ms, capture s, WHILE iterations a replay)}."""
+    from torch.utils import _pytree as pytree
+
+    from vslam_tpu_torch.frontend import kernel_timing as kt
+    from vslam_tpu_torch.ops import control
+
+    start = [t.clone() for t in state()]
+
+    def restore():
+        for d, s in zip(state(), start):
+            d.copy_(s)
+
+    def taken(out):
+        return [t.clone() for t in pytree.tree_leaves(out)] + [t.clone() for t in state()]
+
+    out, late = {}, []
+    for name, prog in progs.items():
+        if prog.uses == 0:
+            raise AssertionError(f"[{label}] the {name} program never ran")
+        restore()
+        if prog.graph is None:  # it ran once, eagerly: captured here
+            prog.capture()
+            late.append(name)
+        with control.recording() as rec:
+            want = taken(prog.eager())
+        got = []
+        for _ in range(2):
+            restore()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                prog.graph.replay()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            got.append(taken(prog.out))
+        for i, (a, b, c) in enumerate(zip(want, *got)):
+            if not (torch.equal(a, b) and torch.equal(b, c)):
+                raise AssertionError(f"[{label}] the {name} program: output or state tensor "
+                                     f"{i} of a replay differs from its eager run's")
+        values, reached = check_record(f"{label} {name}", 0, prog, rec)
+        iters = sum(v for (k, _, v), r in zip(values, reached) if k == "while" and r)
+        out[name] = (kt.cuda_ms(prog.eager, 3, restore), kt.cuda_ms(prog.graph.replay, 3, restore),
+                     prog.capture_seconds, iters)
+    restore()
+    print(f"[{label}] programs from the run's last state: eager run and two replays equal bit "
+          f"for bit (outputs and state), no synchronization inside a replay, WHILE nodes as "
+          f"the eager run's active rounds; eager / replayed ms (median of 3, CUDA events), "
+          f"capture s, WHILE iterations: "
+          + "; ".join(f"{k} {e:.3f} / {r:.3f} ms, {c:.2f} s, {w}"
+                      for k, (e, r, c, w) in out.items())
+          + (f"; captured here (one eager run in the run): {late}" if late else "")
+          + f" ({card})")
+    return out
+
+
 def phase_modular_closed(cam, cfg, world, frames, card):
     """Phase 20: the closed loop on the modular tracker, through
     engine.process frame by frame (the modular engine has no prestaged
-    playback), the launch counts zeroed just before and read just after.
-    Returns the launch counts."""
+    playback), on its captured programs, the launch counts zeroed just
+    before and read just after.  Held to CARD_MODULAR_CLOSED.  Returns
+    the launch counts."""
     from vslam_tpu_torch.eval import trajectory as traj_eval
+    from vslam_tpu_torch.eval import workloads
     from vslam_tpu_torch.system.engine import SlamEngine
     from vslam_tpu_torch.tracking.tracker import PoseTracker
     from vslam_tpu_torch.utils import log
@@ -972,13 +1110,28 @@ def phase_modular_closed(cam, cfg, world, frames, card):
     label, n, ref = "modular-closed", len(frames), JAX_CPU_MODULAR_CLOSED
     cfg = closed_loop_config(cfg)
     cfg.tracking.use_fused_tracker = False
+    fresh_programs()
     engine = SlamEngine(cam, cfg, landmark_capacity=65536, device="cuda")
     if not isinstance(engine.tracker, PoseTracker):
         raise AssertionError(f"{label}: the engine built {type(engine.tracker).__name__}")
+    progs = engine.tracker.programs
+    track = progs.track
+    # Each track replay's record slots, copied on the device (read after
+    # the run): its WHILE iterations.
+    slots, evaluate = [], track.evaluate
+
+    def track_recorded():
+        res = evaluate()
+        if track.graph is not None:
+            slots.append(track.record.slots[:len(track.record.entries)].clone())
+        return res
+
+    track.evaluate = track_recorded
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     log.chronometers.clear()
     reset_counts()
+    events = workloads.program_events()
     times = []
     t0 = time.perf_counter()
     for left, right in frames:
@@ -988,7 +1141,9 @@ def phase_modular_closed(cam, cfg, world, frames, card):
     traj = engine.trajectory
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    del track.evaluate
     counts = read_counts()
+    events = workloads.program_events() - events
     rep = engine.report()
     if traj.shape != (n, 4, 4) or not np.all(np.isfinite(traj)):
         raise AssertionError(f"{label}: trajectory shape {traj.shape} or non-finite poses")
@@ -1002,15 +1157,23 @@ def phase_modular_closed(cam, cfg, world, frames, card):
     ms_frame = 1e3 * wall / n
     RUN_MS[label] = ms_frame
     print(f"[{label}] {ms_frame:.2f} ms/frame over the run ({1e3 / ms_frame:.2f} fps), "
-          f"median {1e3 * statistics.median(times[n // 8:]):.2f} ms/frame after the first "
-          f"{n // 8}, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card})")
+          f"median {1e3 * statistics.median(times[16:]):.2f} ms/frame after the first 16, "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card})")
+    print(f"[{label}] program events over the run: "
+          + ", ".join(f"{k} {v}" for k, v in sorted(events.items())))
+    iters = [int(v.sum()) for v in torch.stack(slots).cpu()] if slots else []
+    print(f"[{label}] WHILE iterations a track replay: {min(iters)}-{max(iters)} (mean "
+          f"{statistics.mean(iters):.2f}) over {len(iters)} replays; the eager run takes "
+          f"every GN phase to its cap ({engine.tracker.gn_config.max_iterations} + "
+          f"{engine.tracker.gn_config.refine_iterations} rounds)")
     table = rep["stage_table"]
     for stage in CLOSURE_STAGES:
         row = table.get(stage, {"seconds": 0.0, "calls": 0})
         print(f"[{label}] stage {stage:24s} {row['seconds']:8.4f} s in {row['calls']} calls")
     for stage, sec in rep["stage_seconds"].items():
         print(f"[{label}] tracker stage {stage:12s} {sec:8.4f} s")
+    replay_checks(label, progs.programs, lambda: [*progs.table, *progs.prev, *progs.cur,
+                                                  progs.T_cur_prev, progs.prev_to_cur], card)
     if counts != {"K1": n, "K2": 0, "K3": 0, "K4": 0}:
         raise AssertionError(f"{label}: launches {counts}, expected {n} K1 only")
     if rep["n_track_breaks"] != 0:
@@ -1025,7 +1188,108 @@ def phase_modular_closed(cam, cfg, world, frames, card):
         raise AssertionError(f"{label}: {rep['n_closures']} closures, "
                              f"{rep['n_optimizations']} optimizations, "
                              f"{rep['n_merged_landmarks']} merged landmarks")
+    before = {k: got[k] for k in CARD_MODULAR_CLOSED}
+    if before != CARD_MODULAR_CLOSED:
+        raise AssertionError(f"{label}: {before}, the card gave {CARD_MODULAR_CLOSED} when "
+                             "the modular tracker ran eagerly")
+    if any(events.get(f"modular {k} eager", 0) != 1 for k in progs.programs):
+        raise AssertionError(f"{label}: {dict(events)}: not one eager run a program")
+    print(f"[{label}] the events and ATE of the card's eager modular run: "
+          f"{CARD_MODULAR_CLOSED}")
     return counts
+
+
+def query_checks(closed, card):
+    """The query programs (relocalizer.query_program) on phase 7's own
+    query batches, each from the database it met, fresh: captured, its
+    eager run and two replays bit-equal (best, ok and the database after
+    the insert) with no synchronization inside a replay (replay_checks);
+    then one at the scale run's largest prefix (SCALE_PREFIX rows
+    searched, SCALE_DB_ROWS live, SCALE_SB queries of phase 7's width) on
+    a random database, the same checks and its peak device memory."""
+    from vslam_tpu_torch.loop import relocalizer as rl
+
+    def check(label, key, inputs, db_desc, db_map_id):
+        rl.clear_query_programs()
+        prog = rl.query_program(*key)
+        store = rl._database(key[3], key[6])
+
+        def load():
+            store.desc.copy_(db_desc)
+            store.map_id.copy_(db_map_id)
+            prog.load(inputs)
+
+        load()
+        prog.evaluate()  # eager
+        load()
+        prog.evaluate()  # captured, replayed
+        load()
+        return replay_checks(label, {f"SB {key[0]} prefix {key[2]}": prog},
+                             lambda: [store.desc, store.map_id], card)
+
+    batches = closed["query"]
+    if not batches:
+        raise AssertionError("[query] phase 7 ran no query")
+    for i, (key, inputs, db_desc, db_map_id) in enumerate(batches):
+        check(f"query {i}", key, inputs, db_desc, db_map_id)
+    key = batches[-1][0]
+    CAP, capacity, dev = key[1], key[3], key[6]
+    rng = np.random.default_rng(0)
+    db_desc = torch.from_numpy(rng.integers(0, 2**32, (capacity, 8), dtype=np.uint64)
+                               .astype(np.uint32).view(np.int32)).to(dev)
+    db_desc[SCALE_DB_ROWS:] = 0
+    db_map_id = torch.full((capacity,), -1, dtype=torch.int32, device=dev)
+    db_map_id[:SCALE_DB_ROWS] = torch.from_numpy(
+        np.sort(rng.integers(0, 320, SCALE_DB_ROWS)).astype(np.int32)).to(dev)
+    q = db_desc[torch.from_numpy(rng.integers(0, SCALE_DB_ROWS, (SCALE_SB, CAP))).to(dev)]
+    q[:, CAP // 2:] = torch.from_numpy(rng.integers(0, 2**31, (SCALE_SB, CAP - CAP // 2, 8))
+                                       .astype(np.int32)).to(dev)
+    dest = np.full(SCALE_SB * CAP, -1, np.int32)
+    dest[CAP // 2::2] = SCALE_DB_ROWS + np.arange(len(dest[CAP // 2::2]))
+    row_mid = np.where(dest >= 0, 330, 0).astype(np.int32)
+    maxm = (320 - 20 - np.arange(SCALE_SB)).astype(np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = check("query scale", (SCALE_SB, CAP, SCALE_PREFIX) + key[3:],
+                (q, dest, row_mid, maxm), db_desc, db_map_id)
+    print(f"[query scale] {SCALE_SB} x {CAP} query rows against {SCALE_PREFIX} rows "
+          f"({SCALE_DB_ROWS} live): peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB over its eager run, capture "
+          f"and replays ({card})")
+    rl.clear_query_programs()
+    return res
+
+
+def phase_modular_configs(closed, card):
+    """Phase 25: configuration_kitti.yaml (staged front-end: K2 + K3 from
+    the front-end program) and configuration_tum.yaml (RGB-D: K3) on the
+    modular tracker, MODULAR_CONFIG_FRAMES frames each (phases 6b and 9's
+    sequences), held to the fused runs' limits and their launch counts;
+    then the query programs (query_checks).  Returns the launch counts."""
+    from vslam_tpu_torch.io.config import load_config
+    from vslam_tpu_torch.ops import camera as cam_ops
+
+    n = MODULAR_CONFIG_FRAMES
+    cam = cam_ops.make_camera(**KITTI_CAM)
+    gt, frames = kitti_world(cam, n)
+    cfg = kitti_config(load_config)
+    cfg.tracking.use_fused_tracker = False
+    print(f"[modular kitti-config] the JAX (fused) engine on a CPU: {JAX_CPU_KITTI_CONFIG}")
+    kitti = drive_slice("modular kitti-config", cam, cfg, gt, frames,
+                        {"K1": 0, "K2": n, "K3": 2 * n, "K4": 0},
+                        within_15_percent(JAX_CPU_KITTI_CONFIG["n_local_maps"]),
+                        KITTI_CPU_FRAMES, card)
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(here, "configurations", "configuration_tum.yaml"))
+    cfg.tracking.use_fused_tracker = False
+    cam = cam_ops.make_camera(**TUM_CAM)
+    gt, frames = tum_world(cam, TUM_FRAMES, n)
+    print(f"[modular tum-config] the JAX (fused) engine on a CPU: {JAX_CPU_TUM}")
+    tum = drive_slice("modular tum-config", cam, cfg, gt, frames,
+                      {"K1": 0, "K2": 0, "K3": n, "K4": 0},
+                      within_15_percent(JAX_CPU_TUM["n_local_maps"]), TUM_CPU_FRAMES, card)
+    query_checks(closed, card)
+    return {k: kitti[k] + tum[k] for k in kitti}
 
 
 def phase_tum(card):
@@ -2556,6 +2820,8 @@ def phase_bench(card):
     launches)."""
     from vslam_tpu_torch.backend import pose_graph as pg
     from vslam_tpu_torch.eval import scale_run, workloads
+    from vslam_tpu_torch.frontend import kernel_timing as kt
+    from vslam_tpu_torch.loop import relocalizer as rl
 
     fresh_programs()
     run_scale, solve_pg, scale = scale_run.run_scale, pg.optimize_pose_graph_hierarchical, {}
@@ -2569,6 +2835,7 @@ def phase_bench(card):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before, events = read_counts(), workloads.program_events()
+        uses = {k: p.uses for k, p in rl._QUERY_PROGRAMS.items()}
         pg.optimize_pose_graph_hierarchical = pg_largest
         try:
             out = run_scale(*args, **kwargs)
@@ -2576,7 +2843,10 @@ def phase_bench(card):
             pg.optimize_pose_graph_hierarchical = solve_pg
         scale.update(out=dict(out), launches={k: v - before[k] for k, v in read_counts().items()},
                      peak_mib=torch.cuda.max_memory_allocated() / 2**20,
-                     events=dict(workloads.program_events() - events))
+                     reserved_mib=torch.cuda.max_memory_reserved() / 2**20,
+                     events=dict(workloads.program_events() - events),
+                     queries={k: p for k, p in rl._QUERY_PROGRAMS.items()
+                              if p.uses > uses.get(k, 0)})
         return out
 
     scale_run.run_scale = scale_counted
@@ -2595,7 +2865,7 @@ def phase_bench(card):
     print(json.dumps(line))
     n = x["n_frames"]
     print(f"[bench] {wall:.1f} s in all; warm-up {x['warmup_s']:.2f} s (an engine over the BA "
-          f"run's {n} frames, then the pose-graph, BA and ICP warm-ups); closed "
+          f"run's {n} frames, then the pose-graph, BA, ICP and query warm-ups); closed "
           f"{x['ms_per_frame']:.2f} ms/frame ({line['value']} fps), its first handle "
           f"{x['first_chunk_ms_per_frame']:.2f} ms/frame; ba-closed "
           f"{x['ms_per_frame_with_ba']:.2f} ms/frame, first handle "
@@ -2616,15 +2886,16 @@ def phase_bench(card):
     got_ba = {"n_ba_runs": x["n_ba_runs"], "ate_m": x["ate_rmse_m_with_ba"]}
     if got_ba != CARD_BA_CLOSED or x["tracking_breaks_with_ba"] != 0:
         raise AssertionError(f"[bench] ba-closed: {got_ba}; phase 8 gives {CARD_BA_CLOSED}")
-    one_time = [f"{prog}{how}" for prog in ("", "icp ", "pose graph ",
+    one_time = [f"{prog}{how}" for prog in ("", "icp ", "query ", "pose graph ",
                                             "pose graph distribute ", "ba ")
                 for how in ("eager", "capture")]
     for run in ("program_events", "program_events_with_ba"):
         ev = x[run]
-        if any(ev.get(k, 0) for k in one_time) or ev.get("replay", 0) != n:
+        if (any(ev.get(k, 0) for k in one_time) or ev.get("replay", 0) != n
+                or ev.get("query replay", 0) < 1):
             raise AssertionError(f"[bench] {run}: {ev}: a timed engine ran an eager frame, a "
-                                 f"capture, an eager ICP batch, an eager pose-graph solve or an "
-                                 f"eager BA, or not {n} replays")
+                                 f"capture, an eager query, ICP batch, pose-graph solve or "
+                                 f"BA, or not {n} replays, or no query replay")
     if not (x["program_events"].get("pose graph replay", 0) >= 1
             and x["program_events_with_ba"].get("ba replay", 0) >= 1):
         raise AssertionError("[bench] the timed runs replayed no pose-graph or no BA program")
@@ -2647,6 +2918,21 @@ def phase_bench(card):
     for stage, row in out["stage_table"].items():
         print(f"[scale] stage {stage:24s} {row['seconds']:9.4f} s in {row['calls']} calls")
     print(f"[scale] program events over the run and its warm-ups: {scale['events']}")
+    queries = scale["queries"]
+    print(f"[scale] query programs (SB, prefix): uses in the run: "
+          + ", ".join(f"({k[0]}, {k[2]}): {p.uses}" for k, p in sorted(queries.items(),
+                                                                        key=lambda kv: kv[0][:3])))
+    # The largest prefix's programs replayed again on the buffers as they
+    # stand (their rows are in the database already: the insert adds 0).
+    top = max(k[2] for k in queries)
+    timed = {f"SB {k[0]}": kt.cuda_ms(p.replay, 3) for k, p in queries.items()
+             if k[2] == top and p.graph is not None}
+    print(f"[scale] query replays at prefix {top} ({out['reloc_db_rows']} DB rows), ms (median "
+          f"of 3, CUDA events): {timed}; peak device memory {scale['peak_mib']:.1f} MiB, "
+          f"reserved {scale['reserved_mib']:.1f} MiB ({card})")
+    if scale["peak_mib"] > SCALE_PEAK_MIB:
+        raise AssertionError(f"[scale] peak device memory {scale['peak_mib']:.1f} MiB > "
+                             f"{SCALE_PEAK_MIB} MiB")
     args, kwargs = scale["pg"]
     J, Jp, Ep, d, e32, dchi2, echi2 = padded_against_tight(*args, **kwargs)
     print(f"[scale] its largest pose graph ({len(args[0])} keyframes, J {J}): padded to (Jp "
@@ -2717,7 +3003,7 @@ def main():
     mark(t_start, "chain-pg")
     phase_chain(card)
     closed, ba_closed = {}, {}
-    mark(t_start, "euroc-config, closed, ba-closed, modular-closed")
+    mark(t_start, "euroc-config, closed, ba-closed, modular-closed, modular configs")
     for counts in (
         config_slice("euroc-config", "euroc", EUROC_CAM, EUROC_FRAMES, EUROC_CIRCLE_FRAMES,
                      4.0, {"K2": 1, "K4": 2 * db.N_ROT_BANKS},
@@ -2727,6 +3013,7 @@ def main():
         phase_closed_loop("ba-closed", cam, ba_closed_config(cfg), world, frames,
                           JAX_CPU_BA_CLOSED, CARD_BA_CLOSED, card, record=ba_closed),
         phase_modular_closed(cam, cfg, world, frames, card),
+        phase_modular_configs(closed, card),
     ):
         launches = {k: launches[k] + counts[k] for k in launches}
     mark(t_start, "tum-config, xtion-config")

@@ -986,3 +986,167 @@ def test_capture_without_conditional_nodes_keeps_its_slots():
     torch.cuda.synchronize()
     assert all(bool((h == 7).all()) for h in held)
     assert torch.equal(y, x * 2)
+
+
+def _modular_state(progs):
+    return [*progs.table, *progs.prev, *progs.cur, progs.T_cur_prev, progs.prev_to_cur]
+
+
+def _modular_replays(progs, prog, inputs, changed):
+    """A modular program from one start state: its eager run, its capture
+    and replay, and a third replay (under torch.cuda.set_sync_debug_mode
+    ("error"): a synchronization inside raises) give the same outputs and
+    state bit for bit; with the scalar inputs changed (`changed`, or None)
+    the replay equals the eager run at those values and differs from the
+    first.  The state is put back at the end."""
+    from torch.utils import _pytree as pytree
+
+    start = [t.clone() for t in _modular_state(progs)]
+
+    def run(inp, eager=False, no_sync=False):
+        for d, s in zip(_modular_state(progs), start):
+            d.copy_(s)
+        if inp is not None:
+            prog.load(inp)
+        torch.cuda.synchronize()
+        if no_sync:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = prog.eager() if eager else prog.evaluate()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return [t.clone() for t in pytree.tree_leaves(out)] + [
+            t.clone() for t in _modular_state(progs)]
+
+    assert prog.uses == 0
+    first = run(inputs)
+    replayed = run(inputs)
+    again = run(inputs, no_sync=True)
+    assert prog.graph is not None and prog.uses == 3
+    for a, b, c in zip(first, replayed, again):
+        assert torch.equal(a, b) and torch.equal(b, c)
+    if changed is not None:
+        want = run(changed, eager=True)
+        got = run(changed, no_sync=True)
+        for a, b in zip(want, got):
+            assert torch.equal(a, b)
+        assert any(not torch.equal(a, b) for a, b in zip(first, got))
+    for d, s in zip(_modular_state(progs), start):
+        d.copy_(s)
+    return first
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["stereo", "depth"])
+def test_modular_programs_replay_their_eager_runs(mode):
+    """The modular tracker's programs (tracking/modular.py) on the card, on
+    the second frame of a 192 x 512 (stereo, K1 route) or 192 x 320
+    (RGB-D) circle: the front-end, a track attempt, propagate, spawn and
+    update each replay their eager run bit for bit with no host
+    synchronization inside, and honour changed scalars (threshold;
+    radius and gate; frame index and local map) between replays."""
+    _need_card()
+    from vslam_tpu_torch.solve import gn
+    from vslam_tpu_torch.tracking import modular
+
+    if mode == "stereo":
+        args = dict(fx=300.0, fy=300.0, cx=256.0, cy=96.0, baseline_m=0.4, rows=192, cols=512)
+        cap, bin_size, gates = 256, 16, (50, 1.5, 1.0, 200.0)
+    else:
+        args = dict(fx=300.0, fy=300.0, cx=160.0, cy=96.0, baseline_m=0.075, rows=192,
+                    cols=320)
+        cap, bin_size, gates = 256, 10, (0.3, 30.0)
+    cam = cam_ops.make_camera(**args)
+    world = synthetic.make_world(cam, n_points=1500, seed=21,
+                                 poses=synthetic.circle_trajectory(48, radius=7.0))
+    render = synthetic.render_frame if mode == "stereo" else synthetic.render_depth_frame
+    frames = [tuple(np.asarray(a, np.float32) for a in render(world, t)[:2]) for t in (0, 1)]
+    progs = modular.ModularPrograms(cam, mode, modular.FrontEndSettings(
+        cap, bin_size, 20, "BRIEF256", "FAST", 1), gn.GNConfig(max_iterations=100), 8192)
+    for buf, v in zip(progs.gates, gates):
+        buf.fill_(v)
+    eye = np.eye(4, dtype=np.float32)
+    k1 = db.kernel_counters()["K1"]
+    n0 = k1.launches
+
+    def step(prog, inputs, changed):
+        """The program's checks, then one run at `inputs` to move on."""
+        out = _modular_replays(progs, prog, inputs, changed)
+        if inputs is not None:
+            prog.load(inputs)
+        prog.eager()
+        return out
+
+    step(progs.front, (*frames[0], np.float32(20.0)), (*frames[0], np.float32(35.0)))
+    if mode == "stereo":  # one K1 a run: the capture withholds its launch, a replay adds it
+        assert k1.launches - n0 == 6
+    rows = np.flatnonzero(modular.spawn_mask(progs.cur, 1).cpu().numpy())
+    assigned = np.full(cap, -1, np.int32)
+    assigned[rows] = np.arange(len(rows))
+    step(progs.spawn, (assigned, eye, np.int32(0), np.int32(0)),
+         (assigned, eye, np.int32(5), np.int32(2)))
+    progs.front.load((*frames[1], np.float32(20.0)))
+    progs.front.eager()
+    guess = (np.linalg.inv(world.poses[1]) @ world.poses[0]).astype(np.float32)
+    out = step(progs.track, (guess, np.float32(8.0), np.int32(40)),
+               (guess, np.float32(20.0), np.int32(70)))
+    assert out[0][modular.VERDICT_CONVERGED] == 1 and out[0][modular.VERDICT_INLIERS] > 50
+    step(progs.propagate, None, None)
+    step(progs.update, (eye, np.int32(1)), (eye, np.int32(6)))
+
+
+@pytest.mark.cuda
+def test_query_program_replays_its_eager_run():
+    """The relocalizer's query+insert program on the card at SB 4 and a
+    2,048-row prefix: eager, captured and replayed runs bit-equal (best,
+    ok and the database after the insert), no synchronization inside a
+    replay, and a changed interspace bound (max_map_id) honoured by the
+    replay; the CPU's plain function gives the same bits."""
+    _need_card()
+    from vslam_tpu_torch.loop import relocalizer as rl
+
+    rng = np.random.default_rng(4)
+    SB, CAP, prefix, cap = 4, 256, 2048, 4096
+    n_rows = 1500
+    desc = rng.integers(0, 2**32, (cap, 8), dtype=np.uint64).astype(np.uint32).view(np.int32)
+    desc[n_rows:] = 0
+    mid = np.full(cap, -1, np.int32)
+    mid[:n_rows] = np.sort(rng.integers(0, 30, n_rows))
+    q = desc[rng.integers(0, n_rows, (SB, CAP))].copy()
+    q[:, CAP // 2:] = rng.integers(0, 2**31, (SB, CAP // 2, 8))
+    dest = np.full(SB * CAP, -1, np.int32)
+    dest[::3] = n_rows + np.arange(len(dest[::3]))
+    row_mid = np.where(dest >= 0, 40, 0).astype(np.int32)
+    rl.clear_query_programs()
+    prog = rl.query_program(SB, CAP, prefix, cap, 45, 8, "cuda")
+    store = rl._database(cap, torch.device("cuda", torch.cuda.current_device()))
+
+    def run(maxm, eager=False, no_sync=False):
+        store.desc.copy_(torch.from_numpy(desc))
+        store.map_id.copy_(torch.from_numpy(mid))
+        prog.load((torch.from_numpy(q), dest, row_mid, maxm))
+        torch.cuda.synchronize()
+        if no_sync:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = prog.eager() if eager else prog.evaluate()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return [t.clone() for t in (*out, store.desc, store.map_id)]
+
+    maxm = np.array([10, 20, 29, -1], np.int32)
+    first, replayed, again = run(maxm), run(maxm), run(maxm, no_sync=True)
+    assert prog.graph is not None
+    for a, b, c in zip(first, replayed, again):
+        assert torch.equal(a, b) and torch.equal(b, c)
+    cpu = rl._query_and_insert_many(
+        torch.from_numpy(q), torch.from_numpy(dest), torch.from_numpy(row_mid),
+        torch.from_numpy(desc), torch.from_numpy(mid), torch.from_numpy(maxm), 45, 8, prefix)
+    for a, b in zip(first, cpu):
+        assert torch.equal(a.cpu(), b)
+    other = np.array([5, 29, 15, 2], np.int32)
+    want, got = run(other, eager=True), run(other, no_sync=True)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+    assert not torch.equal(got[1], first[1])
+    rl.clear_query_programs()

@@ -6,9 +6,11 @@ KITTI-resolution synthetic stereo (KITTI's calibration), a 128-frame
 closed loop (relocalization, pose graph, merging; bundle adjustment off)
 with bench.py's settings, and its BA-enabled variant (windowed BA every
 48 frames).  run_bench runs them as bench.py does: a warm engine over
-the BA-enabled run and the three warm-ups first, then the timed engines,
-which replay the programs the warm engine captured
-(fused.make_frame_step and the ICP buckets are one per process); then
+the BA-enabled run and the four warm-ups first (pose-graph buckets, BA,
+ICP buckets, and the DB query programs up to the warm engine's prefix),
+then the timed engines, which replay the programs the warm engine and
+the warm-ups captured (fused.make_frame_step, the ICP buckets and the
+query programs are one per process); then
 the open-loop tracker-only rates, the device-only rate, the stage
 ms/frame and the KITTI-00-scale run (eval/scale_run.py).
 """
@@ -93,15 +95,19 @@ def _sync(device) -> None:
 def program_events() -> Counter:
     """The programs' eager runs, captures and replays so far (CUDA): the
     tracker's ("eager", ...), the closure ICP's ("icp eager", ...), the
-    pose graph's ("pose graph eager", ..., "pose graph distribute
-    eager", ...) and the windowed BA's ("ba eager", ...)."""
+    relocalizer's DB query's ("query eager", ...), the pose graph's ("pose
+    graph eager", ..., "pose graph distribute eager", ...), the windowed
+    BA's ("ba eager", ...) and the modular tracker's ("modular front-end
+    eager", "modular track replay", ...)."""
     from vslam_tpu_torch.backend import ba
     from vslam_tpu_torch.backend import pose_graph as pg
     from vslam_tpu_torch.loop import relocalizer as rl
-    from vslam_tpu_torch.tracking import fused
+    from vslam_tpu_torch.tracking import fused, modular
 
     out = Counter(fused.EVENTS)
-    for prefix, events in (("icp", rl.EVENTS), ("pose graph", pg.EVENTS), ("ba", ba.EVENTS)):
+    for prefix, events in (("icp", rl.EVENTS), ("query", rl.QUERY_EVENTS),
+                           ("pose graph", pg.EVENTS), ("ba", ba.EVENTS),
+                           ("modular", modular.EVENTS)):
         out.update({f"{prefix} {k}": v for k, v in events.items()})
     return out
 
@@ -215,7 +221,7 @@ def run_bench(device=DEFAULT_DEVICE, n_frames: int = N_FRAMES) -> dict:
     cfg, cfg_ba = closed_loop_config(cfg_open), ba_closed_config(cfg_open)
 
     # Warm-up: one engine over the BA-enabled run (every program either
-    # timed run needs), then the three warm-ups.
+    # timed run needs), then the four warm-ups.
     t0 = time.perf_counter()
     warm = _engine(cfg_ba, device)
     ba_runner.warm_windowed_ba(warm)
@@ -224,6 +230,9 @@ def run_bench(device=DEFAULT_DEVICE, n_frames: int = N_FRAMES) -> dict:
     warm._flush_tracker()
     pg.warm_hierarchical_buckets(device=device)
     rl.warm_icp_batches(cfg.relocalization, device=device)
+    reloc = warm.relocalizer
+    rl.warm_query_programs(cfg.relocalization, reloc.QUERY_CAP, reloc._active_prefix(),
+                           reloc.capacity, device)
     del warm
     gc.collect()
     _sync(device)

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 from collections import Counter
 from dataclasses import dataclass
+import weakref
 from itertools import chain
 
 import numpy as np
@@ -50,59 +51,162 @@ ICP_MAX_BATCH = 16
 ICP_BUCKETS = (8, 16)
 
 
-def _insert(db_desc, db_map_id, rows, dest, row_map_id):
-    """Append rows at their database destinations (dest -1 = skip) as
-    predicated add-delta scatters: skipped rows alias row 0 and add zero;
-    inserted rows hit distinct, still-empty rows, so each delta is the
-    value itself (no int32 wrap-around)."""
+def _insert_(db_desc, db_map_id, rows, dest, row_map_id) -> None:
+    """Append rows at their database destinations (dest -1 = skip), in
+    place, as predicated add-delta scatters: skipped rows alias row 0 and
+    add zero; inserted rows hit distinct, still-empty rows, so each delta
+    is the value itself (no int32 wrap-around)."""
     put = dest >= 0
     tgt = torch.where(put, dest, 0).to(torch.int64)
-    db_desc = db_desc.index_add(
-        0, tgt, torch.where(put[:, None], rows - db_desc[tgt], 0).to(db_desc.dtype))
-    db_map_id = db_map_id.index_add(
-        0, tgt, torch.where(put, row_map_id - db_map_id[tgt], 0).to(db_map_id.dtype))
-    return db_desc, db_map_id
+    d_desc = torch.where(put[:, None], rows - db_desc[tgt], 0).to(db_desc.dtype)
+    d_mid = torch.where(put, row_map_id - db_map_id[tgt], 0).to(db_map_id.dtype)
+    db_desc.index_add_(0, tgt, d_desc)
+    db_map_id.index_add_(0, tgt, d_mid)
+
+
+# Elements of one block of the (query rows, prefix) distance matrix: the
+# search takes the query rows in blocks of QUERY_BLOCK // prefix rows, so
+# its intermediates stay near 256 MiB an int32 matrix at any size (each
+# row's result is its own, so the blocks give the same bits).
+QUERY_BLOCK = 1 << 26
+
+
+def _search(qs, db_desc, db_map_id, bound, max_distance: int, min_margin: int, prefix: int,
+            mesh=None):
+    """Best database row of each query row among the first `prefix` rows
+    with 0 <= map id <= its bound, and whether it passes the distance gate
+    and the second-best margin.  qs (R, 8), bound (R,).  The margin test
+    masks only the column equal to `best`, so a tied runner-up gives
+    margin 0 and the row is rejected.  Returns (best (R,), ok (R,)).
+
+    With a mesh every rank matches its contiguous block of the prefix
+    (sharded_search.search_sharded_top2; the database is the same on
+    every rank).  A missing runner-up then counts 511, not BIG: the margin
+    test decides alike while min_margin <= 511 - max_distance."""
+    mid = db_map_id[:prefix]
+    if mesh is not None:
+        mid = mesh_mod.shard_rows(mid, mesh)
+        best, best_d, second_d = sharded_search.search_sharded_top2(
+            qs, mesh_mod.shard_rows(db_desc[:prefix], mesh),
+            (mid[None, :] >= 0) & (mid[None, :] <= bound[:, None]), mesh)
+        return best, (best_d <= max_distance) & (second_d - best_d >= min_margin)
+    dbb, rdb = hamming.bit_rows(db_desc[:prefix])
+    cols = torch.arange(prefix, dtype=torch.int32, device=qs.device)
+    step = max(QUERY_BLOCK // prefix, 1)
+    bests, oks = [], []
+    for r in range(0, qs.shape[0], step):
+        qb, rq = hamming.bit_rows(qs[r:r + step])
+        dist = hamming.hamming_from_bits(qb, rq, dbb, rdb)
+        b = bound[r:r + step, None]
+        eligible = (mid[None, :] >= 0) & (mid[None, :] <= b)
+        best_d, best = hamming._min_first(hamming._masked(dist, eligible), 1)
+        dist_m = torch.where(eligible, dist, hamming.BIG)
+        second_d = torch.where(cols[None, :] == best[:, None], hamming.BIG,
+                               dist_m).amin(dim=1)
+        bests.append(best)
+        oks.append((best_d <= max_distance) & (second_d - best_d >= min_margin))
+    return torch.cat(bests), torch.cat(oks)
+
+
+def _query_and_insert_(q_desc, dest, row_map_id, db_desc, db_map_id, max_map_id,
+                       max_distance: int, min_margin: int, prefix: int, mesh=None):
+    """S keyframe queries against the database as it was before this call
+    (_search), then all their fresh rows appended to db_desc / db_map_id
+    in place.  Returns (best (S, CAP) row, ok (S, CAP))."""
+    S, CAP, _ = q_desc.shape
+    qs = q_desc.reshape(S * CAP, 8)
+    best, ok = _search(qs, db_desc, db_map_id, torch.repeat_interleave(max_map_id, CAP),
+                       max_distance, min_margin, prefix, mesh)
+    _insert_(db_desc, db_map_id, qs, dest, row_map_id)
+    return best.reshape(S, CAP), ok.reshape(S, CAP)
 
 
 def _query_and_insert_many(q_desc, dest, row_map_id, db_desc, db_map_id, max_map_id,
                            max_distance: int, min_margin: int, prefix: int, mesh=None):
     """S keyframe queries against the database as it was before this call,
-    in one distance matrix, then all their fresh rows appended.
+    in one distance matrix (taken in row blocks, _search), then all their
+    fresh rows appended (the JAX package's _query_and_insert_many; the
+    database is returned, not written in place).
 
     q_desc: (S, CAP, 8) int32 query descriptors; dest: (S*CAP,) database
     row per flattened query row (-1 = not fresh); row_map_id: (S*CAP,)
     first-insertion map id to write; max_map_id: (S,) interspace bound
     (-1 = padded query).  Only the active `prefix` rows are matched.
-    Returns (best (S, CAP) row, ok (S, CAP), db_desc, db_map_id).
+    Returns (best (S, CAP) row, ok (S, CAP), db_desc, db_map_id)."""
+    db_desc, db_map_id = db_desc.clone(), db_map_id.clone()
+    best, ok = _query_and_insert_(q_desc, dest, row_map_id, db_desc, db_map_id, max_map_id,
+                                  max_distance, min_margin, prefix, mesh)
+    return best, ok, db_desc, db_map_id
 
-    The margin test masks only the column equal to `best`, so a tied
-    runner-up gives margin 0 and the row is rejected.
 
-    With a mesh every rank matches its contiguous block of the prefix
-    (sharded_search.search_sharded_top2; the database itself, and the
-    inserts, are the same on every rank).  A missing runner-up then
-    counts 511, not BIG: the margin test decides alike while min_margin
-    <= 511 - max_distance."""
-    S, CAP, _ = q_desc.shape
-    qs = q_desc.reshape(S * CAP, 8)
-    mid = db_map_id[:prefix]
-    bound = torch.repeat_interleave(max_map_id, CAP)[:, None]
-    if mesh is not None:
-        mid = mesh_mod.shard_rows(mid, mesh)
-        best, best_d, second_d = sharded_search.search_sharded_top2(
-            qs, mesh_mod.shard_rows(db_desc[:prefix], mesh),
-            (mid[None, :] >= 0) & (mid[None, :] <= bound), mesh)
-    else:
-        dist = hamming.hamming_matrix_bits(qs, db_desc[:prefix])
-        eligible = (mid[None, :] >= 0) & (mid[None, :] <= bound)
-        best_d, best = hamming._min_first(hamming._masked(dist, eligible), 1)
-        cols = torch.arange(prefix, dtype=torch.int32, device=dist.device)
-        dist_m = torch.where(eligible, dist, hamming.BIG)
-        second_d = torch.where(cols[None, :] == best[:, None], hamming.BIG,
-                               dist_m).amin(dim=1)
-    ok = (best_d <= max_distance) & (second_d - best_d >= min_margin)
-    db_desc, db_map_id = _insert(db_desc, db_map_id, qs, dest, row_map_id)
-    return best.reshape(S, CAP), ok.reshape(S, CAP), db_desc, db_map_id
+class _Database:
+    """The database buffers that every query program of one (capacity,
+    device) reads and writes: one relocalizer's database at a time
+    (`holder`, a weak reference; Relocalizer._hold_database)."""
+
+    def __init__(self, capacity: int, device):
+        self.desc = torch.zeros((capacity, 8), dtype=torch.int32, device=device)
+        self.map_id = torch.full((capacity,), -1, dtype=torch.int32, device=device)
+        self.holder = None
+
+
+# Eager runs, captures and replays of every query program (CUDA only).
+QUERY_EVENTS: Counter = Counter()
+# The process's query programs, by (SB, CAP, prefix, capacity,
+# max_distance, min_margin, device); their databases by (capacity,
+# device); one graph memory pool a device for all of their captures.
+_QUERY_PROGRAMS: dict[tuple, program.StaticProgram] = {}
+_DATABASES: dict[tuple, _Database] = {}
+_QUERY_POOLS: dict = {}
+
+
+def _database(capacity: int, device) -> _Database:
+    key = (int(capacity), device)
+    if key not in _DATABASES:
+        _DATABASES[key] = _Database(capacity, device)
+    return _DATABASES[key]
+
+
+def query_program(SB: int, CAP: int, prefix: int, capacity: int, max_distance: int,
+                  min_margin: int, device) -> program.StaticProgram:
+    """The process's query+insert program (the JAX package's
+    _query_and_insert_many, jitted with the database donated and `prefix`
+    static): input buffers q_desc (SB, CAP, 8), dest and row_map_id
+    (SB*CAP,), max_map_id (SB,); it searches and inserts into the
+    database buffers of (capacity, device) in place and returns (best,
+    ok) (SB, CAP).  The query programs of a device never run
+    concurrently, so their captures share one memory pool."""
+    device = resolve_device(device)
+    key = (SB, CAP, prefix, int(capacity), int(max_distance), int(min_margin), device)
+    if key not in _QUERY_PROGRAMS:
+        db = _database(capacity, device)
+        i32 = dict(dtype=torch.int32, device=device)
+        bufs = (torch.zeros((SB, CAP, 8), **i32), torch.full((SB * CAP,), -1, **i32),
+                torch.zeros((SB * CAP,), **i32), torch.full((SB,), -1, **i32))
+
+        def query(b):
+            q_desc, dest, row_map_id, max_map_id = b
+            return _query_and_insert_(q_desc, dest, row_map_id, db.desc, db.map_id,
+                                      max_map_id, max_distance, min_margin, prefix)
+
+        if device.type == "cuda" and device not in _QUERY_POOLS:
+            _QUERY_POOLS[device] = torch.cuda.graph_pool_handle()
+        _QUERY_PROGRAMS[key] = program.StaticProgram(query, bufs, QUERY_EVENTS,
+                                                     pool=_QUERY_POOLS.get(device))
+    return _QUERY_PROGRAMS[key]
+
+
+def _drop_query_programs(capacity: int, device) -> None:
+    """Forget the query programs and the database of (capacity, device)."""
+    for key in [k for k in _QUERY_PROGRAMS if k[3] == capacity and k[6] == device]:
+        del _QUERY_PROGRAMS[key]
+    _DATABASES.pop((capacity, device), None)
+
+
+def clear_query_programs() -> None:
+    """Forget every shared query program and database."""
+    _QUERY_PROGRAMS.clear()
+    _DATABASES.clear()
 
 
 def _fetch(tensors) -> list[np.ndarray]:
@@ -274,6 +378,28 @@ def warm_icp_batches(params: RelocalizationParameters, buckets=ICP_BUCKETS,
         prog.warm()
 
 
+def warm_query_programs(params: RelocalizationParameters, query_cap: int, max_prefix: int,
+                        capacity: int = 131072, device=DEFAULT_DEVICE) -> None:
+    """Run the query program of every key a closed loop of these settings
+    reaches up to `max_prefix` rows -- SB 1, 2, 4, ... up to the padded
+    interspace, prefix 1,024 ... max_prefix -- until it is captured, so a
+    later drain replays it (as warm_icp_batches does for the ICP
+    buckets).  Each warm-up query is padded (max_map_id -1) and inserts
+    nothing, so it leaves whatever database the buffers hold as it is."""
+    interspace = max(int(params.preliminary_minimum_interspace_queries), 1)
+    SB, prefix = 1, 1024
+    sizes = []
+    while SB <= 1 << (interspace - 1).bit_length():
+        sizes.append(SB)
+        SB *= 2
+    while prefix <= min(max_prefix, capacity):
+        for SB in sizes:
+            query_program(SB, int(query_cap), prefix, capacity,
+                          int(params.maximum_descriptor_distance),
+                          int(params.minimum_second_best_margin), device).warm()
+        prefix *= 2
+
+
 class Relocalizer:
     def __init__(self, params: RelocalizationParameters, query_cap: int = 1024,
                  capacity: int = 131072, device=DEFAULT_DEVICE, mesh=None):
@@ -300,8 +426,12 @@ class Relocalizer:
         # tracker's snapshot archive; maps above the horizon gather their
         # ICP point sets there on the device.
         self.ring_provider = None
-        self.db_desc = torch.zeros((capacity, 8), dtype=torch.int32, device=self.device)
-        self.db_map_id = torch.full((capacity,), -1, dtype=torch.int32, device=self.device)
+        # The database in tensors of this relocalizer's own (_own) until its
+        # first query; then the query programs' buffers (_db) while it
+        # holds them (_hold_database).
+        self._db: _Database | None = None
+        self._own = (torch.zeros((capacity, 8), dtype=torch.int32, device=self.device),
+                     torch.full((capacity,), -1, dtype=torch.int32, device=self.device))
         self.row_slot = np.full(capacity, -1, np.int32)
         self.n_rows = 0
         self.maps: dict[int, LocalMap] = {}
@@ -310,20 +440,73 @@ class Relocalizer:
         self._slot_in_db: set[int] = set()
         self._map_slot_row: dict[int, dict[int, int]] = {}
 
+    @property
+    def db_desc(self) -> torch.Tensor:
+        """(capacity, 8) int32 row descriptors."""
+        return self._db.desc if self._db is not None else self._own[0]
+
+    @db_desc.setter
+    def db_desc(self, t: torch.Tensor):
+        self._release_database()
+        self._own = (t, self._own[1])
+
+    @property
+    def db_map_id(self) -> torch.Tensor:
+        """(capacity,) int32 first-insertion map id of each row (-1 empty)."""
+        return self._db.map_id if self._db is not None else self._own[1]
+
+    @db_map_id.setter
+    def db_map_id(self, t: torch.Tensor):
+        self._release_database()
+        self._own = (self._own[0], t)
+
+    def _release_database(self) -> None:
+        """Take the database out of the query programs' buffers into
+        tensors of this relocalizer's own."""
+        if self._db is None:
+            return
+        self._own = (self._db.desc.clone(), self._db.map_id.clone())
+        if self._db.holder is not None and self._db.holder() is self:
+            self._db.holder = None
+        self._db = None
+
+    def _hold_database(self) -> _Database:
+        """Make the query programs' database buffers of this capacity this
+        relocalizer's database (the programs are the process's, shared by
+        every relocalizer of a capacity): the relocalizer that held them
+        takes its database out first, then this one's is copied in."""
+        store = _database(self.capacity, self.device)
+        if self._db is store:
+            return store
+        self._release_database()
+        other = store.holder() if store.holder is not None else None
+        if other is not None:
+            other._release_database()
+        store.desc.copy_(self._own[0])
+        store.map_id.copy_(self._own[1])
+        store.holder = weakref.ref(self)
+        self._db, self._own = store, None
+        return store
+
     def _active_prefix(self) -> int:
         """Power-of-two bucket (>= 1024) covering the live rows."""
         n = max(self.n_rows, 1)
         return min(1 << max((n - 1).bit_length(), 10), self.capacity)
 
     def _grow(self):
-        """Double the device database."""
+        """Double the device database (the query programs of the old
+        capacity are dropped; the next query builds those of the new)."""
         new_cap = self.capacity * 2
         log.warning(f"relocalizer database full at {self.n_rows} rows — growing to {new_cap}")
         db_desc = torch.zeros((new_cap, 8), dtype=torch.int32, device=self.device)
         db_map_id = torch.full((new_cap,), -1, dtype=torch.int32, device=self.device)
         db_desc[:self.capacity] = self.db_desc
         db_map_id[:self.capacity] = self.db_map_id
-        self.db_desc, self.db_map_id = db_desc, db_map_id
+        held = self._db is not None
+        self._release_database()
+        if held:
+            _drop_query_programs(self.capacity, self.device)
+        self._own = (db_desc, db_map_id)
         row_slot = np.full(new_cap, -1, np.int32)
         row_slot[:self.capacity] = self.row_slot
         self.row_slot = row_slot
@@ -378,8 +561,7 @@ class Relocalizer:
             return
         dest = torch.from_numpy(self._dest(fresh, offset)).to(self.device)
         row_mid = torch.full_like(dest, lm.map_id)
-        self.db_desc, self.db_map_id = _insert(self.db_desc, self.db_map_id, q_desc,
-                                               dest, row_mid)
+        _insert_(self.db_desc, self.db_map_id, q_desc, dest, row_mid)
 
     def submit(self, lm: LocalMap) -> QueryHandle | None:
         """Dispatch query+insert for one new local map (no sync)."""
@@ -417,11 +599,8 @@ class Relocalizer:
         if SB > S:
             parts.append(torch.zeros((SB - S, CAP, 8), dtype=torch.int32,
                                      device=self.device))
-        host = torch.from_numpy(np.concatenate([dest, row_mid, maxm])).to(self.device)
         with log.measure("reloc_dispatch"):
-            best, ok, self.db_desc, self.db_map_id = self._query_and_insert(
-                torch.cat(parts), host[:SB * CAP], host[SB * CAP:2 * SB * CAP],
-                host[2 * SB * CAP:], prefix)
+            best, ok = self._query_and_insert(torch.cat(parts), dest, row_mid, maxm, prefix)
         return [
             None if maxm[i] < 0 or nq == 0
             else QueryHandle(query=lm, nq=nq, idx_dev=best[i], ok_dev=ok[i])
@@ -429,16 +608,26 @@ class Relocalizer:
         ]
 
     def _query_and_insert(self, q_desc, dest, row_map_id, max_map_id, prefix: int):
-        """_query_and_insert_many on this relocalizer's database: row-sharded
-        over the mesh when the searched prefix divides across it (the
-        same results), else on one device."""
+        """_query_and_insert_many on this relocalizer's database, inserting
+        in place: row-sharded over the mesh when the searched prefix
+        divides across it (the same results; eager, at its true size),
+        else as the query program of this key.  q_desc (SB, CAP, 8) on the
+        device; dest, row_map_id (SB*CAP,) and max_map_id (SB,) int32 host
+        arrays.  Returns (best, ok) (SB, CAP)."""
         p = self.params
-        args = (q_desc, dest, row_map_id, self.db_desc, self.db_map_id, max_map_id,
-                int(p.maximum_descriptor_distance), int(p.minimum_second_best_margin), prefix)
+        max_d, margin = int(p.maximum_descriptor_distance), int(p.minimum_second_best_margin)
         if (self.mesh is not None and prefix % self.mesh.size == 0
                 and prefix <= sharded_search.MAX_ROWS):
-            return _query_and_insert_many(*args, mesh=self.mesh)
-        return _query_and_insert_many(*args)
+            host = torch.from_numpy(np.concatenate([dest, row_map_id, max_map_id])).to(
+                self.device)
+            n = len(dest)
+            return _query_and_insert_(q_desc, host[:n], host[n:2 * n], self.db_desc,
+                                      self.db_map_id, host[2 * n:], max_d, margin, prefix,
+                                      mesh=self.mesh)
+        SB, CAP, _ = q_desc.shape
+        self._hold_database()
+        prog = query_program(SB, CAP, prefix, self.capacity, max_d, margin, self.device)
+        return prog.run((q_desc, dest, row_map_id, max_map_id))
 
     def vote(self, handle: QueryHandle | None):
         """Vote per reference map on a fetched query result and build the
@@ -635,11 +824,10 @@ class Relocalizer:
             block = np.zeros((CAP, 8), np.int32)
             block[:nq] = np.asarray(query.desc[:nq]).view(np.int32)
             q_desc = torch.from_numpy(block).to(self.device)
-        none = torch.full((CAP,), -1, dtype=torch.int32, device=self.device)
-        best, ok, _, _ = self._query_and_insert(
-            q_desc[None], none, none,
-            torch.tensor([max_map_id], dtype=torch.int32, device=self.device),
-            self._active_prefix())
+        none = np.full(CAP, -1, np.int32)
+        best, ok = self._query_and_insert(q_desc[None], none, none,
+                                          np.asarray([max_map_id], np.int32),
+                                          self._active_prefix())
         return self.resolve(QueryHandle(query=query, nq=nq, idx_dev=best[0], ok_dev=ok[0]))
 
     def apply_remap(self, remap: dict[int, int], lut=None) -> None:

@@ -305,7 +305,11 @@ def _stereo_frontend_tail(cam, kl, kr, dl, dr, planes, max_hamming_stereo,
     disp = uv_l[:, 0] - uv_r[:, 0]
     reliable = disp >= min_disparity
     p_cam, _ = cam_ops.triangulate_disparity(cam, uv_l, uv_r, 1.0)
-    z_cap = (cam.fx * cam.baseline_m).expand_as(disp) / max(float(min_disparity), 0.25)
+    # A gate given as a tensor (the modular front-end program's buffer)
+    # stays on the device; a number divides as the fused step's always has.
+    z_den = (torch.clamp(min_disparity, min=0.25) if isinstance(min_disparity, torch.Tensor)
+             else max(float(min_disparity), 0.25))
+    z_cap = (cam.fx * cam.baseline_m).expand_as(disp) / z_den
     p_cam = torch.where(reliable[:, None], p_cam,
                         cam_ops.back_project(cam, uv_l, z_cap))
     valid = m.valid & kl.valid & (p_cam[:, 2] > 0)

@@ -279,17 +279,20 @@ def _capture() -> _Capture | None:
 
 
 @contextlib.contextmanager
-def graph_capture(graph: torch.cuda.CUDAGraph, device=None):
+def graph_capture(graph: torch.cuda.CUDAGraph, device=None, pool=None):
     """torch.cuda.graph(graph) with conditional nodes: while_loop and cond
     inside the block become WHILE and IF nodes.  Yields the capture's
     Record (its values are the slots every replay writes): keep it as
-    long as the graph is replayed, since it holds the slots."""
+    long as the graph is replayed, since it holds the slots.  `pool` (a
+    torch.cuda.graph_pool_handle()) puts the graph's intermediates in a
+    pool shared with other graphs that are never replayed concurrently
+    (default: a private pool of its own)."""
     index = None if device is None else torch.device(device).index
     device = torch.device("cuda", torch.cuda.current_device() if index is None else index)
     if getattr(_local, "capture", None) is not None:
         raise RuntimeError("control.graph_capture: a capture is already under way")
     ctx = _Capture(device)
-    ctx.pool = torch.cuda.graph_pool_handle()
+    ctx.pool = torch.cuda.graph_pool_handle() if pool is None else pool
     _local.capture = ctx
     try:
         with torch.cuda.graph(graph, pool=ctx.pool):

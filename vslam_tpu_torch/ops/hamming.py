@@ -63,11 +63,19 @@ def hamming_matrix_bits(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     and every sum is at most 256 (TF32 is pinned off by the package).
     Memory is O(Q + D) bit rows plus the (Q, D) result, where
     hamming_matrix's broadcast holds (Q, D, 8) words."""
-    qb = unpack_bits(q).to(torch.float32)
-    dbb = unpack_bits(db).to(torch.float32)
+    return hamming_from_bits(*bit_rows(q), *bit_rows(db))
+
+
+def bit_rows(x: torch.Tensor):
+    """(N, 8) words -> ((N, 256) f32 bit rows, (N,) int32 popcounts): one
+    side of hamming_matrix_bits, which a caller may reuse across blocks."""
+    bits = unpack_bits(x).to(torch.float32)
+    return bits, bits.sum(dim=1).to(torch.int32)
+
+
+def hamming_from_bits(qb, rq, dbb, rdb) -> torch.Tensor:
+    """hamming_matrix_bits from both sides' bit_rows."""
     inner = (qb @ dbb.T).to(torch.int32)
-    rq = qb.sum(dim=1).to(torch.int32)
-    rdb = dbb.sum(dim=1).to(torch.int32)
     return rq[:, None] + rdb[None, :] - 2 * inner
 
 

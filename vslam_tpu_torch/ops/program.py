@@ -13,30 +13,71 @@ buffers and evaluates `fn(buffers)`:
 * on the CPU every run is eager on the same buffers, so the tests reach
   the code the card captures.
 
+`fn` may also read and write tensors of its own (a program's state,
+which it updates in place): the graph reads and writes them by address.
+
 `events` (a Counter shared by the programs of one kind) counts the
 eager runs, captures and replays on CUDA, under "eager", "capture" and
-"replay", or "<label> eager", ... for a program with a label.
+"replay", or "<label> eager", ... for a program with a label.  Kernel
+launch counts (dense_brief.kernel_counters) count the wrappers' Python
+calls: a capture counts none, and each replay adds the launches its
+capture made (withheld_launches).  `pool` (a torch.cuda.graph_pool_handle)
+puts the capture's intermediates in a pool shared with other programs
+that never run concurrently.
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
 from collections import Counter
 
 import torch
 from torch.utils import _pytree as pytree
 
+from vslam_tpu_torch.frontend import dense_brief
 from vslam_tpu_torch.ops import control
 
 
+@contextlib.contextmanager
+def withheld_launches(record: dict):
+    """Counts the kernel launches the block's wrappers make into record
+    (name -> (launches, launches by batch size)) and takes them off the
+    counters again: a capture launches nothing, its replays do."""
+    counters = dense_brief.kernel_counters()
+    before = {k: (c.launches, Counter(c.batches)) for k, c in counters.items()}
+    try:
+        yield record
+    finally:
+        for k, c in counters.items():
+            n0, b0 = before[k]
+            record[k] = (c.launches - n0, c.batches - b0)
+            c.launches = n0
+            c.batches.clear()
+            c.batches.update(b0)
+
+
+def add_launches(record: dict) -> None:
+    """Add a capture's withheld launches to the counters (one replay)."""
+    counters = dense_brief.kernel_counters()
+    for k, (n, batches) in record.items():
+        counters[k].launches += n
+        counters[k].batches.update(batches)
+
+
 class StaticProgram:
-    def __init__(self, fn, buffers, events: Counter, label: str = ""):
+    def __init__(self, fn, buffers, events: Counter, label: str = "", pool=None):
         self.fn, self.buffers, self.events = fn, buffers, events
         self.prefix = f"{label} " if label else ""
         self.device = pytree.tree_leaves(buffers)[0].device
+        self.pool = pool
         self.uses = 0
         self.graph = None
         self.out = None  # the captured graph's outputs
         self.record = None  # control.Record of the capture
+        self.capture_seconds = None
+        # Per replay: kernel name -> (launches, launches by batch size).
+        self.replay_launches: dict = {}
 
     def eager(self):
         """fn on the buffers as they stand, eagerly (no event counted)."""
@@ -61,11 +102,19 @@ class StaticProgram:
         """Capture fn over the buffers (CUDA; after one eager run)."""
         if self.device.type != "cuda" or self.uses == 0:
             raise RuntimeError("StaticProgram.capture: needs one eager run on CUDA first")
+        t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with control.graph_capture(graph, self.device) as record:
+        with withheld_launches(self.replay_launches), \
+                control.graph_capture(graph, self.device, self.pool) as record:
             self.out = self.fn(self.buffers)
         self.graph, self.record = graph, record
+        self.capture_seconds = time.perf_counter() - t0
         self.events[self.prefix + "capture"] += 1
+
+    def replay(self) -> None:
+        """One replay of the captured graph, its launches counted."""
+        self.graph.replay()
+        add_launches(self.replay_launches)
 
     def run(self, inputs=None):
         """Load `inputs` (None: the buffers as they stand) and evaluate."""
@@ -84,7 +133,7 @@ class StaticProgram:
         else:
             if self.graph is None:
                 self.capture()
-            self.graph.replay()
+            self.replay()
             self.events[self.prefix + "replay"] += 1
             out = pytree.tree_map(torch.clone, self.out)
         self.uses += 1

@@ -38,19 +38,18 @@ same tail per frame; make_track_step's TrackProgram replays that tail.
 
 from __future__ import annotations
 
-import contextlib
 import time
 from collections import Counter
 from typing import NamedTuple
 
 import torch
 
-from vslam_tpu_torch.frontend import dense_brief
 from vslam_tpu_torch.frontend import depth as depth_mod
 from vslam_tpu_torch.mapping import frame as frame_mod
 from vslam_tpu_torch.mapping import landmarks as lm_mod
 from vslam_tpu_torch.ops import camera as cam_ops
 from vslam_tpu_torch.ops import control, lie
+from vslam_tpu_torch.ops.program import add_launches, withheld_launches
 from vslam_tpu_torch.solve import gn
 
 
@@ -653,24 +652,6 @@ def assign_state(dst: TrackerState, src: TrackerState) -> None:
         d.copy_(s)
 
 
-@contextlib.contextmanager
-def withheld_launches(record: dict):
-    """Counts the kernel launches the block's wrappers make into record
-    (name -> (launches, launches by batch size)) and takes them off the
-    counters again: a capture launches nothing, its replays do."""
-    counters = dense_brief.kernel_counters()
-    before = {k: (c.launches, Counter(c.batches)) for k, c in counters.items()}
-    try:
-        yield record
-    finally:
-        for k, c in counters.items():
-            n0, b0 = before[k]
-            record[k] = (c.launches - n0, c.batches - b0)
-            c.launches = n0
-            c.batches.clear()
-            c.batches.update(b0)
-
-
 # Frames run eagerly, captures and replays of every program (CUDA only).
 EVENTS: Counter = Counter()
 
@@ -748,10 +729,7 @@ class _Program:
 
     def _replay(self):
         self.graph.replay()
-        counters = dense_brief.kernel_counters()
-        for k, (n, batches) in self.replay_launches.items():
-            counters[k].launches += n
-            counters[k].batches.update(batches)
+        add_launches(self.replay_launches)
 
     def _execute(self, T_odom: torch.Tensor | None):
         if self.T_odom is not None:
@@ -903,7 +881,8 @@ def clear_programs() -> None:
     _PROGRAMS.clear()
 
 
-def clone_state(state: TrackerState) -> TrackerState:
-    """A copy of the state in tensors of its own, field by field."""
-    return TrackerState(*(type(v)(*(t.clone() for t in v)) if isinstance(v, tuple)
-                          else v.clone() for v in state))
+def clone_state(state):
+    """A copy of a state (a NamedTuple of tensors and NamedTuples of
+    tensors) in tensors of its own, field by field."""
+    return type(state)(*(type(v)(*(t.clone() for t in v)) if isinstance(v, tuple)
+                         else v.clone() for v in state))
