@@ -182,7 +182,7 @@ Phases (each raises on failure; the exit code is then non-zero):
                program from the run's last state: its eager run and two
                replays bit-equal, no synchronization inside a replay, its
                WHILE nodes as the eager run's active rounds, eager and
-               replayed ms and capture s.
+               replayed ms.
  21. device-program — the fused tracker's FrameProgram (make_frame_step:
                the state in static buffers, one captured CUDA graph a frame
                whose GN phases are WHILE nodes and whose retry ladder,
@@ -1039,8 +1039,8 @@ def replay_checks(label, progs, state, card):
     "error") (a synchronization inside raises); its conditional nodes decide as the eager run's loops
     (check_record: each WHILE node's iterations against the eager loop's
     active rounds); eager and replayed ms (kernel_timing.cuda_ms, medians
-    of 3, the state put back before each) and capture s.  Returns {name:
-    (eager ms, replayed ms, capture s, WHILE iterations a replay)}."""
+    of 3, the state put back before each).  Returns {name: (eager ms,
+    replayed ms, WHILE iterations a replay)}."""
     from torch.utils import _pytree as pytree
 
     from vslam_tpu_torch.frontend import kernel_timing as kt
@@ -1082,14 +1082,14 @@ def replay_checks(label, progs, state, card):
         values, reached = check_record(f"{label} {name}", 0, prog, rec)
         iters = sum(v for (k, _, v), r in zip(values, reached) if k == "while" and r)
         out[name] = (kt.cuda_ms(prog.eager, 3, restore), kt.cuda_ms(prog.graph.replay, 3, restore),
-                     prog.capture_seconds, iters)
+                     iters)
     restore()
     print(f"[{label}] programs from the run's last state: eager run and two replays equal bit "
           f"for bit (outputs and state), no synchronization inside a replay, WHILE nodes as "
           f"the eager run's active rounds; eager / replayed ms (median of 3, CUDA events), "
-          f"capture s, WHILE iterations: "
-          + "; ".join(f"{k} {e:.3f} / {r:.3f} ms, {c:.2f} s, {w}"
-                      for k, (e, r, c, w) in out.items())
+          f"WHILE iterations: "
+          + "; ".join(f"{k} {e:.3f} / {r:.3f} ms, {w}"
+                      for k, (e, r, w) in out.items())
           + (f"; captured here (one eager run in the run): {late}" if late else "")
           + f" ({card})")
     return out
@@ -1478,8 +1478,7 @@ def program_parity(label, cam, cfg, frames, card, measure=False):
     print(f"[{label}] {len(frames)} frames: every state tensor of the program equal to the "
           f"eager step's after every frame, every conditional node deciding as the eager "
           f"step, no synchronization inside a replay; the program's launches {counts}; "
-          f"capture {prog.capture_seconds:.2f} s; {prog.record.names().count('gn phase 1')} "
-          f"GN WHILE pairs and {sum(k == 'if' for k, _, _ in records[0][0])} conds captured; "
+          f"{prog.record.names().count('gn phase 1')} GN WHILE pairs and {sum(k == 'if' for k, _, _ in records[0][0])} conds captured; "
           f"WHILE iterations a replay {min(totals)}-{max(totals)} (mean "
           f"{statistics.mean(totals):.2f}), attempt 1's GN phase 1 {p1} and phase 2 {p2} "
           f"rounds, as the eager step's active rounds")
@@ -1518,8 +1517,8 @@ def program_parity(label, cam, cfg, frames, card, measure=False):
           f"{q_ms:.3f} ms; device busy {busy_us / 1e3 / P:.2f} ms a replay "
           f"and {len(kernels) / P:.0f} kernels a replay (torch.profiler over frames "
           f"{len(frames) - P}-{len(frames) - 1}), {replay_ms:.2f} ms a replay by CUDA events "
-          f"over frames {len(frames) - 2 * P}-{len(frames) - P - 1} back to back; capture "
-          f"{prog.capture_seconds:.2f} s; peak device memory "
+          f"over frames {len(frames) - 2 * P}-{len(frames) - P - 1} back to back; peak device "
+          f"memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card})")
     print(f"[{label}] the fixed-cap program (every GN solve to its cap) on an H100 80GB "
           f"HBM3 at 700.00 W: {FIXED_CAP_PROGRAM['kernels']:,} kernels and "
@@ -1642,7 +1641,7 @@ def split_program_parity(cam, cfg, frames, card):
           f"program equal to the eager track_step's after every frame, every conditional "
           f"node deciding as the eager tail, no synchronization inside a replay; the tails' "
           f"launches {counts} (the chunk's front-end "
-          f"{front_counts}); capture {prog.capture_seconds:.2f} s ({card})")
+          f"{front_counts}) ({card})")
     return counts
 
 
@@ -1777,7 +1776,7 @@ def phase_build(card) -> dict:
     control.library()
     print(f"[build] the four libraries built in {time.perf_counter() - t0:.2f} s of wall time")
     for name, lib in libraries.items():
-        print(f"[build] {name} ({lib.src.name}) built in {lib.build_seconds:.2f} s")
+        print(f"[build] {name} ({lib.src.name})")
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[build] {line.strip()}")

@@ -483,7 +483,9 @@ def optimize_pose_graph_hierarchical(poses, odometry, odo_weight, closures,
     junction solve and the distribution run on `device` as the programs
     of their buckets; the stage clock splits the call into the host
     assembly (pg_assembly), the junction program (pg_junction_solve) and
-    the distribution (pg_distribution), each ending in its host read.
+    the distribution (pg_distribution), each ending in its host read;
+    pg_wait times the two reads alone (the host blocked on the card: the
+    work queued ahead and the programs' own device time).
     Returns (optimized (P, 4, 4) np poses, final junction chi2)."""
     device = resolve_device(device)
     P = len(poses)
@@ -496,8 +498,9 @@ def optimize_pose_graph_hierarchical(poses, odometry, odo_weight, closures,
     with log.measure("pg_junction_solve"):
         prog = junction_program(Jp, Ep, iterations, levenberg, device)
         opt, chi2 = prog.run((graph, np.float32(robust_kernel_chi2)))
-        opt = opt.cpu().numpy()[:J]
-        chi2 = float(chi2)
+        with log.measure("pg_wait"):
+            opt = opt.cpu().numpy()[:J]
+            chi2 = float(chi2)
 
     with log.measure("pg_distribution"):
         corr = np.einsum("jab,jbc->jac", opt, np.linalg.inv(poses[junc])).astype(np.float32)
@@ -512,7 +515,8 @@ def optimize_pose_graph_hierarchical(poses, odometry, odo_weight, closures,
         out = dist.run((_padded(poses.astype(np.float32), P_pad, eye), _padded(corr, Jp, eye),
                         _padded(owner.astype(np.int64), P_pad, 0),
                         _padded(s, P_pad, 0.0)))
-        out = out.cpu().numpy()[:P]
+        with log.measure("pg_wait"):
+            out = out.cpu().numpy()[:P]
     return out, chi2
 
 

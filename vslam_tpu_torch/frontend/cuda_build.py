@@ -21,7 +21,6 @@ import re
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -75,17 +74,16 @@ class CudaLibrary:
     """One csrc/*.cu source, its nvcc build and the loaded ctypes handle.
 
     `build_log` holds nvcc's output (register and shared-memory use, from
-    -Xptxas -v) and `build_seconds` the time from `start` to the load."""
+    -Xptxas -v)."""
 
     flags = NVCC_FLAGS
 
     def __init__(self, source: str):
         self.src = CSRC / source
         self.build_log = ""
-        self.build_seconds = 0.0
         self._lib = None
         self._proc = None
-        self._t0 = None
+        self._started = False
         self._lock = threading.Lock()
 
     def compiler(self) -> str:
@@ -100,9 +98,9 @@ class CudaLibrary:
 
     def start(self) -> "CudaLibrary":
         """Begin the nvcc build unless it is built, loaded or under way."""
-        if self._lib is not None or self._t0 is not None:
+        if self._lib is not None or self._started:
             return self
-        self._t0 = time.perf_counter()
+        self._started = True
         so = self._target()
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -128,11 +126,10 @@ class CudaLibrary:
                 failed = self._proc.returncode != 0
                 self._proc = None
                 if failed:
-                    self._t0 = None
+                    self._started = False
                     raise RuntimeError(f"{Path(self.compiler()).name} failed for "
                                        f"{self.src}:\n{self.build_log}")
                 os.replace(self._tmp, so)
-            self.build_seconds = time.perf_counter() - self._t0
             self._lib = ctypes.CDLL(str(so))
         return self._lib
 

@@ -339,7 +339,9 @@ class ICPProgram(program.StaticProgram):
         self.T0[n:].copy_(self.eye.expand_as(self.T0[n:]))
 
 
-# Eager batches, captures and replays of every ICPProgram (CUDA only).
+# Eager batches, captures and replays of every ICPProgram (CUDA only);
+# "candidates", the ICP jobs dispatched, and "closures", the verdicts that
+# passed finish_icp's gates (every device).
 EVENTS: Counter = Counter()
 # The process's ICP programs, by (aligner, bucket, cap, config, device).
 _PROGRAMS: dict[tuple, ICPProgram] = {}
@@ -707,6 +709,7 @@ class Relocalizer:
         p = self.params
         cap = int(p.icp_correspondence_cap)
         B = len(candidates)
+        EVENTS["candidates"] += B
         dev = self.device
         T0 = np.stack([np.linalg.inv(c.reference.T_world_kf) @ c.query.T_world_kf
                        for c in candidates]).astype(np.float32)
@@ -788,6 +791,7 @@ class Relocalizer:
         q_slots = np.asarray(lm.landmark_slots)[job.q_rows]
         r_slots = np.asarray(ref.landmark_slots)[job.r_rows]
         keep = q_slots != r_slots  # identical slots merge to a no-op
+        EVENTS["closures"] += 1
         return Closure(
             query_id=lm.map_id,
             reference_id=ref.map_id,

@@ -29,7 +29,6 @@ that never run concurrently.
 from __future__ import annotations
 
 import contextlib
-import time
 from collections import Counter
 
 import torch
@@ -75,7 +74,6 @@ class StaticProgram:
         self.graph = None
         self.out = None  # the captured graph's outputs
         self.record = None  # control.Record of the capture
-        self.capture_seconds = None
         # Per replay: kernel name -> (launches, launches by batch size).
         self.replay_launches: dict = {}
 
@@ -102,13 +100,11 @@ class StaticProgram:
         """Capture fn over the buffers (CUDA; after one eager run)."""
         if self.device.type != "cuda" or self.uses == 0:
             raise RuntimeError("StaticProgram.capture: needs one eager run on CUDA first")
-        t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         with withheld_launches(self.replay_launches), \
                 control.graph_capture(graph, self.device, self.pool) as record:
             self.out = self.fn(self.buffers)
         self.graph, self.record = graph, record
-        self.capture_seconds = time.perf_counter() - t0
         self.events[self.prefix + "capture"] += 1
 
     def replay(self) -> None:

@@ -201,30 +201,31 @@ class SlamEngine:
         the previous drain, then dispatch the new local maps' query (one
         query+insert program).  Corrections from closures resolved here
         are global, so registering the snapshots first is exact."""
-        self._unregistered = self.tracker.pop_keyframes()
-        local_maps = []
-        while self._unregistered:
-            local_maps.append(self._register_keyframe(self._unregistered.pop(0)))
-        if local_maps:
-            # The descriptors stay on the device: gather the batch's
-            # snapshot rows there for the relocalizer.
-            rows = torch.tensor([m.ring_row for m in local_maps], dtype=torch.int64,
-                                device=self.device)
-            desc = fused.gather_kf_desc(self.tracker.state.kf_desc, rows,
-                                        out_cap=self.relocalizer.QUERY_CAP)
-            for i, m in enumerate(local_maps):
-                m.desc_dev = desc[i]
-        if self.tracker.take_drained():
-            self._resolve_inflight()
-        if not local_maps:
-            return
-        if self.open_loop:
-            for m in local_maps:
-                self.relocalizer.add_local_map(m)
-            return
-        with log.measure("relocalization"):
-            handles = self.relocalizer.submit_batch(local_maps)
-            self._inflight_queries.extend(h for h in handles if h is not None)
+        with log.measure("keyframe_events"):
+            self._unregistered = self.tracker.pop_keyframes()
+            local_maps = []
+            while self._unregistered:
+                local_maps.append(self._register_keyframe(self._unregistered.pop(0)))
+            if local_maps:
+                # The descriptors stay on the device: gather the batch's
+                # snapshot rows there for the relocalizer.
+                rows = torch.tensor([m.ring_row for m in local_maps], dtype=torch.int64,
+                                    device=self.device)
+                desc = fused.gather_kf_desc(self.tracker.state.kf_desc, rows,
+                                            out_cap=self.relocalizer.QUERY_CAP)
+                for i, m in enumerate(local_maps):
+                    m.desc_dev = desc[i]
+            if self.tracker.take_drained():
+                self._resolve_inflight()
+            if not local_maps:
+                return
+            if self.open_loop:
+                for m in local_maps:
+                    self.relocalizer.add_local_map(m)
+                return
+            with log.measure("relocalization"):
+                handles = self.relocalizer.submit_batch(local_maps)
+                self._inflight_queries.extend(h for h in handles if h is not None)
 
     def _resolve_inflight(self):
         """Resolve the in-flight work in one device-to-host copy: ICP

@@ -38,7 +38,6 @@ same tail per frame; make_track_step's TrackProgram replays that tail.
 
 from __future__ import annotations
 
-import time
 from collections import Counter
 from typing import NamedTuple
 
@@ -698,7 +697,6 @@ class _Program:
         self.motion = torch.full((), bool(motion_model_on), dtype=torch.bool, device=dev)
         self.graph = None
         self.frames = 0  # frames run
-        self.capture_seconds = None
         self.record = None  # control.Record of the capture
         # Per replay: kernel name -> (launches, launches by batch size).
         self.replay_launches: dict[str, tuple[int, Counter]] = {}
@@ -717,13 +715,11 @@ class _Program:
         if self.device.type != "cuda" or self.frames == 0:
             raise RuntimeError(f"{type(self).__name__}.capture: needs one eager frame on "
                                "CUDA first")
-        t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         with withheld_launches(self.replay_launches), \
                 control.graph_capture(graph, self.device) as record:
             self._body()
         self.record = record
-        self.capture_seconds = time.perf_counter() - t0
         self.graph = graph
         EVENTS["capture"] += 1
 

@@ -29,6 +29,7 @@ from vslam_tpu_torch.mapping import landmarks as lm_mod
 from vslam_tpu_torch.ops import camera as cam_ops
 from vslam_tpu_torch.solve import gn
 from vslam_tpu_torch.tracking import fused, modular
+from vslam_tpu_torch.utils import log
 from vslam_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 LOCALIZING = "Localizing"
@@ -548,6 +549,9 @@ class FusedPoseTracker:
         # old world frame and get C at harvest.
         self._pending_corrections: list[tuple[int, np.ndarray]] = []
         self._drained = False  # a drain ran since take_drained()
+        # (clock, log.chronometers.outer_seconds) when the last drain's ring
+        # read returned; None once the next replay is queued.
+        self._ring_read_at = None
         self._last_pose = np.eye(4, dtype=np.float32)
         self._last_status = LOCALIZING
         # Frame indices where registration failed (track re-rooted).
@@ -652,7 +656,8 @@ class FusedPoseTracker:
                 # Replays back to back up to the next drain.
                 k = min(len(staged) - done, max(
                     1, self.harvest_every - (self._dispatched - self._harvested)))
-                self.program.run_chunk(staged[done:done + k], k)
+                with self._enqueuing():
+                    self.program.run_chunk(staged[done:done + k], k)
                 self._dispatched += k
                 done += k
                 if self._dispatched - self._harvested >= self.harvest_every:
@@ -713,18 +718,31 @@ class FusedPoseTracker:
         self._buf, self._odom_buf = [], []
         self._hold_program()
         front = fused.chunk_front_end(self.cam, self.params, self._chunk_threshold, imgs)
-        for i in range(k):
-            self.program.run(front, imgs, i, None if odom is None else odom[i])
+        with self._enqueuing():
+            for i in range(k):
+                self.program.run(front, imgs, i, None if odom is None else odom[i])
         self._dispatched += k
         if self._dispatched - self._harvested >= self.harvest_every:
             self._drain()
 
     def _step(self, imgs: torch.Tensor, odometry):
         self._hold_program()
-        self.program.run(imgs, self._odometry(odometry) if self.odometry_on else None)
+        with self._enqueuing():
+            self.program.run(imgs, self._odometry(odometry) if self.odometry_on else None)
         self._dispatched += 1
         if self._dispatched - self._harvested >= self.harvest_every:
             self._drain()
+
+    def _enqueuing(self):
+        """The `tracker_enqueue` stage around queueing frames' replays;
+        the host gap since the last drain's ring read ends here."""
+        if self._ring_read_at is not None:
+            t, outer = self._ring_read_at
+            chrono = log.chronometers
+            chrono.add("tracker_host_gap", time.perf_counter() - t,
+                       chrono.outer_seconds - outer)
+            self._ring_read_at = None
+        return log.measure("tracker_enqueue")
 
     def take_drained(self) -> bool:
         """Whether a drain ran since the last call (the engine resolves its
@@ -747,7 +765,9 @@ class FusedPoseTracker:
         if upto == self._harvested:
             return
         assert upto - self._harvested <= self.params.ring_size
-        ring = self.state.ring.cpu().numpy()
+        with log.measure("tracker_drain_wait"):
+            ring = self.state.ring.cpu().numpy()
+        self._ring_read_at = (time.perf_counter(), log.chronometers.outer_seconds)
         s = self.stats
         kf_total = self._kf_harvested
         for fi in range(self._harvested, upto):
