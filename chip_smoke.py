@@ -6,7 +6,8 @@ Phases (each raises on failure; the exit code is then non-zero):
   1. device  — require CUDA; print torch / CUDA versions and the card's
                name and power limit (nvidia-smi);
   2. build   — compile K1 (csrc/fast_brief_frontend.cu), the dense
-               BRIEF kernel behind K2/K3/K4 (csrc/dense_brief.cu) and the
+               BRIEF kernel behind K2/K3/K4 (csrc/dense_brief.cu), the
+               staged FAST detector's kernel (csrc/fast_cells.cu) and the
                conditional graph nodes (csrc/graph_cond.cu: WHILE and IF
                nodes under capture, ops/control.py) with nvcc, and the PNG
                decoder's host unfilter (csrc/png_unfilter.cpp) with g++,
@@ -28,6 +29,14 @@ Phases (each raises on failure; the exit code is then non-zero):
                uniform-random pair: bit-equal to the plain version over
                the whole image; one case against the CPU; times as for K1
                (K3 at both shapes);
+  4b. fast-cells — the staged detector's kernel (FAST score, NMS, border
+               mask, per-cell argmax) vs its plain version on the card at
+               both pyramid levels of a KITTI pair (2x376x1241, 2x188x620:
+               rendered, uniform-random, three grey levels) and a ragged
+               3x37x53 stack, arc lengths 9 and 12, thresholds {5, 20,
+               100}, (border, bin) (20, 16), (3, 16), (0, 24): every cell
+               bit-equal; one case against the CPU; times at both levels
+               as for K1;
   5. K2'     — the band-size / input-type probe: the same kernel at
                (64, 376, 1241) with 8-, 16-, 32- and 64-row bands, f32 and
                bf16 input, each bit-equal to its plain version; times;
@@ -41,7 +50,8 @@ Phases (each raises on failure; the exit code is then non-zero):
                   +-15% of the JAX engine's on a CPU;
                b. configuration_kitti.yaml (2 octaves, BRIEF256) on the
                   first 32 frames of a 64-frame 13 m circle (phase 12 runs
-                  all 64 from disk); K2 32, K3 64, K1 and K4 0 launches,
+                  all 64 from disk); K2 32, K3 64, the staged detector
+                  64, K1 and K4 0 launches,
                   0 breaks, ATE <= 0.05 m, local maps within +-15% of the
                   JAX engine's on a CPU;
                c. configuration_euroc.yaml (BRIEF256R) at EuRoC's 752x480
@@ -675,6 +685,57 @@ def phase_dense(kitti_frame, card):
     return out
 
 
+def phase_fast_cells(kitti_frame, card):
+    """Phase 4b: the staged detector's kernel against its plain version,
+    every cell bit-equal; its times at both pyramid levels of a KITTI
+    pair (bin 16, border 20, threshold 20: ProSLAM's KITTI settings)."""
+    from vslam_tpu_torch.frontend import detect
+    from vslam_tpu_torch.frontend import kernel_timing as kt
+
+    rng = np.random.default_rng(4)
+    pair = torch.from_numpy(np.stack(kitti_frame).astype(np.uint8).astype(np.float32)).cuda()
+    level1 = detect.downsample2(pair)
+    uniform = torch.from_numpy(np.round(rng.uniform(0, 255, (2, 376, 1241)))
+                               .astype(np.float32)).cuda()
+    stacks = {
+        "rendered 2x376x1241": pair, "rendered 2x188x620": level1,
+        "uniform 2x376x1241": uniform, "uniform 2x188x620": detect.downsample2(uniform),
+        "3 grey levels 2x188x620": torch.from_numpy(
+            rng.integers(0, 3, (2, 188, 620)).astype(np.float32) * 40).cuda(),
+        "uniform 3x37x53": torch.from_numpy(np.round(rng.uniform(0, 255, (3, 37, 53)))
+                                            .astype(np.float32)).cuda(),
+    }
+    n_cases = 0
+    for name, x in stacks.items():
+        for arc in (9, 12):
+            for thr in (5.0, 20.0, 100.0):
+                t = torch.tensor(thr, device="cuda")
+                for border, bin_size in ((20, 16), (3, 16), (0, 24)):
+                    got = detect.fast_cells(x, t, arc_len=arc, border=border, bin_size=bin_size)
+                    ref = detect.fast_cells_reference(x, t, arc, border, bin_size)
+                    for what, a, b in zip(("cell_score", "cell_best"), got, ref):
+                        _require_equal(f"fast_cells {what} ({name}, arc {arc}, threshold "
+                                       f"{thr}, border {border}, bin {bin_size})", a, b)
+                    n_cases += 1
+    torch.cuda.synchronize()
+    t = torch.tensor(20.0)
+    for a, b in zip(detect.fast_cells(pair, t.cuda()), detect.fast_cells(pair.cpu(), t)):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError("fast_cells on the card differs from the plain version on "
+                                 "the CPU")
+    print(f"[fast-cells] every cell bit-equal to the plain version in {n_cases} cases "
+          f"({len(stacks)} stacks x 2 arc lengths x 3 thresholds x 3 (border, bin)) + 1 case "
+          f"against the CPU")
+    t = torch.tensor(20.0, device="cuda")
+    out = {}
+    for label, x in (("fast_cells", pair), ("fast_cells level 1", level1)):
+        out[label] = {"max_abs_err": 0.0, "shape": "x".join(map(str, x.shape)), **timed(
+            lambda x=x: detect.fast_cells(x, t), lambda x=x: detect.fast_cells_reference(x, t),
+            kt.fast_cells_work(*x.shape, 16), x.numel(), kt.FAST_CELLS_TAPS, card,
+            f"[fast-cells] median over 20 runs at {'x'.join(map(str, x.shape))}")}
+    return out
+
+
 def phase_k2_probe(card):
     """K2's band-size / input-type probe at (64, 376, 1241)."""
     from vslam_tpu_torch.frontend import dense_brief as db
@@ -820,7 +881,8 @@ def phase_kitti_config(card):
     gt, frames = kitti_world(cam, KITTI_SLICE_FRAMES)
     print(f"[kitti-config] the JAX engine on a CPU: {JAX_CPU_KITTI_CONFIG}")
     return drive_slice("kitti-config", cam, kitti_config(load_config), gt, frames,
-                       {"K1": 0, "K2": KITTI_SLICE_FRAMES, "K3": 2 * KITTI_SLICE_FRAMES, "K4": 0},
+                       {"K1": 0, "K2": KITTI_SLICE_FRAMES, "K3": 2 * KITTI_SLICE_FRAMES, "K4": 0,
+                        "fast_cells": 2 * KITTI_SLICE_FRAMES},
                        within_15_percent(JAX_CPU_KITTI_CONFIG["n_local_maps"]),
                        KITTI_CPU_FRAMES, card)
 
@@ -955,7 +1017,7 @@ def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card_before, card
         print(f"[{label}] {rep['n_ba_runs']} BA runs; (P cameras, L landmarks) of each "
               f"problem, true and padded: {sizes}")
     icp_check(label, icp_events, drains, card)
-    if counts != {"K1": n, "K2": 0, "K3": 0, "K4": 0}:
+    if counts != {"K1": n, "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0}:
         raise AssertionError(f"{label}: launches {counts}, expected {n} K1 only")
     if rep["n_track_breaks"] != 0:
         raise AssertionError(f"{label}: {rep['n_track_breaks']} tracking breaks")
@@ -1174,7 +1236,7 @@ def phase_modular_closed(cam, cfg, world, frames, card):
         print(f"[{label}] tracker stage {stage:12s} {sec:8.4f} s")
     replay_checks(label, progs.programs, lambda: [*progs.table, *progs.prev, *progs.cur,
                                                   progs.T_cur_prev, progs.prev_to_cur], card)
-    if counts != {"K1": n, "K2": 0, "K3": 0, "K4": 0}:
+    if counts != {"K1": n, "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0}:
         raise AssertionError(f"{label}: launches {counts}, expected {n} K1 only")
     if rep["n_track_breaks"] != 0:
         raise AssertionError(f"{label}: {rep['n_track_breaks']} tracking breaks")
@@ -1276,7 +1338,7 @@ def phase_modular_configs(closed, card):
     cfg.tracking.use_fused_tracker = False
     print(f"[modular kitti-config] the JAX (fused) engine on a CPU: {JAX_CPU_KITTI_CONFIG}")
     kitti = drive_slice("modular kitti-config", cam, cfg, gt, frames,
-                        {"K1": 0, "K2": n, "K3": 2 * n, "K4": 0},
+                        {"K1": 0, "K2": n, "K3": 2 * n, "K4": 0, "fast_cells": 2 * n},
                         within_15_percent(JAX_CPU_KITTI_CONFIG["n_local_maps"]),
                         KITTI_CPU_FRAMES, card)
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1286,7 +1348,7 @@ def phase_modular_configs(closed, card):
     gt, frames = tum_world(cam, TUM_FRAMES, n)
     print(f"[modular tum-config] the JAX (fused) engine on a CPU: {JAX_CPU_TUM}")
     tum = drive_slice("modular tum-config", cam, cfg, gt, frames,
-                      {"K1": 0, "K2": 0, "K3": n, "K4": 0},
+                      {"K1": 0, "K2": 0, "K3": n, "K4": 0, "fast_cells": n},
                       within_15_percent(JAX_CPU_TUM["n_local_maps"]), TUM_CPU_FRAMES, card)
     query_checks(closed, card)
     return {k: kitti[k] + tum[k] for k in kitti}
@@ -1304,7 +1366,8 @@ def phase_tum(card):
     gt, frames = tum_world(cam, TUM_FRAMES, TUM_CONFIG_FRAMES)
     print(f"[tum-config] the JAX engine on a CPU: {JAX_CPU_TUM}")
     return drive_slice("tum-config", cam, cfg, gt, frames,
-                       {"K1": 0, "K2": 0, "K3": TUM_CONFIG_FRAMES, "K4": 0},
+                       {"K1": 0, "K2": 0, "K3": TUM_CONFIG_FRAMES, "K4": 0,
+                        "fast_cells": TUM_CONFIG_FRAMES},
                        within_15_percent(JAX_CPU_TUM["n_local_maps"]), TUM_CPU_FRAMES, card)
 
 
@@ -1328,13 +1391,14 @@ def phase_xtion(card):
     gt, frames = tum_world(cam, XTION_CIRCLE_FRAMES, XTION_FRAMES)
     print(f"[xtion-config] the JAX engine on a CPU: {JAX_CPU_XTION}")
     return drive_slice("xtion-config", cam, cfg, gt, frames,
-                       {"K1": 0, "K2": 0, "K3": 0, "K4": 0},
+                       {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "fast_cells": XTION_FRAMES},
                        within_15_percent(JAX_CPU_XTION["n_local_maps"]), TUM_CPU_FRAMES, card)
 
 
 # The kernels' symbols in their sources: K1's, and the one dense-BRIEF
 # kernel that K2, K3 and K4 launch with different tables.
-KERNEL_SYMBOLS = {"K1": "fast_brief_tile_kernel", "K2-K4": "dense_brief_kernel"}
+KERNEL_SYMBOLS = {"K1": "fast_brief_tile_kernel", "K2-K4": "dense_brief_kernel",
+                  "fast_cells": "fast_cells_kernel"}
 
 
 def profiled_replays(label, prog, inputs):
@@ -1357,7 +1421,8 @@ def profiled_replays(label, prog, inputs):
     kernels = [e for e in prof.profiler.kineto_results.events()
                if e.device_type() == torch.autograd.DeviceType.CUDA]
     seen = {k: sum(sym in e.name() for e in kernels) for k, sym in KERNEL_SYMBOLS.items()}
-    want = {"K1": added["K1"], "K2-K4": added["K2"] + added["K3"] + added["K4"]}
+    want = {"K1": added["K1"], "K2-K4": added["K2"] + added["K3"] + added["K4"],
+            "fast_cells": added["fast_cells"]}
     if seen != want or not kernels:
         raise AssertionError(f"[{label}] {len(inputs)} replays ran {seen} kernels by name, "
                              f"the counters added {want}")
@@ -1752,7 +1817,8 @@ def phase_detectors(kitti_frame, card):
     gt, frames = kitti_world(cam, KITTI_SLICE_FRAMES)
     print(f"[kitti-dog] the JAX engine on a CPU: {JAX_CPU_KITTI_DOG}")
     drive_slice("kitti-dog", cam, cfg, gt, frames,
-                {"K1": 0, "K2": KITTI_SLICE_FRAMES, "K3": 2 * KITTI_SLICE_FRAMES, "K4": 0},
+                {"K1": 0, "K2": KITTI_SLICE_FRAMES, "K3": 2 * KITTI_SLICE_FRAMES, "K4": 0,
+                 "fast_cells": 0},
                 within_15_percent(JAX_CPU_KITTI_DOG["n_local_maps"]), KITTI_CPU_FRAMES, card)
 
 
@@ -1760,6 +1826,7 @@ def phase_build(card) -> dict:
     """Both nvcc builds at once; per kernel: blocks per SM and the shared
     loads of one pixel (the loads in its pixel loop, from the SASS)."""
     from vslam_tpu_torch.frontend import dense_brief as db
+    from vslam_tpu_torch.frontend import detect
     from vslam_tpu_torch.frontend import fast_brief as fb
     from vslam_tpu_torch.frontend.cuda_build import loop_shared_loads
     from vslam_tpu_torch.io import image
@@ -1767,14 +1834,16 @@ def phase_build(card) -> dict:
 
     t0 = time.perf_counter()
     libraries = {"K1": fb.K1.library, "K2/K3/K4": db.KERNEL.library,
+                 "fast_cells": detect.FAST_CELLS.library,
                  "conditional nodes": control._library, "PNG unfilter (host)": image.UNFILTER}
     for lib in libraries.values():
         lib.start()  # one compiler per source, all at once
     image.UNFILTER.load()  # seconds; the nvcc builds go on meanwhile
     fb.K1.build()
     db.KERNEL.build()
+    detect.FAST_CELLS.build()
     control.library()
-    print(f"[build] the four libraries built in {time.perf_counter() - t0:.2f} s of wall time")
+    print(f"[build] the five libraries built in {time.perf_counter() - t0:.2f} s of wall time")
     for name, lib in libraries.items():
         print(f"[build] {name} ({lib.src.name})")
         for line in lib.build_log.splitlines():
@@ -1785,6 +1854,8 @@ def phase_build(card) -> dict:
     for name, table in (("K2", 0), ("K3", 0), ("K4", 6)):
         kernels[name] = (db.KERNEL.library, db.KERNEL.sass_name(table),
                          db.KERNEL.blocks_per_sm(dev, table))
+    kernels["fast_cells"] = (detect.FAST_CELLS.library, detect.FAST_CELLS.sass_name,
+                             detect.FAST_CELLS.blocks_per_sm(dev, 16))
     facts, sass = {}, {}
     for name, (lib, fn, blocks) in kernels.items():
         try:
@@ -1795,7 +1866,8 @@ def phase_build(card) -> dict:
         except (RuntimeError, OSError, subprocess.SubprocessError) as e:
             loads, why = None, str(e)
         facts[name] = {"blocks_per_sm": blocks, "lds_per_pixel": loads}
-        print(f"[build] {name}: {blocks} blocks of 256 threads per SM, "
+        print(f"[build] {name}: {blocks} blocks of 256 threads per SM"
+              f"{' at bin 16' if name == 'fast_cells' else ''}, "
               f"{loads if loads else 'null (' + why + ')'} shared loads a pixel ({card})")
     return facts
 
@@ -1940,7 +2012,8 @@ def phase_kitti_disk(tmp, card):
           f"with {n_vertices} vertices, factor graph "
           f"{os.path.getsize(os.path.join(out, 'factor_graph.g2o'))} bytes ({card})")
     check_run("kitti-disk", rep, metrics["ate_rmse_m"], (14, 18),
-              {"K1": 0, "K2": KITTI_CIRCLE_FRAMES, "K3": 2 * KITTI_CIRCLE_FRAMES, "K4": 0})
+              {"K1": 0, "K2": KITTI_CIRCLE_FRAMES, "K3": 2 * KITTI_CIRCLE_FRAMES, "K4": 0,
+               "fast_cells": 2 * KITTI_CIRCLE_FRAMES})
     if est.shape != (KITTI_CIRCLE_FRAMES, 4, 4) or conv.shape != est.shape:
         raise AssertionError(f"kitti-disk: trajectory files hold {est.shape}, {conv.shape}")
     if not np.abs(conv[:, :3, 3] - est[:, :3, 3]).max() <= 1e-5:
@@ -2015,7 +2088,7 @@ def phase_checkpoint(est, decoded, cam, gt, ckpt, save_s, card):
     if not err.max() <= CHECKPOINT_TOL_M or not rmse <= CHECKPOINT_ATE_M:
         raise AssertionError(f"checkpoint: resumed run {err.max():.4f} m from phase 12's, "
                              f"ATE {rmse:.4f} m")
-    if counts != {"K1": 0, "K2": n_after, "K3": 2 * n_after, "K4": 0}:
+    if counts != {"K1": 0, "K2": n_after, "K3": 2 * n_after, "K4": 0, "fast_cells": 2 * n_after}:
         raise AssertionError(f"checkpoint: launches {counts}")
     return counts
 
@@ -2066,7 +2139,7 @@ def phase_tum_disk(tmp, card):
     if metrics["n_poses"] != len(frames):
         raise AssertionError(f"tum-disk: {metrics['n_poses']} poses associated")
     check_run("tum-disk", rep, metrics["ate_rmse_m"], (18, 24),
-              {"K1": 0, "K2": 0, "K3": len(frames), "K4": 0})
+              {"K1": 0, "K2": 0, "K3": len(frames), "K4": 0, "fast_cells": len(frames)})
     return rep["run"]["kernel_launches"]
 
 
@@ -2132,7 +2205,7 @@ def phase_k1_split(cam, cfg, world, frames, card):
     print(f"[k1-split] the JAX engine on a CPU (chunks of {SPLIT_CHUNK}): {JAX_CPU_K1_SPLIT}")
     n = SPLIT_K1_FRAMES
     counts = drive_slice("k1-split", cam, split_config(cfg), world.poses[:n], frames[:n],
-                         {"K1": n // SPLIT_CHUNK, "K2": 0, "K3": 0, "K4": 0},
+                         {"K1": n // SPLIT_CHUNK, "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0},
                          within_15_percent(JAX_CPU_K1_SPLIT["n_local_maps"]),
                          CPU_CHECK_FRAMES, card, cpu_harvest=SPLIT_CHUNK)
     batches = BATCHES["k1-split"]
@@ -2184,7 +2257,8 @@ def phase_kitti_split(card):
     print(f"[kitti-split] the JAX engine on a CPU (chunks of {SPLIT_CHUNK}): "
           f"{JAX_CPU_KITTI_SPLIT}")
     counts = drive_slice("kitti-split", cam, split_config(kitti_config(load_config)), gt,
-                         frames, {"K1": 0, "K2": n // SPLIT_CHUNK, "K3": 2 * n, "K4": 0},
+                         frames, {"K1": 0, "K2": n // SPLIT_CHUNK, "K3": 2 * n, "K4": 0,
+                                  "fast_cells": 2 * (n // SPLIT_CHUNK)},
                          within_15_percent(JAX_CPU_KITTI_SPLIT["n_local_maps"]),
                          KITTI_CPU_FRAMES, card,
                          cpu_harvest=SPLIT_CHUNK)
@@ -2900,7 +2974,7 @@ def phase_bench(card):
         raise AssertionError("[bench] the timed runs replayed no pose-graph or no BA program")
     # Warm-up, closed, ba-closed, tracker only and device only one K1 a
     # frame; the split front-end one a chunk of 32 frames (B = 64).
-    want = {"K1": 5 * n + -(-n // SPLIT_CHUNK), "K2": 0, "K3": 0, "K4": 0}
+    want = {"K1": 5 * n + -(-n // SPLIT_CHUNK), "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0}
     if bench != want:
         raise AssertionError(f"[bench] launches {bench}, expected {want}")
 
@@ -2945,7 +3019,7 @@ def phase_bench(card):
             and out["closures_after_map_150"] > 0):
         raise AssertionError(f"[scale] ate_ok {out['ate_ok']}, {out['tracking_breaks']} "
                              f"breaks, {out['closures_after_map_150']} closures after map 150")
-    if scale["launches"] != {"K1": out["n_frames"], "K2": 0, "K3": 0, "K4": 0}:
+    if scale["launches"] != {"K1": out["n_frames"], "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0}:
         raise AssertionError(f"[scale] launches {scale['launches']}")
     return bench, scale["launches"]
 
@@ -2977,6 +3051,7 @@ def main():
     cam, cfg, world, frames = bench_setup()
     stats = {"K1": phase_k1(frames, card)}
     stats.update(phase_dense(frames[0], card))
+    stats.update(phase_fast_cells(frames[0], card))
     phase_k2_probe(card)
     mark(t_start, "device-program")
     program_launches = phase_device_program(cam, cfg, frames, card)
@@ -2985,7 +3060,7 @@ def main():
     print(f"[k1-slice] the JAX engine on a CPU: {JAX_CPU_K1_SLICE}")
     launches = drive_slice("k1-slice", cam, cfg, world.poses[:K1_SLICE_FRAMES],
                            frames[:K1_SLICE_FRAMES],
-                           {"K1": K1_SLICE_FRAMES, "K2": 0, "K3": 0, "K4": 0},
+                           {"K1": K1_SLICE_FRAMES, "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0},
                            within_15_percent(JAX_CPU_K1_SLICE["n_local_maps"]),
                            CPU_CHECK_FRAMES, card)
     launches = {k: launches[k] + program_launches[k] for k in launches}
@@ -3005,7 +3080,7 @@ def main():
     mark(t_start, "euroc-config, closed, ba-closed, modular-closed, modular configs")
     for counts in (
         config_slice("euroc-config", "euroc", EUROC_CAM, EUROC_FRAMES, EUROC_CIRCLE_FRAMES,
-                     4.0, {"K2": 1, "K4": 2 * db.N_ROT_BANKS},
+                     4.0, {"K2": 1, "K4": 2 * db.N_ROT_BANKS, "fast_cells": 2},
                      within_15_percent(JAX_CPU_EUROC["n_local_maps"]), 2, card),
         phase_closed_loop("closed", cam, closed_loop_config(cfg), world, frames,
                           JAX_CPU_CLOSED_LOOP, CARD_CLOSED, card, record=closed),
@@ -3036,6 +3111,9 @@ def main():
                       "vslam_tpu/frontend/pallas_frontend.py:196")}
     for name, entry in (("K2", db.K2), ("K3", db.K3), ("K4", db.K4)):
         sources[name] = (entry.name, "dense_brief.cu", entry.replaces)
+    sources["fast_cells"] = ("fast_cells", "fast_cells.cu",
+                             "none: XLA in vslam_tpu/frontend/detect.py (fast_score_map, "
+                             "nms3, keypoints_from_score's per-cell argmax)")
     kernels = [{
         "name": fn,
         "route": "cuda",
@@ -3048,6 +3126,11 @@ def main():
         **stats[k],
         **facts[k],
     } for k, (fn, src, replaces) in sources.items()]
+    # The staged detector at pyramid level 1, an entry of its own.
+    fn, src, replaces = sources["fast_cells"]
+    kernels.append({"name": f"{fn} (level 1)", "route": "cuda",
+                    "source": f"vslam_tpu_torch/csrc/{src}", "replaces": replaces,
+                    "library_ms": None, **stats["fast_cells level 1"], **facts["fast_cells"]})
     # The split front-end's chunk-sized launches (phases 15-16), their own
     # entries: launches at that shape, its times and bound.
     for k, rec in chunk_stats.items():

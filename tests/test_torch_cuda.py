@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from vslam_tpu_torch.frontend import dense_brief as db
+from vslam_tpu_torch.frontend import detect
 from vslam_tpu_torch.frontend import fast_brief as fb
 from vslam_tpu_torch.eval import trajectory as traj_eval
 from vslam_tpu_torch.io import synthetic
@@ -110,6 +111,61 @@ def test_dense_kernel_tiling_edges_match_plain_version(shape):
             x = sm.to(dtype).contiguous()
             assert torch.equal(db.KERNEL.launch(x, 0, band),
                                db.dense_bit_planes_reference(x, 0)), (band, dtype)
+
+
+# The staged detector's kernel: both pyramid levels of a KITTI frame, a
+# ragged shape, tiles thinner than the halo, and one with no whole cell
+# at bin 24.
+FAST_CELL_SHAPES = [(2, 376, 1241), (2, 188, 620), (1, 100, 213), (3, 37, 53), (2, 20, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FAST_CELL_SHAPES)
+@pytest.mark.parametrize("bin_size", [16, 24])
+def test_fast_cells_kernel_matches_plain_version(shape, bin_size):
+    """Every cell's (score, first best index) bit-equal to the plain
+    version, at arc 9 / 12, borders 0 / 3 / 20 and thresholds 5 / 20 /
+    100; one launch at batch B a call that has cells, none otherwise."""
+    _need_card()
+    imgs = _uint8_valued(shape, bin_size).cuda()
+    B, H, W = shape
+    has_cells = H >= bin_size and W >= bin_size
+    n0, b0 = detect.FAST_CELLS.launches, detect.FAST_CELLS.batches[B]
+    calls = 0
+    for arc_len in (9, 12):
+        for border in (0, 3, 20):
+            for thr in (5.0, 20.0, 100.0):
+                t = torch.tensor(thr, device="cuda")
+                got = detect.fast_cells(imgs, t, arc_len=arc_len, border=border,
+                                        bin_size=bin_size)
+                ref = detect.fast_cells_reference(imgs, t, arc_len, border, bin_size)
+                for name, a, b in zip(("cell_score", "cell_best"), got, ref):
+                    assert a.dtype == b.dtype and torch.equal(a, b), (name, arc_len, border, thr)
+                calls += 1
+    torch.cuda.synchronize()
+    assert detect.FAST_CELLS.launches - n0 == (calls if has_cells else 0)
+    assert detect.FAST_CELLS.batches[B] - b0 == (calls if has_cells else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bin_size", [8, 13, 32, 128])
+def test_fast_cells_on_the_card_equal_the_cpu(bin_size):
+    """Other bin sizes, ties everywhere (3 grey levels), against the
+    plain version on the CPU; and detect_keypoints over a stack at 3
+    octaves equal to the CPU's image by image."""
+    _need_card()
+    rng = np.random.default_rng(bin_size)
+    imgs = torch.from_numpy(rng.integers(0, 3, (2, 150, 333)).astype(np.float32) * 40)
+    t = torch.tensor(20.0)
+    got = detect.fast_cells(imgs.cuda(), t.cuda(), arc_len=9, border=5, bin_size=bin_size)
+    for a, b in zip(got, detect.fast_cells(imgs, t, arc_len=9, border=5, bin_size=bin_size)):
+        assert torch.equal(a.cpu(), b)
+    img = _uint8_valued((2, 150, 333), 1)
+    kc = detect.detect_keypoints(img.cuda(), t.cuda(), bin_size, 256, 20, "FAST12", octaves=3)
+    for b in range(2):
+        kp = detect.detect_keypoints(img[b], t, bin_size, 256, 20, "FAST12", octaves=3)
+        for name, a, c in zip(kp._fields, kc, kp):
+            assert torch.equal(a[b].cpu(), c), name
 
 
 @pytest.mark.cuda
@@ -316,9 +372,9 @@ def test_bundle_adjustment_on_the_card_matches_the_cpu():
 
 @pytest.mark.cuda
 def test_depth_frame_on_the_card_matches_the_cpu():
-    """process_depth_frame at 192 x 320 (K3 once): keypoints, descriptors,
-    validity, uv4, the counts and the planes equal on both devices, p_cam
-    within rtol 1e-6."""
+    """process_depth_frame at 192 x 320 (K3 once, the staged detector
+    once at B = 1): keypoints, descriptors, validity, uv4, the counts and
+    the planes equal on both devices, p_cam within rtol 1e-6."""
     _need_card()
     from vslam_tpu_torch.mapping import frame
 
@@ -328,12 +384,13 @@ def test_depth_frame_on_the_card_matches_the_cpu():
     img, depth = synthetic.render_depth_frame(world, 4)
     outs = {}
     for device in ("cuda", "cpu"):
-        before = db.K3.launches
+        before, cells_before = db.K3.launches, detect.FAST_CELLS.batches[1]
         outs[device] = frame.process_depth_frame(
             cam_ops.to_device(cam, device), torch.from_numpy(img).to(device),
             torch.from_numpy(depth).to(device), torch.tensor(12.0, device=device), 0.3, 30.0,
             capacity=256, bin_size=10, want_planes=True)
         assert db.K3.launches - before == (1 if device == "cuda" else 0)
+        assert detect.FAST_CELLS.batches[1] - cells_before == (1 if device == "cuda" else 0)
     (fg, *rest_g), (fc, *rest_c) = outs["cuda"], outs["cpu"]
     for name in ("uv4", "desc", "valid", "reliable", "track_len", "landmark_slot"):
         assert torch.equal(getattr(fg, name).cpu(), getattr(fc, name)), name
@@ -405,8 +462,8 @@ def test_cli_run_on_a_kitti_directory_on_the_card(tmp_path):
         est[device] = traj_eval.read_kitti(str(out / "est.txt"))
         assert rep["run"]["device"].startswith(device)
         assert rep["run"]["kernel_launches"] == (
-            {"K1": 4, "K2": 0, "K3": 0, "K4": 0} if device == "cuda"
-            else {"K1": 0, "K2": 0, "K3": 0, "K4": 0})
+            {"K1": 4, "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0} if device == "cuda"
+            else {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0})
     assert est["cuda"].shape == (4, 4, 4) and np.isfinite(est["cuda"]).all()
     assert np.abs(est["cuda"][:, :3, 3] - est["cpu"][:, :3, 3]).max() <= 1e-3
 
@@ -415,8 +472,9 @@ def test_cli_run_on_a_kitti_directory_on_the_card(tmp_path):
 @pytest.mark.parametrize("route", ["k1", "staged"])
 def test_split_chunk_front_end_on_the_card_matches_the_cpu(route):
     """frame.frontend_chunk over 4 frames at 192 x 512: one K1 launch at
-    B = 8 (route k1) or one K2 launch at B = 8 (staged, 2 octaves), and
-    every output equal to the CPU's; p_cam within rtol 1e-6."""
+    B = 8 (route k1) or one K2 launch at B = 8 and one staged-detector
+    launch a level at B = 8 (staged, 2 octaves), and every output equal
+    to the CPU's; p_cam within rtol 1e-6."""
     _need_card()
     from vslam_tpu_torch.mapping import frame
 
@@ -431,10 +489,13 @@ def test_split_chunk_front_end_on_the_card_matches_the_cpu(route):
     for device in ("cuda", "cpu"):
         fb.K1.batches.clear()
         db.K2.batches.clear()
+        detect.FAST_CELLS.batches.clear()
         outs[device] = frame.frontend_chunk(cam_ops.to_device(cam, device), chunk.to(device),
                                             torch.tensor(15.0, device=device), **kw)
         if device == "cuda":
             assert (fb.K1.batches if route == "k1" else db.K2.batches) == {8: 1}
+            # The staged detector: one launch a pyramid level over the 8 images.
+            assert detect.FAST_CELLS.batches == ({} if route == "k1" else {8: 2})
     (fg, *rest_g), (fc, *rest_c) = outs["cuda"], outs["cpu"]
     for name in ("uv4", "desc", "valid", "reliable", "track_len", "landmark_slot"):
         assert torch.equal(getattr(fg, name).cpu(), getattr(fc, name)), name

@@ -100,6 +100,34 @@ def test_detect_keypoints_is_exact(detector, octaves, bin_size):
     assert int(want.valid.sum()) > 60
 
 
+@pytest.mark.parametrize("batch", [1, 2, 4])
+@pytest.mark.parametrize("detector", ["FAST", "FAST12"])
+@pytest.mark.parametrize("bin_size", [16, 24])
+def test_batched_detection_matches_per_image_and_jax(batch, detector, bin_size):
+    """detect_keypoints over a (B, H, W) stack (one fast_cells call a
+    level: on the CPU its plain version) equals the per-image call and
+    JAX's detector image by image, at 1-3 octaves and borders 0 / 3 / 20,
+    on a ragged 100 x 213 shape (no dimension a multiple of the bins)."""
+    imgs = np.stack([_random((100, 213), 10 * batch + b) for b in range(batch)])
+    thr = 12.0 if detector == "FAST" else 8.0
+    stack = torch.from_numpy(imgs)
+    for octaves in (1, 2, 3):
+        for border in (0, 3, 20):
+            args = (bin_size, 200, border, detector)
+            got = tdet.detect_keypoints(stack, torch.tensor(thr), *args, octaves=octaves)
+            for b in range(batch):
+                one = tdet.detect_keypoints(stack[b], torch.tensor(thr), *args, octaves=octaves)
+                want = jdet.detect_keypoints(jnp.asarray(imgs[b]), jnp.float32(thr), *args,
+                                             octaves=octaves)
+                for name in ("uv", "score", "valid", "octave"):
+                    g = getattr(got, name)[b].numpy()
+                    np.testing.assert_array_equal(g, getattr(one, name).numpy(), err_msg=name)
+                    np.testing.assert_array_equal(g, np.asarray(getattr(want, name)),
+                                                  err_msg=f"{name} octaves {octaves} "
+                                                          f"border {border}")
+                assert int(want.valid.sum()) > 20
+
+
 def test_pyramid_helpers_match_jax():
     img = _random((75, 131), 3)
     np.testing.assert_array_equal(tdet.downsample2(torch.from_numpy(img)).numpy(),

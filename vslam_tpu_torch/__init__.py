@@ -6,9 +6,10 @@ obvious counterpart:
   ops/       SE(3), pinhole stereo camera, packed-descriptor Hamming
   solve/     closed-form small solves + the analytic stereo-UV pose solver
   frontend/  the fused FAST/BRIEF front-end (hand-written CUDA kernel K1),
-             the staged one (FAST pyramid, dense BRIEF-256 and rotated
-             BRIEF-256R on the dense BRIEF kernel K2/K3/K4), each kernel
-             with its plain-torch version; stereo / projective matching
+             the staged one (FAST pyramid on the kernel fast_cells, dense
+             BRIEF-256 and rotated BRIEF-256R on the dense BRIEF kernel
+             K2/K3/K4), each kernel with its plain-torch version; stereo /
+             projective matching
   mapping/   frame state, landmark table, local maps, world map
   tracking/  the per-frame tracker step and the host-side tracker
   system/    SlamEngine (open-loop slice)

@@ -18,7 +18,8 @@
 // toward that floor:
 //  * Taps as immediates: the 256 compares come from brief_core.cuh with
 //    the pattern as compile-time constants, each distinct tap loaded once
-//    per pixel; the FAST ring's offsets are constants too.
+//    per pixel; the FAST ring's offsets are constants too (fast_core.cuh,
+//    shared with the staged detector's kernel, fast_cells.cu).
 //  * Occupancy: a block makes 32 x 64 output pixels (two 16-row bins) from
 //    a 64 x 96 raw tile.  The blurred tile aliases the raw tile (dead once
 //    FAST and the row sums are done) and the band scores alias the row
@@ -45,9 +46,8 @@
 
 #include <cuda_runtime.h>
 
-#include <utility>
-
 #include "brief_core.cuh"
+#include "fast_core.cuh"
 
 namespace {
 
@@ -70,43 +70,6 @@ constexpr size_t SMEM_BYTES = sizeof(float) * (RAW_H * RAW_W + SM_H * RS_W + SC_
 static_assert(SM_H * SM_W <= RAW_H * RAW_W, "the blurred tile aliases the raw tile");
 static_assert(ROWS * TILE <= SM_H * RS_W, "the band scores alias the row sums");
 static_assert(ROWS * TILE % THREADS == 0 && TILE % 32 == 0, "whole warps per row");
-
-// Bresenham circle of radius 3, clockwise from 12 o'clock (detect.CIRCLE).
-constexpr int kRing[16][2] = {{-3, 0}, {-3, 1}, {-2, 2}, {-1, 3}, {0, 3}, {1, 3},
-                              {2, 2}, {3, 1}, {3, 0}, {3, -1}, {2, -2}, {1, -3},
-                              {0, -3}, {-1, -3}, {-2, -2}, {-3, -1}};
-
-__host__ __device__ constexpr int ring_offset(int k) {
-  return kRing[k][0] * RAW_W + kRing[k][1];
-}
-
-template <int K>
-__device__ __forceinline__ float ring_tap(const float* p) {
-  constexpr int o = ring_offset(K);
-  return p[o];
-}
-
-template <int... K>
-__device__ __forceinline__ void load_ring(const float* p, float (&v)[16],
-                                          std::integer_sequence<int, K...>) {
-  ((v[K] = ring_tap<K>(p)), ...);
-}
-
-// A cyclic run of >= arc_len set bits in the 16-bit ring mask m.
-__device__ __forceinline__ bool has_arc(unsigned m, int arc_len) {
-  const unsigned M = m | (m << 16);
-  unsigned a = M & (M >> 1);
-  a &= a >> 2;
-  a &= a >> 4;  // runs >= 8 starting at each bit
-  if (arc_len == 9) {
-    a &= M >> 8;
-  } else {  // FAST-12: bits i..i+7 and a run of 4 at i+8
-    unsigned a4 = M & (M >> 1);
-    a4 &= a4 >> 2;
-    a &= a4 >> 8;
-  }
-  return (a & 0xFFFFu) != 0u;
-}
 
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 fast_brief_tile_kernel(const float* __restrict__ img,   // (B, H, W)
@@ -138,23 +101,7 @@ fast_brief_tile_kernel(const float* __restrict__ img,   // (B, H, W)
   // FAST segment test + score on the raw image, rows -1..32, cols -1..64.
   for (int k = tid; k < SC_H * SC_W; k += THREADS) {
     const int i = k / SC_W, j = k - i * SC_W;
-    const float* p = raw + (i + PAD - 1) * RAW_W + (j + PAD - 1);
-    float v[16];
-    load_ring(p, v, std::make_integer_sequence<int, 16>{});
-    const float center = p[0];
-    const float hi = __fadd_rn(center, t);
-    const float lo = __fsub_rn(center, t);
-    unsigned mb = 0u, md = 0u;
-    float be = 0.0f, de = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < 16; ++kk) {
-      mb |= static_cast<unsigned>(v[kk] > hi) << kk;
-      md |= static_cast<unsigned>(v[kk] < lo) << kk;
-      be = __fadd_rn(be, fmaxf(__fsub_rn(v[kk], hi), 0.0f));
-      de = __fadd_rn(de, fmaxf(__fsub_rn(lo, v[kk]), 0.0f));
-    }
-    const bool corner = has_arc(mb, arc_len) || has_arc(md, arc_len);
-    sc[k] = corner ? fmaxf(be, de) : 0.0f;
+    sc[k] = fast::corner_score<RAW_W>(raw + (i + PAD - 1) * RAW_W + (j + PAD - 1), t, arc_len);
   }
   // Box blur, rows: rs[i][j] = sum_{d=0..4} raw(r-2+d, c), ascending.
   for (int k = tid; k < SM_H * RS_W; k += THREADS) {

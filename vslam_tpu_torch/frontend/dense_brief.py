@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from vslam_tpu_torch.frontend.cuda_build import CSRC, CudaLibrary
+from vslam_tpu_torch.frontend.detect import FAST_CELLS
 from vslam_tpu_torch.frontend.fast_brief import K1, PATTERN, pack_brief_words
 from vslam_tpu_torch.frontend.orb import PATTERN_RADIUS, _make_pattern
 
@@ -276,5 +277,6 @@ def dense_bit_planes_pattern(smooth: torch.Tensor, bank: int) -> torch.Tensor:
 
 
 def kernel_counters() -> dict:
-    """The launch counter of every kernel wrapper of the port, by kernel."""
-    return {"K1": K1, "K2": K2, "K3": K3, "K4": K4}
+    """The launch counter of every kernel wrapper of the port, by kernel
+    (fast_cells: the staged FAST detector, detect.fast_cells)."""
+    return {"K1": K1, "K2": K2, "K3": K3, "K4": K4, "fast_cells": FAST_CELLS}

@@ -6,7 +6,11 @@ mask -> per-cell argmax over a bin_size grid -> global top-K to a fixed
 capacity, per pyramid octave, with coordinates mapped back to level 0.
 The detectors: FAST-9/16 and FAST-12 (AGAST maps onto FAST-9), Harris,
 Shi-Tomasi (GFTT), difference of Gaussians (DOG, also SIFT) and the
-nonlinear-diffusion KAZE (also AKAZE).
+nonlinear-diffusion KAZE (also AKAZE).  `detect_keypoints` takes one
+image or a (B, H, W) stack: each pyramid level is made once for the
+stack, and the FAST family's score, NMS, border mask and per-cell argmax
+are one launch of a level's whole stack on the card (`fast_cells`,
+csrc/fast_cells.cu); the float detectors score image by image.
 
 Exactness against the JAX package on the CPU: FAST is bit-exact.  The
 float detectors are not: XLA-CPU contracts and orders the blurs' sums in
@@ -19,40 +23,46 @@ own algorithm and, by default, TF32).
 
 from __future__ import annotations
 
+import ctypes
+from collections import Counter
+
 import numpy as np
 import torch
 
+from vslam_tpu_torch.frontend.cuda_build import CudaLibrary
 from vslam_tpu_torch.frontend.fast_brief import CIRCLE, Keypoints, _arc
 from vslam_tpu_torch.frontend.orb import box_blur
 
 ARC_LEN = 9
+# The FAST family and its arc lengths (AGAST scores as FAST-9).
+FAST_ARCS = {"FAST": 9, "FAST9": 9, "AGAST": 9, "FAST12": 12}
 
 
-def _shifted_stack(img: torch.Tensor) -> torch.Tensor:
-    """(H, W) -> (16, H, W): circle neighbour values per pixel, zero
-    outside the image."""
-    H, W = img.shape
+def _ring_taps(img: torch.Tensor) -> list:
+    """The 16 circle neighbours of every pixel of an (..., H, W) stack,
+    zero outside the image: views of one zero-padded copy."""
+    H, W = img.shape[-2:]
     p = torch.nn.functional.pad(img, (3, 3, 3, 3))
-    return torch.stack([p[3 + int(dr):3 + int(dr) + H, 3 + int(dc):3 + int(dc) + W]
-                        for dr, dc in CIRCLE])
+    return [p[..., 3 + int(dr):3 + int(dr) + H, 3 + int(dc):3 + int(dc) + W]
+            for dr, dc in CIRCLE]
 
 
 def fast_score_map(img: torch.Tensor, threshold: torch.Tensor,
                    arc_len: int = ARC_LEN) -> torch.Tensor:
-    """Per-pixel FAST-N/16 corner score (summed threshold excess of the
-    winning polarity, in ring order); 0 where not a corner."""
-    circ = _shifted_stack(img)
+    """Per-pixel FAST-N/16 corner score of an (H, W) image or a (B, H, W)
+    stack (summed threshold excess of the winning polarity, in ring
+    order); 0 where not a corner."""
     hi = img + threshold
     lo = img - threshold
     mb = torch.zeros(img.shape, dtype=torch.int64, device=img.device)
     md = torch.zeros_like(mb)
     bright = torch.zeros_like(img)
     dark = torch.zeros_like(img)
-    for kk in range(16):
-        mb = mb | ((circ[kk] > hi).to(torch.int64) << kk)
-        md = md | ((circ[kk] < lo).to(torch.int64) << kk)
-        bright = bright + torch.clamp(circ[kk] - hi, min=0.0)
-        dark = dark + torch.clamp(lo - circ[kk], min=0.0)
+    for kk, v in enumerate(_ring_taps(img)):
+        mb = mb | ((v > hi).to(torch.int64) << kk)
+        md = md | ((v < lo).to(torch.int64) << kk)
+        bright = bright + torch.clamp(v - hi, min=0.0)
+        dark = dark + torch.clamp(lo - v, min=0.0)
     corner = _arc(mb, arc_len) | _arc(md, arc_len)
     return torch.where(corner, torch.maximum(bright, dark), 0.0)
 
@@ -292,10 +302,8 @@ def score_map(img: torch.Tensor, threshold: torch.Tensor, detector: str) -> torc
     by detector_type): AGAST scores as FAST-9, SHI_TOMASI as GFTT, SIFT
     as DOG (io/config.py maps it) and AKAZE as KAZE."""
     d = detector.upper()
-    if d in ("FAST", "FAST9", "AGAST"):
-        return fast_score_map(img, threshold, arc_len=9)
-    if d == "FAST12":
-        return fast_score_map(img, threshold, arc_len=12)
+    if d in FAST_ARCS:
+        return fast_score_map(img, threshold, arc_len=FAST_ARCS[d])
     if d == "HARRIS":
         return harris_score_map(img, threshold)
     if d in ("GFTT", "SHI_TOMASI"):
@@ -309,18 +317,19 @@ def score_map(img: torch.Tensor, threshold: torch.Tensor, detector: str) -> torc
 
 
 def nms3(score: torch.Tensor) -> torch.Tensor:
-    """3x3 non-maximum suppression (the window is -inf outside the image)."""
-    neigh = torch.nn.functional.max_pool2d(score[None, None], 3, stride=1, padding=1)[0, 0]
+    """3x3 non-maximum suppression of an (H, W) map or a (B, H, W) stack
+    (the window is -inf outside the image)."""
+    x = score.reshape((-1, 1) + score.shape[-2:])
+    neigh = torch.nn.functional.max_pool2d(x, 3, stride=1, padding=1).reshape(score.shape)
     return torch.where(score >= neigh, score, 0.0)
 
 
-def keypoints_from_score(score: torch.Tensor, bin_size: int, capacity: int,
-                         border: int):
-    """Binning tail over an NMS'd score map: border mask -> per-cell
-    argmax (first index on ties: lowest row, then column) -> top-K cells
-    (lower cell index first on ties, as lax.top_k).  Returns (uv (K, 2)
-    f32 level-local [col, row], score (K,), valid (K,))."""
-    H, W = score.shape
+def cells_from_score(score: torch.Tensor, bin_size: int, border: int):
+    """Border mask and per-cell argmax over a (B, H, W) stack of NMS'd
+    score maps: (cell_score (B, cells) f32, cell_best (B, cells) int32)
+    over the (H // bin_size) x (W // bin_size) grid, row-major; a cell's
+    best is the first index (lowest row, then column) holding its max."""
+    B, H, W = score.shape
     dev = score.device
     rows = torch.arange(H, device=dev)[:, None]
     cols = torch.arange(W, device=dev)[None, :]
@@ -329,20 +338,28 @@ def keypoints_from_score(score: torch.Tensor, bin_size: int, capacity: int,
     score = torch.where(inside, score, 0.0)
 
     nr, nc = H // bin_size, W // bin_size
-    sc = (score[:nr * bin_size, :nc * bin_size]
-          .reshape(nr, bin_size, nc, bin_size).permute(0, 2, 1, 3)
-          .reshape(nr * nc, bin_size * bin_size))
-    cell_score = sc.amax(dim=1)
-    iota = torch.arange(bin_size * bin_size, device=dev)
-    cell_best = torch.where(sc >= cell_score[:, None], iota, bin_size * bin_size).amin(dim=1)
+    sc = (score[:, :nr * bin_size, :nc * bin_size]
+          .reshape(B, nr, bin_size, nc, bin_size).permute(0, 1, 3, 2, 4)
+          .reshape(B, nr * nc, bin_size * bin_size))
+    cell_score = sc.amax(dim=2)
+    iota = torch.arange(bin_size * bin_size, dtype=torch.int32, device=dev)
+    cell_best = torch.where(sc >= cell_score[..., None], iota, bin_size * bin_size).amin(dim=2)
+    return cell_score, cell_best
 
-    k = min(capacity, nr * nc)
-    top_score, top_cell = torch.sort(cell_score, descending=True, stable=True)
-    top_score, top_cell = top_score[:k], top_cell[:k]
-    best = cell_best[top_cell]
-    v = (top_cell // nc) * bin_size + best // bin_size
-    u = (top_cell % nc) * bin_size + best % bin_size
-    uv = torch.stack([u, v], dim=1).to(torch.float32)
+
+def keypoints_from_cells(cell_score: torch.Tensor, cell_best: torch.Tensor, cells_w: int,
+                         bin_size: int, capacity: int):
+    """Top-K cells of each image of a batch (lower cell index first on
+    ties, as lax.top_k: a stable descending sort) and their best pixels.
+    Returns (uv (B, K, 2) f32 level-local [col, row], score (B, K),
+    valid (B, K))."""
+    k = min(capacity, cell_score.shape[1])
+    top_score, top_cell = torch.sort(cell_score, dim=1, descending=True, stable=True)
+    top_score, top_cell = top_score[:, :k], top_cell[:, :k]
+    best = torch.gather(cell_best, 1, top_cell)
+    v = (top_cell // cells_w) * bin_size + best // bin_size
+    u = (top_cell % cells_w) * bin_size + best % bin_size
+    uv = torch.stack([u, v], dim=2).to(torch.float32)
     valid = top_score > 0.0
     if k < capacity:
         pad = capacity - k
@@ -352,18 +369,153 @@ def keypoints_from_score(score: torch.Tensor, bin_size: int, capacity: int,
     return uv, top_score, valid
 
 
-def _detect_level(img, threshold, bin_size, capacity, border, detector):
-    """Single level: score -> NMS -> per-bin argmax -> top-K."""
-    score = nms3(score_map(img, threshold, detector))
-    return keypoints_from_score(score, bin_size, capacity, border)
+def keypoints_from_score(score: torch.Tensor, bin_size: int, capacity: int,
+                         border: int):
+    """Binning tail over an NMS'd (H, W) score map: border mask -> per-cell
+    argmax (first index on ties: lowest row, then column) -> top-K cells
+    (lower cell index first on ties, as lax.top_k).  Returns (uv (K, 2)
+    f32 level-local [col, row], score (K,), valid (K,))."""
+    cell_score, cell_best = cells_from_score(score[None], bin_size, border)
+    uv, top_score, valid = keypoints_from_cells(cell_score, cell_best,
+                                                score.shape[1] // bin_size, bin_size, capacity)
+    return uv[0], top_score[0], valid[0]
+
+
+# ---------------------------------------------------------------------------
+# The FAST family's cells of a whole level: CUDA kernel and plain version
+# ---------------------------------------------------------------------------
+
+
+def fast_cells_reference(imgs: torch.Tensor, threshold: torch.Tensor, arc_len: int = ARC_LEN,
+                         border: int = 20, bin_size: int = 16):
+    """Plain version of the kernel, on any device: FAST score, 3x3 NMS,
+    border mask and per-cell argmax of every image of a (B, H, W) stack
+    (cells_from_score's outputs)."""
+    return cells_from_score(nms3(fast_score_map(imgs, threshold, arc_len)), bin_size, border)
+
+
+class FastCellsKernel:
+    """The built csrc/fast_cells.cu library plus its launch count.
+
+    `launches` goes up by one each time the CUDA kernel is launched, and
+    nowhere else (`batches` counts the same launches by batch size B);
+    `library` holds the build (log, seconds)."""
+
+    # The kernel's SASS function name (a substring of the mangled name).
+    sass_name = "fast_cells_kernel"
+    # Bin sizes the kernel takes (a block holds a strip of whole cells).
+    max_bin = 128
+
+    def __init__(self):
+        self.launches = 0
+        self.batches = Counter()
+        self.library = CudaLibrary("fast_cells.cu")
+
+    def build(self):
+        """Compile the kernel with nvcc (once per source version) and load it."""
+        lib = self.library.load()
+        fn = lib.fast_cells_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int])
+        lib.fast_cells_occupancy.restype = ctypes.c_int
+        lib.fast_cells_occupancy.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+        return lib
+
+    def blocks_per_sm(self, device: torch.device, bin_size: int = 16) -> int:
+        """Resident blocks of the kernel on one SM of `device` at `bin_size`."""
+        n = ctypes.c_int(0)
+        err = self.build().fast_cells_occupancy(bin_size, ctypes.byref(n), device.index)
+        if err != 0:
+            raise RuntimeError(f"FAST cells occupancy query failed: cudaError {err}")
+        return n.value
+
+    def launch(self, imgs: torch.Tensor, threshold: torch.Tensor, arc_len: int, border: int,
+               bin_size: int):
+        if imgs.dtype != torch.float32 or imgs.dim() != 3 or not imgs.is_contiguous():
+            raise ValueError("FAST cells: imgs must be a contiguous (B, H, W) float32 tensor")
+        if threshold.dtype != torch.float32 or threshold.numel() != 1 \
+                or threshold.device != imgs.device:
+            raise ValueError("FAST cells: threshold must be one float32 on the images' device")
+        if arc_len not in (9, 12):
+            raise ValueError(f"FAST cells: arc_len {arc_len} (9 or 12)")
+        if not 1 <= bin_size <= self.max_bin:
+            raise ValueError(f"FAST cells: bin_size {bin_size} outside 1..{self.max_bin}")
+        B, H, W = imgs.shape
+        if B > 65535:
+            raise ValueError(f"FAST cells: batch {B} over 65535 (the grid's z extent)")
+        dev = imgs.device
+        cells = (H // bin_size) * (W // bin_size)
+        cell_score = torch.empty((B, cells), dtype=torch.float32, device=dev)
+        cell_best = torch.empty((B, cells), dtype=torch.int32, device=dev)
+        if B * cells == 0:
+            return cell_score, cell_best
+        lib = self.build()
+        err = lib.fast_cells_launch(
+            imgs.data_ptr(), threshold.reshape(1).data_ptr(), B, H, W, arc_len, border,
+            bin_size, cell_score.data_ptr(), cell_best.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream, dev.index,
+        )
+        if err != 0:
+            raise RuntimeError(f"FAST cells launch failed: cudaError {err}")
+        self.launches += 1
+        self.batches[B] += 1
+        return cell_score, cell_best
+
+
+FAST_CELLS = FastCellsKernel()
+
+
+def fast_cells(imgs: torch.Tensor, threshold: torch.Tensor, *, arc_len: int = ARC_LEN,
+               border: int = 20, bin_size: int = 16):
+    """FAST-N/16 score -> 3x3 NMS -> border mask -> per-cell argmax of
+    every image of a (B, H, W) f32 stack at one pyramid level: (cell_score
+    (B, cells) f32, cell_best (B, cells) int32), as cells_from_score.  A
+    CPU tensor runs the plain version; a CUDA tensor launches the kernel
+    (bin sizes 1..128, B <= 65535)."""
+    threshold = torch.as_tensor(threshold, dtype=torch.float32, device=imgs.device)
+    if imgs.device.type == "cuda":
+        return FAST_CELLS.launch(imgs.to(torch.float32).contiguous(), threshold, arc_len,
+                                 border, bin_size)
+    if imgs.device.type != "cpu":
+        raise ValueError(f"FAST cells: unsupported device {imgs.device}")
+    return fast_cells_reference(imgs, threshold, arc_len, border, bin_size)
+
+
+# ---------------------------------------------------------------------------
+# The pyramid
+# ---------------------------------------------------------------------------
+
+
+def level_cells(level: torch.Tensor, threshold: torch.Tensor, bin_size: int, border: int,
+                detector: str):
+    """(cell_score, cell_best) of every image of a (B, h, w) level: the
+    FAST family in one fast_cells call, the float detectors image by
+    image into one NMS and binning pass."""
+    arc = FAST_ARCS.get(detector.upper())
+    if arc is not None:
+        return fast_cells(level, threshold, arc_len=arc, border=border, bin_size=bin_size)
+    score = torch.stack([score_map(im, threshold, detector) for im in level])
+    return cells_from_score(nms3(score), bin_size, border)
 
 
 def downsample2(img: torch.Tensor) -> torch.Tensor:
-    """2x2 average pooling (one pyramid octave down)."""
-    H2 = (img.shape[0] // 2) * 2
-    W2 = (img.shape[1] // 2) * 2
-    c = img[:H2, :W2]
-    return 0.25 * (c[0::2, 0::2] + c[0::2, 1::2] + c[1::2, 0::2] + c[1::2, 1::2])
+    """2x2 average pooling of an (..., H, W) image or stack (one pyramid
+    octave down)."""
+    H2 = (img.shape[-2] // 2) * 2
+    W2 = (img.shape[-1] // 2) * 2
+    c = img[..., :H2, :W2]
+    return 0.25 * (c[..., 0::2, 0::2] + c[..., 0::2, 1::2] + c[..., 1::2, 0::2]
+                   + c[..., 1::2, 1::2])
+
+
+def pyramid(imgs: torch.Tensor, octaves: int) -> list:
+    """The levels of a 2x pyramid of an image or a stack: imgs, then each
+    level downsample2 of the one above."""
+    levels = [imgs]
+    for _ in range(1, octaves):
+        levels.append(downsample2(levels[-1]))
+    return levels
 
 
 def octave_capacities(capacity: int, octaves: int) -> list[int]:
@@ -375,26 +527,38 @@ def octave_capacities(capacity: int, octaves: int) -> list[int]:
     return [capacity - sum(shares)] + shares
 
 
-def detect_keypoints(img: torch.Tensor, threshold: torch.Tensor, bin_size: int = 16,
-                     capacity: int = 1024, border: int = 20, detector: str = "FAST",
-                     octaves: int = 1) -> Keypoints:
-    """Multi-octave detection over a 2x pyramid: each octave runs the
-    single-level pipeline with its static share of the capacity; a
-    level-o pixel (r, c) maps to the level-0 centre (r s + (s-1)/2,
-    c s + (s-1)/2), s = 2^o."""
+def detect_pyramid(levels: list, threshold: torch.Tensor, bin_size: int = 16,
+                   capacity: int = 1024, border: int = 20, detector: str = "FAST") -> Keypoints:
+    """Detection over the (B, h, w) levels of a stack's pyramid (`pyramid`):
+    each octave keeps its static share of the capacity; a level-o pixel
+    (r, c) maps to the level-0 centre (r s + (s-1)/2, c s + (s-1)/2),
+    s = 2^o.  Every field of the result has a leading B."""
+    B = levels[0].shape[0]
     uvs, scores, valids, octs = [], [], [], []
-    level = img
-    for o, cap_o in enumerate(octave_capacities(capacity, octaves)):
-        if o > 0:
-            level = downsample2(level)
-        uv, sc, va = _detect_level(level, threshold, bin_size, cap_o, border, detector)
+    for o, cap_o in enumerate(octave_capacities(capacity, len(levels))):
+        level = levels[o]
+        cell_score, cell_best = level_cells(level, threshold, bin_size, border, detector)
+        uv, sc, va = keypoints_from_cells(cell_score, cell_best, level.shape[2] // bin_size,
+                                          bin_size, cap_o)
         s = float(1 << o)
         uvs.append(uv * s + (s - 1.0) / 2.0)
         scores.append(sc)
         valids.append(va)
-        octs.append(torch.full((cap_o,), o, dtype=torch.int32, device=img.device))
-    return Keypoints(uv=torch.cat(uvs), score=torch.cat(scores),
-                     valid=torch.cat(valids), octave=torch.cat(octs))
+        octs.append(torch.full((B, cap_o), o, dtype=torch.int32, device=level.device))
+    return Keypoints(uv=torch.cat(uvs, dim=1), score=torch.cat(scores, dim=1),
+                     valid=torch.cat(valids, dim=1), octave=torch.cat(octs, dim=1))
+
+
+def detect_keypoints(img: torch.Tensor, threshold: torch.Tensor, bin_size: int = 16,
+                     capacity: int = 1024, border: int = 20, detector: str = "FAST",
+                     octaves: int = 1) -> Keypoints:
+    """Multi-octave detection over a 2x pyramid of an (H, W) image, or of
+    each image of a (B, H, W) stack (then every field has a leading B):
+    detect_pyramid over pyramid(img, octaves)."""
+    stack = img if img.dim() == 3 else img[None]
+    kp = detect_pyramid(pyramid(stack, octaves), threshold, bin_size, capacity, border,
+                        detector)
+    return kp if img.dim() == 3 else Keypoints(*(f[0] for f in kp))
 
 
 class ThresholdController:

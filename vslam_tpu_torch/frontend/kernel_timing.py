@@ -40,6 +40,11 @@ F32_OPS_PER_S = 67e12
 # 4 adds, 4 FMAs (2 each) and 2 multiplies; NMS's 9 maxima and a compare.
 K1_OPS_PER_PIXEL = 256 + 16 * 8 + 3 + 4 + 8 + 2 + 10
 DENSE_OPS_PER_PIXEL = 256
+# The staged detector's kernel (csrc/fast_cells.cu): FAST's 16 ring taps
+# x 8 and NMS's 8 compares a pixel; its shared loads a pixel: the ring and
+# the centre, and the 3x3 window.
+FAST_CELLS_OPS_PER_PIXEL = 16 * 8 + 8
+FAST_CELLS_TAPS = 17 + 9
 
 
 def cuda_ms(fn, runs: int = 20, setup=None) -> float:
@@ -84,6 +89,14 @@ def dense_work(B: int, H: int, W: int, itemsize: int = 4) -> tuple[int, int]:
     """(bytes, f32 operations) the dense kernel needs for a (B, H, W) stack."""
     px = B * H * W
     return itemsize * px + 4 * 8 * px, DENSE_OPS_PER_PIXEL * px
+
+
+def fast_cells_work(B: int, H: int, W: int, bin_size: int) -> tuple[int, int]:
+    """(bytes, f32 operations) the staged detector's kernel needs for a
+    (B, H, W) stack: each pixel read once, each cell's score and index
+    written once."""
+    px = B * H * W
+    return 4 * px + 8 * B * (H // bin_size) * (W // bin_size), FAST_CELLS_OPS_PER_PIXEL * px
 
 
 def bound(nbytes: int, ops: int) -> tuple[float, str]:

@@ -96,18 +96,16 @@ def _add_delta(arr: torch.Tensor, tgt: torch.Tensor, use: torch.Tensor, val):
     return arr.index_add(0, tgt, delta)
 
 
-def _pyramid_descriptors(img, kp, planes0, capacity, octaves):
+def _pyramid_descriptors(levels, kp, planes0, capacity):
     """Per-octave dense-BRIEF description of one image: each octave's
     static slice of the keypoints gathers from the planes of its own
-    pyramid level (the given level-0 planes, then K3 at each level >= 1);
-    at one octave this is the plain level-0 lookup.  Returns (K, 8)."""
-    parts, lvl, start = [], img, 0
-    for o, cap_o in enumerate(detect.octave_capacities(capacity, octaves)):
-        if o == 0:
-            pl = planes0
-        else:
-            lvl = detect.downsample2(lvl)
-            pl = brief.dense_planes(lvl)
+    pyramid level (`levels`, the image's levels from detect.pyramid: the
+    given level-0 planes, then K3 at each level >= 1); at one octave this
+    is the plain level-0 lookup.  Returns (K, 8)."""
+    parts, start = [], 0
+    for o, cap_o in enumerate(detect.octave_capacities(capacity, len(levels))):
+        lvl = levels[o]
+        pl = planes0 if o == 0 else brief.dense_planes(lvl)
         s = float(1 << o)
         sl = slice(start, start + cap_o)
         parts.append(brief.gather_descriptors(pl, lvl.shape,
@@ -129,11 +127,13 @@ def _stereo_detect_describe(imgs, threshold, capacity, bin_size, border, descrip
 
     imgs: (2k, H, W) f32, frame i's left image at 2i and right at 2i+1.
     Batched where a kernel takes a stack: K1 runs once over all 2k images
-    and its band tail once over B = 2k; the staged path's level-0 planes
-    are one K2 launch over the 2k blurred images.  Per image, in a loop,
-    because no batched form exists: the staged detectors (FAST pyramid
-    and the float detectors), pyramid levels >= 1 (K3), BRIEF256R's
-    rotated banks (K4) and the ORB256 gather.
+    and its band tail once over B = 2k; on the staged path each pyramid
+    level is made once for the 2k images, the FAST family's detection is
+    one kernel launch a level over them and its binning tail one pass
+    (detect.detect_pyramid), and the level-0 planes are one K2 launch
+    over the 2k blurred images.  Per image, in a loop: the float
+    detectors' score maps, pyramid levels >= 1's planes (K3),
+    BRIEF256R's rotated banks (K4) and the ORB256 gather.
     Returns (keypoints [2k], descriptors [2k], level-0 planes (k, 2, 8, H,
     W) or None for ORB256, and for BRIEF256R without want_planes)."""
     n, H, W = imgs.shape
@@ -151,8 +151,9 @@ def _stereo_detect_describe(imgs, threshold, capacity, bin_size, border, descrip
                 score[b], bin_size, capacity, border)) for b in range(n)]
         descs = [brief.gather_descriptors(planes[b], (H, W), kps[b].uv) for b in range(n)]
         return kps, descs, planes.view(n // 2, 2, 8, H, W)
-    kps = [detect.detect_keypoints(imgs[b], threshold, bin_size, capacity, border,
-                                   detector, octaves=octaves) for b in range(n)]
+    levels = detect.pyramid(imgs, octaves)
+    kp = detect.detect_pyramid(levels, threshold, bin_size, capacity, border, detector)
+    kps = [fast_brief.Keypoints(*(f[b] for f in kp)) for b in range(n)]
     planes = None
     if descriptor == "BRIEF256" or (descriptor == "BRIEF256R" and want_planes):
         planes = brief.dense_planes_batch(imgs)
@@ -163,7 +164,7 @@ def _stereo_detect_describe(imgs, threshold, capacity, bin_size, border, descrip
         # the upright level-0 planes, as the JAX package does.
         descs = [brief.describe_dense_rotated(imgs[b], kps[b].uv) for b in range(n)]
     else:
-        descs = [_pyramid_descriptors(imgs[b], kps[b], planes[b], capacity, octaves)
+        descs = [_pyramid_descriptors([lvl[b] for lvl in levels], kps[b], planes[b], capacity)
                  for b in range(n)]
     return kps, descs, None if planes is None else planes.view(n // 2, 2, 8, H, W)
 
@@ -357,8 +358,9 @@ def process_depth_frame(
     by its gather; with want_planes the (8, H, W) level-0 planes are
     returned too, for landmark recovery (None for ORB256).
     Returns (FrameState, n_keypoints, n_framepoints[, planes])."""
-    kp = detect.detect_keypoints(img, threshold, bin_size, capacity, border, detector,
-                                 octaves=octaves)
+    levels = detect.pyramid(img[None], octaves)
+    kp = fast_brief.Keypoints(*(f[0] for f in detect.detect_pyramid(
+        levels, threshold, bin_size, capacity, border, detector)))
     planes = None
     if descriptor == "ORB256":
         desc = orb.describe(img, kp.uv)
@@ -367,19 +369,8 @@ def process_depth_frame(
         if want_planes:
             planes = brief.dense_planes(img)
     else:
-        parts, lvl, start = [], img, 0
-        for o, cap_o in enumerate(detect.octave_capacities(capacity, octaves)):
-            if o > 0:
-                lvl = detect.downsample2(lvl)
-            pl = brief.dense_planes(lvl)
-            if o == 0:
-                planes = pl
-            s = float(1 << o)
-            sl = slice(start, start + cap_o)
-            parts.append(brief.gather_descriptors(pl, lvl.shape,
-                                                  (kp.uv[sl] - (s - 1.0) / 2.0) / s))
-            start += cap_o
-        desc = torch.cat(parts)
+        planes = brief.dense_planes(img)
+        desc = _pyramid_descriptors([lvl[0] for lvl in levels], kp, planes, capacity)
     z = depth.gather_depth(depth_m, kp.uv)
     valid = kp.valid & (z >= min_depth) & (z <= max_depth)
     p_cam = cam_ops.back_project(cam, kp.uv, z)
