@@ -7,7 +7,8 @@ Phases (each raises on failure; the exit code is then non-zero):
                name and power limit (nvidia-smi);
   2. build   — compile K1 (csrc/fast_brief_frontend.cu), the dense
                BRIEF kernel behind K2/K3/K4 (csrc/dense_brief.cu), the
-               staged FAST detector's kernel (csrc/fast_cells.cu) and the
+               staged FAST detector's kernel (csrc/fast_cells.cu), the
+               box blur kernel (csrc/box_blur.cu) and the
                conditional graph nodes (csrc/graph_cond.cu: WHILE and IF
                nodes under capture, ops/control.py) with nvcc, and the PNG
                decoder's host unfilter (csrc/png_unfilter.cpp) with g++,
@@ -37,6 +38,14 @@ Phases (each raises on failure; the exit code is then non-zero):
                100}, (border, bin) (20, 16), (3, 16), (0, 24): every cell
                bit-equal; one case against the CPU; times at both levels
                as for K1;
+  4c. box-blur — the box blur kernel (csrc/box_blur.cu) vs its plain
+               version on the card at every launch of the cells' routes
+               (KITTI's pair and level-1 image at radius 2; EuRoC's pair
+               and image at 2 and its gradient pair at 7; rendered or
+               gradient stacks and uniform-random ones) and on a ragged
+               3x37x53 stack at radii 2 and 7: every pixel bit-equal; one
+               case against the CPU; times at each launch as for K1, and
+               summed over a KITTI and a EuRoC frame;
   5. K2'     — the band-size / input-type probe: the same kernel at
                (64, 376, 1241) with 8-, 16-, 32- and 64-row bands, f32 and
                bf16 input, each bit-equal to its plain version; times;
@@ -51,12 +60,13 @@ Phases (each raises on failure; the exit code is then non-zero):
                b. configuration_kitti.yaml (2 octaves, BRIEF256) on the
                   first 32 frames of a 64-frame 13 m circle (phase 12 runs
                   all 64 from disk); K2 32, K3 64, the staged detector
-                  64, K1 and K4 0 launches,
+                  64, the box blur 96, K1 and K4 0 launches,
                   0 breaks, ATE <= 0.05 m, local maps within +-15% of the
                   JAX engine's on a CPU;
                c. configuration_euroc.yaml (BRIEF256R) at EuRoC's 752x480
                   and intrinsics on the first 16 frames of a 32-frame 4 m
-                  circle; K4 32 and K2 1 launches per frame, K1 and K3 0,
+                  circle; K4 32, K2 1 and the box blur 5 launches per
+                  frame, K1 and K3 0,
                   0 breaks, ATE <= 0.05 m, local maps within +-15% of the
                   JAX engine's on a CPU;
                each slice's first frames (4, 2, 2) agree with the same
@@ -281,8 +291,9 @@ Phases (each raises on failure; the exit code is then non-zero):
                closed loop on the card: its 1,024 rolled frames from one
                seed, prestaged, through SlamEngine.process_prestaged in
                32-frame handles; launches K4 32, K2 1, the staged detector
-               2 a frame, K1 and K3 0; 0 breaks, every pose finite, >= 1
-               closure; the correctness numbers of perfbench/reference.py
+               2 and the box blur 5 a frame (and 2 a descriptor check),
+               K1 and K3 0; 0 breaks, every pose finite, >= 1 closure;
+               the correctness numbers of perfbench/reference.py
                and the `rotated keypoints` counter; and after
                EUROC_CHECK_HANDLES handles the last frame's left
                descriptors as the frame program left them (the front end's
@@ -760,6 +771,77 @@ def phase_fast_cells(kitti_frame, card):
     return out
 
 
+# The box blur kernel's launches a frame on the cells' routes (label, B,
+# H, W, radius): KITTI's staged BRIEF256 (the pair, then each level-1
+# image), EuRoC's BRIEF256R (recovery's pair, then for each image the
+# image at 2 and its two gradients at 7).
+BOX_BLUR_LAUNCHES = (("kitti pair", 2, 376, 1241, 2), ("kitti level 1", 1, 188, 620, 2),
+                     ("euroc pair", 2, 480, 752, 2), ("euroc image", 1, 480, 752, 2),
+                     ("euroc gradients", 2, 480, 752, 7))
+BOX_BLUR_FRAMES = {"kitti": {"kitti pair": 1, "kitti level 1": 2},
+                   "euroc": {"euroc pair": 1, "euroc image": 2, "euroc gradients": 2}}
+
+
+def phase_box_blur(kitti_frame, card):
+    """Phase 4c: the box blur kernel against its plain version on the
+    card, every pixel bit-equal, at each launch of the cells' routes
+    (rendered or gradient and uniform-random stacks) and on a ragged
+    3x37x53 stack at both radii it takes; one case against the CPU; the
+    kernel's times warm and L2-cold at each launch beside the plain
+    version's, and summed over a frame of each route."""
+    from vslam_tpu_torch.frontend import detect, orb
+    from vslam_tpu_torch.frontend import kernel_timing as kt
+    from vslam_tpu_torch.io import synthetic
+    from vslam_tpu_torch.ops import camera as cam_ops
+
+    rng = np.random.default_rng(5)
+    pair = torch.from_numpy(np.stack(kitti_frame).astype(np.uint8).astype(np.float32)).cuda()
+    eworld = synthetic.make_world(cam_ops.make_camera(**EUROC_CAM), n_points=7000, seed=0,
+                                  poses=synthetic.circle_trajectory(32, radius=4.0))
+    epair = torch.from_numpy(np.stack(synthetic.render_frame(eworld, 0)[:2])
+                             .astype(np.uint8).astype(np.float32)).cuda()
+    sm = orb.box_blur_reference(epair[0], 2)
+    grads = torch.stack([0.5 * (torch.roll(sm, -1, 0) - torch.roll(sm, 1, 0)),
+                         0.5 * (torch.roll(sm, -1, 1) - torch.roll(sm, 1, 1))])
+    rendered = {"kitti pair": pair, "kitti level 1": detect.downsample2(pair)[:1],
+                "euroc pair": epair, "euroc image": epair[:1], "euroc gradients": grads}
+    n_cases = 0
+    for label, B, H, W, r in BOX_BLUR_LAUNCHES:
+        uniform = torch.from_numpy(rng.uniform(0, 255, (B, H, W)).astype(np.float32)).cuda()
+        for x in (rendered[label], uniform):
+            _require_equal(f"box_blur {label}, radius {r}", orb.box_blur(x, r),
+                           orb.box_blur_reference(x, r))
+            n_cases += 1
+    ragged = torch.from_numpy(rng.uniform(0, 255, (3, 37, 53)).astype(np.float32)).cuda()
+    for r in orb.BOX_BLUR.radii:
+        _require_equal(f"box_blur 3x37x53, radius {r}", orb.box_blur(ragged, r),
+                       orb.box_blur_reference(ragged, r))
+        n_cases += 1
+    torch.cuda.synchronize()
+    if not torch.equal(orb.box_blur(pair, 2).cpu(), orb.box_blur(pair.cpu(), 2)):
+        raise AssertionError("box_blur on the card differs from the plain version on the CPU")
+    print(f"[box-blur] every pixel bit-equal to the plain version in {n_cases} cases "
+          f"({len(BOX_BLUR_LAUNCHES)} launches of the routes x 2 stacks, a ragged stack at "
+          f"radii {orb.BOX_BLUR.radii}) + 1 case against the CPU")
+    out = {}
+    for label, B, H, W, r in BOX_BLUR_LAUNCHES:
+        x = rendered[label]
+        out[f"box_blur {label}"] = {"max_abs_err": 0.0, "shape": f"{B}x{H}x{W}", "radius": r,
+                                    **timed(lambda x=x, r=r: orb.box_blur(x, r),
+                                            lambda x=x, r=r: orb.box_blur_reference(x, r),
+                                            kt.box_blur_work(B, H, W, r), x.numel(),
+                                            kt.box_blur_taps(r), card,
+                                            f"[box-blur] {label} median over 20 runs at "
+                                            f"{B}x{H}x{W}, radius {r}")}
+    for route, launches in BOX_BLUR_FRAMES.items():
+        tot = {key: sum(n * out[f"box_blur {label}"][key] for label, n in launches.items())
+               for key in ("ms", "ms_l2_cold", "plain_ms", "bound_ms")}
+        print(f"[box-blur] {route} frame ({sum(launches.values())} launches): kernel "
+              f"{tot['ms']:.4f} ms warm, {tot['ms_l2_cold']:.4f} ms with L2 flushed; plain "
+              f"version {tot['plain_ms']:.4f} ms; bound {tot['bound_ms']:.4f} ms ({card})")
+    return out
+
+
 def phase_k2_probe(card):
     """K2's band-size / input-type probe at (64, 376, 1241)."""
     from vslam_tpu_torch.frontend import dense_brief as db
@@ -906,7 +988,7 @@ def phase_kitti_config(card):
     print(f"[kitti-config] the JAX engine on a CPU: {JAX_CPU_KITTI_CONFIG}")
     return drive_slice("kitti-config", cam, kitti_config(load_config), gt, frames,
                        {"K1": 0, "K2": KITTI_SLICE_FRAMES, "K3": 2 * KITTI_SLICE_FRAMES, "K4": 0,
-                        "fast_cells": 2 * KITTI_SLICE_FRAMES},
+                        "fast_cells": 2 * KITTI_SLICE_FRAMES, "box_blur": 3 * KITTI_SLICE_FRAMES},
                        within_15_percent(JAX_CPU_KITTI_CONFIG["n_local_maps"]),
                        KITTI_CPU_FRAMES, card)
 
@@ -1041,7 +1123,7 @@ def phase_closed_loop(label, cam, cfg, world, frames, jax_cpu, card_before, card
         print(f"[{label}] {rep['n_ba_runs']} BA runs; (P cameras, L landmarks) of each "
               f"problem, true and padded: {sizes}")
     icp_check(label, icp_events, drains, card)
-    if counts != {"K1": n, "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0}:
+    if counts != {"K1": n, "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0, "box_blur": 0}:
         raise AssertionError(f"{label}: launches {counts}, expected {n} K1 only")
     if rep["n_track_breaks"] != 0:
         raise AssertionError(f"{label}: {rep['n_track_breaks']} tracking breaks")
@@ -1260,7 +1342,7 @@ def phase_modular_closed(cam, cfg, world, frames, card):
         print(f"[{label}] tracker stage {stage:12s} {sec:8.4f} s")
     replay_checks(label, progs.programs, lambda: [*progs.table, *progs.prev, *progs.cur,
                                                   progs.T_cur_prev, progs.prev_to_cur], card)
-    if counts != {"K1": n, "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0}:
+    if counts != {"K1": n, "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0, "box_blur": 0}:
         raise AssertionError(f"{label}: launches {counts}, expected {n} K1 only")
     if rep["n_track_breaks"] != 0:
         raise AssertionError(f"{label}: {rep['n_track_breaks']} tracking breaks")
@@ -1362,7 +1444,8 @@ def phase_modular_configs(closed, card):
     cfg.tracking.use_fused_tracker = False
     print(f"[modular kitti-config] the JAX (fused) engine on a CPU: {JAX_CPU_KITTI_CONFIG}")
     kitti = drive_slice("modular kitti-config", cam, cfg, gt, frames,
-                        {"K1": 0, "K2": n, "K3": 2 * n, "K4": 0, "fast_cells": 2 * n},
+                        {"K1": 0, "K2": n, "K3": 2 * n, "K4": 0, "fast_cells": 2 * n,
+                         "box_blur": 3 * n},
                         within_15_percent(JAX_CPU_KITTI_CONFIG["n_local_maps"]),
                         KITTI_CPU_FRAMES, card)
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1372,7 +1455,7 @@ def phase_modular_configs(closed, card):
     gt, frames = tum_world(cam, TUM_FRAMES, n)
     print(f"[modular tum-config] the JAX (fused) engine on a CPU: {JAX_CPU_TUM}")
     tum = drive_slice("modular tum-config", cam, cfg, gt, frames,
-                      {"K1": 0, "K2": 0, "K3": n, "K4": 0, "fast_cells": n},
+                      {"K1": 0, "K2": 0, "K3": n, "K4": 0, "fast_cells": n, "box_blur": n},
                       within_15_percent(JAX_CPU_TUM["n_local_maps"]), TUM_CPU_FRAMES, card)
     query_checks(closed, card)
     return {k: kitti[k] + tum[k] for k in kitti}
@@ -1391,7 +1474,7 @@ def phase_tum(card):
     print(f"[tum-config] the JAX engine on a CPU: {JAX_CPU_TUM}")
     return drive_slice("tum-config", cam, cfg, gt, frames,
                        {"K1": 0, "K2": 0, "K3": TUM_CONFIG_FRAMES, "K4": 0,
-                        "fast_cells": TUM_CONFIG_FRAMES},
+                        "fast_cells": TUM_CONFIG_FRAMES, "box_blur": TUM_CONFIG_FRAMES},
                        within_15_percent(JAX_CPU_TUM["n_local_maps"]), TUM_CPU_FRAMES, card)
 
 
@@ -1415,14 +1498,17 @@ def phase_xtion(card):
     gt, frames = tum_world(cam, XTION_CIRCLE_FRAMES, XTION_FRAMES)
     print(f"[xtion-config] the JAX engine on a CPU: {JAX_CPU_XTION}")
     return drive_slice("xtion-config", cam, cfg, gt, frames,
-                       {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "fast_cells": XTION_FRAMES},
+                       # ORB256 blurs the image to describe the front end's
+                       # keypoints, and again to describe recovery's.
+                       {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "fast_cells": XTION_FRAMES,
+                        "box_blur": 2 * XTION_FRAMES},
                        within_15_percent(JAX_CPU_XTION["n_local_maps"]), TUM_CPU_FRAMES, card)
 
 
 # The kernels' symbols in their sources: K1's, and the one dense-BRIEF
 # kernel that K2, K3 and K4 launch with different tables.
 KERNEL_SYMBOLS = {"K1": "fast_brief_tile_kernel", "K2-K4": "dense_brief_kernel",
-                  "fast_cells": "fast_cells_kernel"}
+                  "fast_cells": "fast_cells_kernel", "box_blur": "box_blur_kernel"}
 
 
 def profiled_replays(label, prog, inputs):
@@ -1446,7 +1532,7 @@ def profiled_replays(label, prog, inputs):
                if e.device_type() == torch.autograd.DeviceType.CUDA]
     seen = {k: sum(sym in e.name() for e in kernels) for k, sym in KERNEL_SYMBOLS.items()}
     want = {"K1": added["K1"], "K2-K4": added["K2"] + added["K3"] + added["K4"],
-            "fast_cells": added["fast_cells"]}
+            "fast_cells": added["fast_cells"], "box_blur": added["box_blur"]}
     if seen != want or not kernels:
         raise AssertionError(f"[{label}] {len(inputs)} replays ran {seen} kernels by name, "
                              f"the counters added {want}")
@@ -1842,7 +1928,7 @@ def phase_detectors(kitti_frame, card):
     print(f"[kitti-dog] the JAX engine on a CPU: {JAX_CPU_KITTI_DOG}")
     drive_slice("kitti-dog", cam, cfg, gt, frames,
                 {"K1": 0, "K2": KITTI_SLICE_FRAMES, "K3": 2 * KITTI_SLICE_FRAMES, "K4": 0,
-                 "fast_cells": 0},
+                 "fast_cells": 0, "box_blur": 3 * KITTI_SLICE_FRAMES},
                 within_15_percent(JAX_CPU_KITTI_DOG["n_local_maps"]), KITTI_CPU_FRAMES, card)
 
 
@@ -1852,13 +1938,14 @@ def phase_build(card) -> dict:
     from vslam_tpu_torch.frontend import dense_brief as db
     from vslam_tpu_torch.frontend import detect
     from vslam_tpu_torch.frontend import fast_brief as fb
+    from vslam_tpu_torch.frontend import orb
     from vslam_tpu_torch.frontend.cuda_build import loop_shared_loads
     from vslam_tpu_torch.io import image
     from vslam_tpu_torch.ops import control
 
     t0 = time.perf_counter()
     libraries = {"K1": fb.K1.library, "K2/K3/K4": db.KERNEL.library,
-                 "fast_cells": detect.FAST_CELLS.library,
+                 "fast_cells": detect.FAST_CELLS.library, "box_blur": orb.BOX_BLUR.library,
                  "conditional nodes": control._library, "PNG unfilter (host)": image.UNFILTER}
     for lib in libraries.values():
         lib.start()  # one compiler per source, all at once
@@ -1866,22 +1953,29 @@ def phase_build(card) -> dict:
     fb.K1.build()
     db.KERNEL.build()
     detect.FAST_CELLS.build()
+    orb.BOX_BLUR.build()
     control.library()
-    print(f"[build] the five libraries built in {time.perf_counter() - t0:.2f} s of wall time")
+    print(f"[build] the six libraries built in {time.perf_counter() - t0:.2f} s of wall time")
     for name, lib in libraries.items():
         print(f"[build] {name} ({lib.src.name})")
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[build] {line.strip()}")
     dev = torch.device("cuda", torch.cuda.current_device())
-    kernels = {"K1": (fb.K1.library, fb.K1.sass_name, fb.K1.blocks_per_sm(dev))}
+    # name: (library, SASS name, blocks a SM, the launch that was asked
+    # about, whether its largest loop is one pixel's).  The box blur's
+    # pass loops have constant trip counts and unroll over several pixels.
+    kernels = {"K1": (fb.K1.library, fb.K1.sass_name, fb.K1.blocks_per_sm(dev), "", True)}
     for name, table in (("K2", 0), ("K3", 0), ("K4", 6)):
         kernels[name] = (db.KERNEL.library, db.KERNEL.sass_name(table),
-                         db.KERNEL.blocks_per_sm(dev, table))
+                         db.KERNEL.blocks_per_sm(dev, table), "", True)
     kernels["fast_cells"] = (detect.FAST_CELLS.library, detect.FAST_CELLS.sass_name,
-                             detect.FAST_CELLS.blocks_per_sm(dev, 16))
+                             detect.FAST_CELLS.blocks_per_sm(dev, 16), " at bin 16", True)
+    for name, radius in (("box_blur", 2), ("box_blur r7", 7)):
+        kernels[name] = (orb.BOX_BLUR.library, orb.BOX_BLUR.sass_name(radius),
+                         orb.BOX_BLUR.blocks_per_sm(dev, radius), f" at radius {radius}", False)
     facts, sass = {}, {}
-    for name, (lib, fn, blocks) in kernels.items():
+    for name, (lib, fn, blocks, at, one_pixel) in kernels.items():
         try:
             if lib not in sass:
                 sass[lib] = lib.sass()
@@ -1889,10 +1983,16 @@ def phase_build(card) -> dict:
             why = "" if loads else "no pixel loop found in the SASS"
         except (RuntimeError, OSError, subprocess.SubprocessError) as e:
             loads, why = None, str(e)
-        facts[name] = {"blocks_per_sm": blocks, "lds_per_pixel": loads}
-        print(f"[build] {name}: {blocks} blocks of 256 threads per SM"
-              f"{' at bin 16' if name == 'fast_cells' else ''}, "
-              f"{loads if loads else 'null (' + why + ')'} shared loads a pixel ({card})")
+        read = loads if loads else f"null ({why})"
+        if one_pixel:
+            facts[name] = {"blocks_per_sm": blocks, "lds_per_pixel": loads}
+            what = f"{read} shared loads a pixel"
+        else:
+            facts[name] = {"blocks_per_sm": blocks, "lds_per_pixel": None,
+                           "lds_largest_loop": loads}
+            what = (f"null shared loads a pixel (its loops unroll over several pixels), "
+                    f"{read} in its largest loop")
+        print(f"[build] {name}: {blocks} blocks of 256 threads per SM{at}, {what} ({card})")
     return facts
 
 
@@ -2037,7 +2137,7 @@ def phase_kitti_disk(tmp, card):
           f"{os.path.getsize(os.path.join(out, 'factor_graph.g2o'))} bytes ({card})")
     check_run("kitti-disk", rep, metrics["ate_rmse_m"], (14, 18),
               {"K1": 0, "K2": KITTI_CIRCLE_FRAMES, "K3": 2 * KITTI_CIRCLE_FRAMES, "K4": 0,
-               "fast_cells": 2 * KITTI_CIRCLE_FRAMES})
+               "fast_cells": 2 * KITTI_CIRCLE_FRAMES, "box_blur": 3 * KITTI_CIRCLE_FRAMES})
     if est.shape != (KITTI_CIRCLE_FRAMES, 4, 4) or conv.shape != est.shape:
         raise AssertionError(f"kitti-disk: trajectory files hold {est.shape}, {conv.shape}")
     if not np.abs(conv[:, :3, 3] - est[:, :3, 3]).max() <= 1e-5:
@@ -2112,7 +2212,8 @@ def phase_checkpoint(est, decoded, cam, gt, ckpt, save_s, card):
     if not err.max() <= CHECKPOINT_TOL_M or not rmse <= CHECKPOINT_ATE_M:
         raise AssertionError(f"checkpoint: resumed run {err.max():.4f} m from phase 12's, "
                              f"ATE {rmse:.4f} m")
-    if counts != {"K1": 0, "K2": n_after, "K3": 2 * n_after, "K4": 0, "fast_cells": 2 * n_after}:
+    if counts != {"K1": 0, "K2": n_after, "K3": 2 * n_after, "K4": 0, "fast_cells": 2 * n_after,
+                  "box_blur": 3 * n_after}:
         raise AssertionError(f"checkpoint: launches {counts}")
     return counts
 
@@ -2163,7 +2264,8 @@ def phase_tum_disk(tmp, card):
     if metrics["n_poses"] != len(frames):
         raise AssertionError(f"tum-disk: {metrics['n_poses']} poses associated")
     check_run("tum-disk", rep, metrics["ate_rmse_m"], (18, 24),
-              {"K1": 0, "K2": 0, "K3": len(frames), "K4": 0, "fast_cells": len(frames)})
+              {"K1": 0, "K2": 0, "K3": len(frames), "K4": 0, "fast_cells": len(frames),
+               "box_blur": len(frames)})
     return rep["run"]["kernel_launches"]
 
 
@@ -2229,7 +2331,8 @@ def phase_k1_split(cam, cfg, world, frames, card):
     print(f"[k1-split] the JAX engine on a CPU (chunks of {SPLIT_CHUNK}): {JAX_CPU_K1_SPLIT}")
     n = SPLIT_K1_FRAMES
     counts = drive_slice("k1-split", cam, split_config(cfg), world.poses[:n], frames[:n],
-                         {"K1": n // SPLIT_CHUNK, "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0},
+                         {"K1": n // SPLIT_CHUNK, "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0,
+                          "box_blur": 0},
                          within_15_percent(JAX_CPU_K1_SPLIT["n_local_maps"]),
                          CPU_CHECK_FRAMES, card, cpu_harvest=SPLIT_CHUNK)
     batches = BATCHES["k1-split"]
@@ -2282,7 +2385,8 @@ def phase_kitti_split(card):
           f"{JAX_CPU_KITTI_SPLIT}")
     counts = drive_slice("kitti-split", cam, split_config(kitti_config(load_config)), gt,
                          frames, {"K1": 0, "K2": n // SPLIT_CHUNK, "K3": 2 * n, "K4": 0,
-                                  "fast_cells": 2 * (n // SPLIT_CHUNK)},
+                                  "fast_cells": 2 * (n // SPLIT_CHUNK),
+                                  "box_blur": n // SPLIT_CHUNK + 2 * n},
                          within_15_percent(JAX_CPU_KITTI_SPLIT["n_local_maps"]),
                          KITTI_CPU_FRAMES, card,
                          cpu_harvest=SPLIT_CHUNK)
@@ -3002,7 +3106,10 @@ def phase_euroc_closed(card):
     print(f"[euroc-closed] rotated keypoints {rotated} ({rotated / n:.1f} a frame; left "
           f"images' keypoints {eng.tracker.stats.n_keypoints}); descriptors after "
           f"{len(checks)} handles against the plain reference: {seen} ({ref_s:.1f} s)")
-    expect = {"K1": 0, "K2": n, "K3": 0, "K4": 32 * n, "fast_cells": 2 * n}
+    # The descriptor checks blur on the card too: two launches a check
+    # (the image, then its gradient pair for the orientation bins).
+    expect = {"K1": 0, "K2": n, "K3": 0, "K4": 32 * n, "fast_cells": 2 * n,
+              "box_blur": 5 * n + 2 * len(checks)}
     if counts != expect:
         raise AssertionError(f"[euroc-closed] launches {counts}, expected {expect}")
     if rep_["n_track_breaks"] != 0 or numbers["frames_missing"] != 0:
@@ -3109,7 +3216,8 @@ def phase_bench(card):
         raise AssertionError("[bench] the timed runs replayed no pose-graph or no BA program")
     # Warm-up, closed, ba-closed, tracker only and device only one K1 a
     # frame; the split front-end one a chunk of 32 frames (B = 64).
-    want = {"K1": 5 * n + -(-n // SPLIT_CHUNK), "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0}
+    want = {"K1": 5 * n + -(-n // SPLIT_CHUNK), "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0,
+            "box_blur": 0}
     if bench != want:
         raise AssertionError(f"[bench] launches {bench}, expected {want}")
 
@@ -3154,7 +3262,8 @@ def phase_bench(card):
             and out["closures_after_map_150"] > 0):
         raise AssertionError(f"[scale] ate_ok {out['ate_ok']}, {out['tracking_breaks']} "
                              f"breaks, {out['closures_after_map_150']} closures after map 150")
-    if scale["launches"] != {"K1": out["n_frames"], "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0}:
+    if scale["launches"] != {"K1": out["n_frames"], "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0,
+                             "box_blur": 0}:
         raise AssertionError(f"[scale] launches {scale['launches']}")
     return bench, scale["launches"]
 
@@ -3195,6 +3304,7 @@ def main():
     stats = {"K1": phase_k1(frames, card)}
     stats.update(phase_dense(frames[0], card))
     stats.update(phase_fast_cells(frames[0], card))
+    stats.update(phase_box_blur(frames[0], card))
     phase_k2_probe(card)
     mark(t_start, "device-program")
     program_launches = phase_device_program(cam, cfg, frames, card)
@@ -3203,7 +3313,8 @@ def main():
     print(f"[k1-slice] the JAX engine on a CPU: {JAX_CPU_K1_SLICE}")
     launches = drive_slice("k1-slice", cam, cfg, world.poses[:K1_SLICE_FRAMES],
                            frames[:K1_SLICE_FRAMES],
-                           {"K1": K1_SLICE_FRAMES, "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0},
+                           {"K1": K1_SLICE_FRAMES, "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0,
+                            "box_blur": 0},
                            within_15_percent(JAX_CPU_K1_SLICE["n_local_maps"]),
                            CPU_CHECK_FRAMES, card)
     launches = {k: launches[k] + program_launches[k] for k in launches}
@@ -3224,7 +3335,7 @@ def main():
                   "modular configs")
     for counts in (
         config_slice("euroc-config", "euroc", EUROC_CAM, EUROC_FRAMES, EUROC_CIRCLE_FRAMES,
-                     4.0, {"K2": 1, "K4": 2 * db.N_ROT_BANKS, "fast_cells": 2},
+                     4.0, {"K2": 1, "K4": 2 * db.N_ROT_BANKS, "fast_cells": 2, "box_blur": 5},
                      within_15_percent(JAX_CPU_EUROC["n_local_maps"]), 2, card),
         phase_euroc_closed(card),
         phase_closed_loop("closed", cam, closed_loop_config(cfg), world, frames,
@@ -3259,14 +3370,18 @@ def main():
     sources["fast_cells"] = ("fast_cells", "fast_cells.cu",
                              "none: XLA in vslam_tpu/frontend/detect.py (fast_score_map, "
                              "nms3, keypoints_from_score's per-cell argmax)")
+    sources["box_blur"] = ("box_blur", "box_blur.cu",
+                           "none: XLA in vslam_tpu/frontend/orb.py (box_blur)")
+    stats["box_blur"] = stats["box_blur kitti pair"]
     kernels = [{
         "name": fn,
         "route": "cuda",
         "source": f"vslam_tpu_torch/csrc/{src}",
         "replaces": replaces,
         "launches": launches[k],
-        # No single PyTorch call computes either function (256 packed
-        # compares of shifted taps; blur + FAST + NMS + band argmax).
+        # No single PyTorch call computes any of these functions (256
+        # packed compares of shifted taps; blur + FAST + NMS + band
+        # argmax; the box blur in XLA-CPU's FMA chain, bit for bit).
         "library_ms": None,
         **stats[k],
         **facts[k],
@@ -3276,6 +3391,13 @@ def main():
     kernels.append({"name": f"{fn} (level 1)", "route": "cuda",
                     "source": f"vslam_tpu_torch/csrc/{src}", "replaces": replaces,
                     "library_ms": None, **stats["fast_cells level 1"], **facts["fast_cells"]})
+    # The box blur's other launches on the cells' routes, entries of their own.
+    fn, src, replaces = sources["box_blur"]
+    for label, B, H, W, r in BOX_BLUR_LAUNCHES[1:]:
+        kernels.append({"name": f"{fn} ({label}, radius {r})", "route": "cuda",
+                        "source": f"vslam_tpu_torch/csrc/{src}", "replaces": replaces,
+                        "library_ms": None, **stats[f"box_blur {label}"],
+                        **facts["box_blur r7" if r == 7 else "box_blur"]})
     # The split front-end's chunk-sized launches (phases 15-16), their own
     # entries: launches at that shape, its times and bound.
     for k, rec in chunk_stats.items():

@@ -67,6 +67,76 @@ def test_box_blur_is_bit_exact(radius, uint8_valued, shape):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("radius", [2, 3, 7])
+@pytest.mark.parametrize("batch", [1, 2, 4])
+def test_batched_box_blur_equals_each_image_and_jax(radius, batch):
+    """One call over a (B, H, W) stack (one kernel launch on the card)
+    gives every image's own blur and JAX's jitted blur, bit for bit."""
+    H, W = 24 + 8 * batch, 16 * (6 + batch)
+    imgs = np.stack([_img((H, W), b % 2 == 0, seed=10 * radius + b) for b in range(batch)])
+    got = torb.box_blur(torch.from_numpy(imgs), radius).numpy()
+    assert got.shape == imgs.shape and got.dtype == np.float32
+    blur = jax.jit(jorb.box_blur, static_argnums=1)
+    for b in range(batch):
+        one = torb.box_blur(torch.from_numpy(imgs[b]), radius).numpy()
+        np.testing.assert_array_equal(got[b], one)
+        np.testing.assert_array_equal(got[b], np.asarray(blur(jnp.asarray(imgs[b]), radius)))
+
+
+@pytest.mark.parametrize("shape", [(480, 752), (37, 53)])
+def test_orientation_bins_blur_both_gradients_in_one_call(monkeypatch, shape):
+    """orientation_bin_map blurs stack([gy, gx]) in one call; its bins
+    equal those of the gradients blurred one at a time, bit for bit, at
+    EuRoC's 480 x 752 and at an odd shape.  At 480 x 752 (a multiple of
+    16 wide) the blurred gradients also equal JAX's bit for bit, and the
+    bins JAX's (within the arctan2 tolerance of the test below; they
+    agreed on every pixel when this was written)."""
+    img = _textured(shape, 20)
+    smooth = torb.box_blur(torch.from_numpy(img), 2)
+    calls = []
+
+    def counted(x, radius=2):
+        calls.append((tuple(x.shape), radius))
+        return torb.box_blur(x, radius)
+
+    monkeypatch.setattr(tbrief, "box_blur", counted)
+    got = tbrief.orientation_bin_map(smooth)
+    assert calls == [((2,) + shape, 7)]
+    gx = 0.5 * (torch.roll(smooth, -1, 1) - torch.roll(smooth, 1, 1))
+    gy = 0.5 * (torch.roll(smooth, -1, 0) - torch.roll(smooth, 1, 0))
+    theta = torch.atan2(torb.box_blur(gy, 7), torb.box_blur(gx, 7))
+    want = torch.remainder(torch.round(theta * (16 / (2.0 * np.pi))).to(torch.int32), 16)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    if shape[1] % 16 == 0:
+        blur = jax.jit(jorb.box_blur, static_argnums=1)
+        both = torb.box_blur(torch.stack([gy, gx]), 7).numpy()
+        for g, b in zip((gy, gx), both):
+            np.testing.assert_array_equal(b, np.asarray(blur(jnp.asarray(g.numpy()), 7)))
+        want_j = np.asarray(jax.jit(jbrief.orientation_bin_map)(jnp.asarray(smooth.numpy())))
+        assert np.mean(got.numpy() == want_j) >= 0.999
+
+
+@pytest.mark.parametrize("batch", [1, 2, 3])
+def test_dense_planes_batch_blurs_the_stack_in_one_call(monkeypatch, batch):
+    """dense_planes_batch blurs its stack in one call and gives the
+    planes of the images blurred one at a time (and dense_planes')."""
+    imgs = torch.from_numpy(np.stack([_img((40, 160), True, seed=30 + b)
+                                      for b in range(batch)]))
+    calls = []
+
+    def counted(x, radius=2):
+        calls.append((tuple(x.shape), radius))
+        return torb.box_blur(x, radius)
+
+    monkeypatch.setattr(tbrief, "box_blur", counted)
+    got = tbrief.dense_planes_batch(imgs)
+    assert calls == [((batch, 40, 160), 2)]
+    want = db.dense_bit_planes_batch(torch.stack([torb.box_blur(im, 2) for im in imgs]))
+    assert got.shape == (batch, 8, 40, 160) and torch.equal(got, want)
+    for b in range(batch):
+        assert torch.equal(got[b], tbrief.dense_planes(imgs[b]))
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("uint8_valued", [True, False])
 def test_plain_planes_match_the_conv_formulation(monkeypatch, shape, uint8_valued):

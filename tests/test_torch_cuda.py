@@ -24,6 +24,7 @@ import torch
 from vslam_tpu_torch.frontend import dense_brief as db
 from vslam_tpu_torch.frontend import detect
 from vslam_tpu_torch.frontend import fast_brief as fb
+from vslam_tpu_torch.frontend import orb
 from vslam_tpu_torch.eval import trajectory as traj_eval
 from vslam_tpu_torch.io import synthetic
 from vslam_tpu_torch.io.config import ParameterCollection, load_config
@@ -166,6 +167,149 @@ def test_fast_cells_on_the_card_equal_the_cpu(bin_size):
         kp = detect.detect_keypoints(img[b], t, bin_size, 256, 20, "FAST12", octaves=3)
         for name, a, c in zip(kp._fields, kc, kp):
             assert torch.equal(a[b].cpu(), c), name
+
+
+# The box blur kernel: every shape and radius a cell launches it at
+# (KITTI's pair and level-1 images at radius 2, EuRoC's image and pair at
+# 2, EuRoC's gradient pair at 7; radius 2 is Harris / GFTT's too), and
+# odd sides smaller than one 32 x 128 tile or just over it at both radii.
+BOX_BLUR_CASES = [((2, 376, 1241), 2), ((2, 188, 620), 2), ((1, 480, 752), 2),
+                  ((2, 480, 752), 7), ((3, 17, 33), 2), ((1, 5, 7), 7), ((2, 31, 127), 7),
+                  ((4, 33, 129), 2), ((1, 37, 53), 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, radius", BOX_BLUR_CASES)
+def test_box_blur_kernel_matches_plain_version(shape, radius):
+    """uint8-valued, continuous and Harris-like inputs (squares of small
+    gradients, as the structure tensor blurs): every pixel bit-equal to
+    the plain version on the card, one launch at batch B a call; an
+    (H, W) image takes the kernel at B = 1; one case against the CPU."""
+    _need_card()
+    rng = np.random.default_rng(radius)
+    inputs = [_uint8_valued(shape, radius),
+              torch.from_numpy(rng.uniform(0, 255, shape).astype(np.float32)),
+              torch.from_numpy((rng.normal(0, 0.02, shape) ** 2).astype(np.float32))]
+    B = shape[0]
+    n0, b0 = orb.BOX_BLUR.launches, orb.BOX_BLUR.batches[B]
+    for x in inputs:
+        x = x.cuda()
+        got = orb.box_blur(x, radius)
+        assert got.shape == x.shape and torch.equal(got, orb.box_blur_reference(x, radius))
+    torch.cuda.synchronize()
+    assert orb.BOX_BLUR.launches - n0 == 3 and orb.BOX_BLUR.batches[B] - b0 == 3
+    one = inputs[1][-1].cuda()
+    n1 = orb.BOX_BLUR.batches[1]
+    assert torch.equal(orb.box_blur(one, radius), orb.box_blur_reference(one, radius))
+    assert orb.BOX_BLUR.batches[1] - n1 == 1
+    assert torch.equal(orb.box_blur(inputs[0].cuda(), radius).cpu(),
+                       orb.box_blur(inputs[0], radius))
+
+
+@pytest.mark.cuda
+def test_box_blur_graph_replay_equals_eager_launch():
+    """Both radii a BRIEF256R frame blurs at, captured in one CUDA graph:
+    each replay over new images equals eager launches on them."""
+    _need_card()
+    static = _uint8_valued((2, 480, 752), 5).cuda()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # the first launches configure the kernel
+        orb.box_blur(static, 2)
+        orb.box_blur(static, 7)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    n0 = orb.BOX_BLUR.launches
+    with torch.cuda.graph(graph):
+        outs = (orb.box_blur(static, 2), orb.box_blur(static, 7))
+    assert orb.BOX_BLUR.launches - n0 == 2  # the wrapper counts the captured launches
+    for seed in (6, 7):
+        x = _uint8_valued((2, 480, 752), seed).cuda()
+        static.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], orb.box_blur(x, 2))
+        assert torch.equal(outs[1], orb.box_blur(x, 7))
+
+
+@pytest.mark.cuda
+def test_box_blur_on_the_card_is_the_kernel_alone(monkeypatch):
+    """On a CUDA tensor box_blur runs box_blur_kernel and no other kernel
+    (the profiler's device records), for an (H, W) image and a stack, and
+    never reaches the plain version's f64 FMA emulation (orb._fma)."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+
+    def refuse(*args):
+        raise AssertionError("orb._fma ran on a CUDA tensor")
+
+    x = _uint8_valued((2, 480, 752), 4).cuda()
+    orb.box_blur(x, 7)  # built and configured outside the profile
+    monkeypatch.setattr(orb, "_fma", refuse)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        orb.box_blur(x[0], 2)
+        orb.box_blur(x, 7)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 2 and all("box_blur_kernel" in n for n in names), names
+
+
+@pytest.mark.cuda
+def test_box_blur_kernel_refuses_what_it_does_not_take():
+    """A non-contiguous, non-f32, 2-D or CPU stack, or a radius other
+    than 2 and 7, raises before any launch; so does orb.box_blur on a
+    non-contiguous or non-f32 CUDA stack or image (it converts nothing)."""
+    _need_card()
+    x = _uint8_valued((2, 40, 60), 1).cuda()
+    n0 = orb.BOX_BLUR.launches
+    for bad in (x.transpose(1, 2), x[:, :, ::2], x.double(), x.to(torch.uint8), x.half(), x[0],
+                x.cpu()):
+        with pytest.raises(ValueError):
+            orb.BOX_BLUR.launch(bad, 2)
+    for bad in (x.transpose(1, 2), x[:, :, ::2], x.double(), x.to(torch.uint8), x.half(),
+                x[0].t(), x[0].double(), x[None]):
+        with pytest.raises(ValueError):
+            orb.box_blur(bad, 2)
+    for radius in (0, -1, 1, 3, 6, 8, 16):
+        with pytest.raises(ValueError):
+            orb.BOX_BLUR.launch(x, radius)
+        with pytest.raises(ValueError):
+            orb.box_blur(x, radius)
+    assert orb.BOX_BLUR.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("descriptor, shape, batches", [
+    ("BRIEF256", (376, 1241), {2: 1, 1: 2}),  # K2's pair, then K3's two level-1 images
+    ("BRIEF256R", (480, 752), {2: 3, 1: 2}),  # recovery's pair; per image 2 and 7
+])
+def test_box_blur_launches_a_staged_frame(descriptor, shape, batches):
+    """One stereo frame of the staged front end at 2 octaves: 3 box-blur
+    launches on KITTI's BRIEF256 route, 5 on BRIEF256R's, by batch size as
+    listed; keypoints, descriptors and planes equal the CPU's."""
+    _need_card()
+    from collections import Counter
+
+    from vslam_tpu_torch.mapping import frame
+
+    pair = synthetic.render_frame(synthetic.make_world(
+        cam_ops.make_camera(fx=400.0, fy=400.0, cx=shape[1] / 2, cy=shape[0] / 2,
+                            baseline_m=0.3, rows=shape[0], cols=shape[1], device="cpu"),
+        n_frames=2, n_points=3000, seed=9), 0)[:2]
+    imgs = torch.from_numpy(np.stack(pair).astype(np.uint8).astype(np.float32))
+    args = (1024, 16, 20, descriptor, "FAST", True, 2)
+    n0, b0 = orb.BOX_BLUR.launches, Counter(orb.BOX_BLUR.batches)
+    kc, dc, pc = frame._stereo_detect_describe(imgs.cuda(), torch.tensor(15.0, device="cuda"),
+                                               *args)
+    torch.cuda.synchronize()
+    assert orb.BOX_BLUR.launches - n0 == sum(batches.values())
+    assert orb.BOX_BLUR.batches - b0 == Counter(batches)
+    kp, dp, pp = frame._stereo_detect_describe(imgs, torch.tensor(15.0), *args)
+    assert torch.equal(pc.cpu(), pp)
+    for a, b, da, db_ in zip(kc, kp, dc, dp):
+        for name, u, v in zip(a._fields, a, b):
+            assert torch.equal(u.cpu(), v), name
+        assert torch.equal(da.cpu(), db_)
 
 
 @pytest.mark.cuda
@@ -462,8 +606,9 @@ def test_cli_run_on_a_kitti_directory_on_the_card(tmp_path):
         est[device] = traj_eval.read_kitti(str(out / "est.txt"))
         assert rep["run"]["device"].startswith(device)
         assert rep["run"]["kernel_launches"] == (
-            {"K1": 4, "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0} if device == "cuda"
-            else {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0})
+            {"K1": 4, "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0, "box_blur": 0}
+            if device == "cuda"
+            else {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0, "box_blur": 0})
     assert est["cuda"].shape == (4, 4, 4) and np.isfinite(est["cuda"]).all()
     assert np.abs(est["cuda"][:, :3, 3] - est["cpu"][:, :3, 3]).max() <= 1e-3
 

@@ -33,8 +33,9 @@ def dense_planes(img: torch.Tensor) -> torch.Tensor:
 def dense_planes_batch(imgs: torch.Tensor) -> torch.Tensor:
     """(B, H, W) raw images -> (B, 8, H, W) int32 planes of their blurs,
     one K2 launch (a stereo pair, or a split chunk's 2k images).  Kept
-    for landmark recovery, which re-describes arbitrary pixel positions."""
-    return dense_brief.dense_bit_planes_batch(torch.stack([box_blur(im, 2) for im in imgs]))
+    for landmark recovery, which re-describes arbitrary pixel positions.
+    The stack is blurred in one call (one box-blur launch on the card)."""
+    return dense_brief.dense_bit_planes_batch(box_blur(imgs, 2))
 
 
 def dense_planes_pair(img_l: torch.Tensor, img_r: torch.Tensor) -> torch.Tensor:
@@ -55,10 +56,12 @@ def _dense_bit_planes_bank(smooth: torch.Tensor, bank: int) -> torch.Tensor:
 def orientation_bin_map(smooth: torch.Tensor, n_banks: int = N_ROT_BANKS,
                         grad_radius: int = 7) -> torch.Tensor:
     """(H, W) int32 orientation bins from heavily smoothed gradients.  The
-    central differences wrap at the image edges (jnp.roll)."""
+    central differences wrap at the image edges (jnp.roll); both gradients
+    are blurred in one call (one box-blur launch on the card)."""
     gx = 0.5 * (torch.roll(smooth, -1, 1) - torch.roll(smooth, 1, 1))
     gy = 0.5 * (torch.roll(smooth, -1, 0) - torch.roll(smooth, 1, 0))
-    theta = torch.atan2(box_blur(gy, grad_radius), box_blur(gx, grad_radius))
+    sy, sx = box_blur(torch.stack([gy, gx]), grad_radius)
+    theta = torch.atan2(sy, sx)
     b = torch.round(theta * (n_banks / (2.0 * np.pi))).to(torch.int32)
     return torch.remainder(b, n_banks)
 

@@ -33,7 +33,7 @@ import torch
 from vslam_tpu_torch.frontend.cuda_build import CSRC, CudaLibrary
 from vslam_tpu_torch.frontend.detect import FAST_CELLS
 from vslam_tpu_torch.frontend.fast_brief import K1, PATTERN, pack_brief_words
-from vslam_tpu_torch.frontend.orb import PATTERN_RADIUS, _make_pattern
+from vslam_tpu_torch.frontend.orb import BOX_BLUR, PATTERN_RADIUS, _make_pattern
 
 N_ROT_BANKS = 16
 BAND = 8  # rows per tile on the main path (the TPU kernels' band); all tables
@@ -278,5 +278,7 @@ def dense_bit_planes_pattern(smooth: torch.Tensor, bank: int) -> torch.Tensor:
 
 def kernel_counters() -> dict:
     """The launch counter of every kernel wrapper of the port, by kernel
-    (fast_cells: the staged FAST detector, detect.fast_cells)."""
-    return {"K1": K1, "K2": K2, "K3": K3, "K4": K4, "fast_cells": FAST_CELLS}
+    (fast_cells: the staged FAST detector, detect.fast_cells; box_blur:
+    orb.box_blur)."""
+    return {"K1": K1, "K2": K2, "K3": K3, "K4": K4, "fast_cells": FAST_CELLS,
+            "box_blur": BOX_BLUR}

@@ -47,6 +47,24 @@ FAST_CELLS_OPS_PER_PIXEL = 16 * 8 + 8
 FAST_CELLS_TAPS = 17 + 9
 
 
+def box_blur_work(B: int, H: int, W: int, radius: int) -> tuple[int, int]:
+    """(bytes, f32 operations) the box blur kernel (csrc/box_blur.cu)
+    needs for a (B, H, W) stack at `radius`: each f32 pixel read once and
+    written once (8 bytes), 3k operations at k = 2r + 1 (k - 1 adds, k
+    FMAs, one multiply)."""
+    px = B * H * W
+    return 8 * px, 3 * (2 * radius + 1) * px
+
+
+def box_blur_taps(radius: int) -> float:
+    """Shared loads an output pixel of the box blur kernel's design at
+    `radius`, for its shared-load floor: the vertical pass sums k words
+    for each of a 128-column tile's 128 + 2r halo-wide columns, and the
+    FMA chain reads k."""
+    k = 2 * radius + 1
+    return k * (128 + 2 * radius) / 128 + k
+
+
 def cuda_ms(fn, runs: int = 20, setup=None) -> float:
     """Median device time of fn() in ms, after a warm-up: CUDA events
     around fn alone.  Before each timed call the card spins for ~0.1 ms,

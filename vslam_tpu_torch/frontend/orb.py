@@ -1,6 +1,11 @@
 """Box blur, the BRIEF test pattern and the rotation-aware gather
 descriptor ORB256 (port of vslam_tpu/frontend/orb.py).
 
+`box_blur` blurs an (H, W) image or a (B, H, W) stack: a CPU tensor runs
+the plain version (`box_blur_reference`), a CUDA tensor launches the
+kernel box_blur_kernel (csrc/box_blur.cu) once over the whole stack
+(there is no fallback between the two).
+
 `describe` steers the 256-pair pattern by each keypoint's intensity-
 centroid orientation over a radius-15 disk and compares bilinear samples
 of the box-blurred image, every keypoint at once: (K, 31, 31) disk samples
@@ -10,9 +15,13 @@ clamps them.
 
 from __future__ import annotations
 
+import ctypes
+from collections import Counter
+
 import numpy as np
 import torch
 
+from vslam_tpu_torch.frontend.cuda_build import CudaLibrary
 from vslam_tpu_torch.ops import hamming
 
 PATCH_RADIUS = 15  # orientation patch radius (ORB standard 31x31 patch)
@@ -60,9 +69,9 @@ def _fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     return torch.where(wrong, o, r)
 
 
-def box_blur(img: torch.Tensor, radius: int = 2) -> torch.Tensor:
-    """Separable (2r+1)^2 box blur of an (H, W) f32 image, edge-replicated,
-    normalized.
+def box_blur_reference(img: torch.Tensor, radius: int = 2) -> torch.Tensor:
+    """Plain version: separable (2r+1)^2 box blur of an (H, W) f32 image
+    or of each image of a (B, H, W) stack, edge-replicated, normalized.
 
     The JAX reference sums rows in ascending order and divides by k, then
     columns the same way; XLA on the CPU turns each division into a
@@ -72,15 +81,105 @@ def box_blur(img: torch.Tensor, radius: int = 2) -> torch.Tensor:
     (Not K1's blur, which pads with zeros.)"""
     k = 2 * radius + 1
     inv = float(np.float32(1.0 / k))
-    H, W = img.shape
-    pad = torch.nn.functional.pad(img[None], (radius,) * 4, mode="replicate")[0]
-    rows = pad[0:H]
+    H, W = img.shape[-2:]
+    stack = img if img.dim() == 3 else img[None]
+    pad = torch.nn.functional.pad(stack, (radius,) * 4, mode="replicate")
+    rows = pad[:, 0:H]
     for i in range(1, k):
-        rows = rows + pad[i:i + H]
-    s = _fma(rows[:, 0:W], inv, rows[:, 1:1 + W] * inv)
+        rows = rows + pad[:, i:i + H]
+    s = _fma(rows[..., 0:W], inv, rows[..., 1:1 + W] * inv)
     for j in range(2, k):
-        s = _fma(rows[:, j:j + W], inv, s)
-    return s * inv
+        s = _fma(rows[..., j:j + W], inv, s)
+    s = s * inv
+    return s if img.dim() == 3 else s[0]
+
+
+class BoxBlurKernel:
+    """The built csrc/box_blur.cu library plus its launch count.
+
+    `launches` goes up by one each time the CUDA kernel is launched, and
+    nowhere else (`batches` counts the same launches by batch size B);
+    `library` holds the build (log, seconds)."""
+
+    # Radii the kernel takes, each compiled with the radius fixed: 2
+    # (BRIEF, ORB, Harris / GFTT) and 7 (BRIEF256R's orientation map).
+    radii = (2, 7)
+
+    def __init__(self):
+        self.launches = 0
+        self.batches = Counter()
+        self.library = CudaLibrary("box_blur.cu")
+
+    @staticmethod
+    def sass_name(radius: int = 2) -> str:
+        """A substring of the mangled name of the instantiation that takes
+        `radius`."""
+        return f"box_blur_kernelILi{radius}E"
+
+    def build(self):
+        """Compile the kernel with nvcc (once per source version) and load it."""
+        lib = self.library.load()
+        lib.box_blur_launch.restype = ctypes.c_int
+        lib.box_blur_launch.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4
+                                        + [ctypes.c_void_p] * 2 + [ctypes.c_int])
+        lib.box_blur_occupancy.restype = ctypes.c_int
+        lib.box_blur_occupancy.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+        return lib
+
+    def _check_radius(self, radius: int) -> None:
+        if radius not in self.radii:
+            raise ValueError(f"box blur: radius {radius} on the card, which takes "
+                             f"{self.radii}")
+
+    def blocks_per_sm(self, device: torch.device, radius: int = 2) -> int:
+        """Resident blocks of the kernel on one SM of `device` at `radius`."""
+        self._check_radius(radius)
+        n = ctypes.c_int(0)
+        err = self.build().box_blur_occupancy(radius, ctypes.byref(n), device.index)
+        if err != 0:
+            raise RuntimeError(f"box blur occupancy query failed: cudaError {err}")
+        return n.value
+
+    def launch(self, imgs: torch.Tensor, radius: int) -> torch.Tensor:
+        """(B, H, W) contiguous f32 CUDA stack -> its (B, H, W) blurs."""
+        if imgs.dtype != torch.float32 or imgs.dim() != 3 or not imgs.is_contiguous() \
+                or imgs.device.type != "cuda":
+            raise ValueError("box blur: imgs must be a contiguous (B, H, W) float32 CUDA "
+                             "tensor")
+        self._check_radius(radius)
+        B, H, W = imgs.shape
+        if B > 65535:
+            raise ValueError(f"box blur: batch {B} over 65535 (the grid's z extent)")
+        out = torch.empty_like(imgs)
+        if out.numel() == 0:
+            return out
+        dev = imgs.device
+        err = self.build().box_blur_launch(
+            imgs.data_ptr(), B, H, W, radius, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream, dev.index,
+        )
+        if err != 0:
+            raise RuntimeError(f"box blur launch failed: cudaError {err}")
+        self.launches += 1
+        self.batches[B] += 1
+        return out
+
+
+BOX_BLUR = BoxBlurKernel()
+
+
+def box_blur(img: torch.Tensor, radius: int = 2) -> torch.Tensor:
+    """Separable (2r+1)^2 box blur of an (H, W) f32 image or of each image
+    of a (B, H, W) stack, edge-replicated, normalized (box_blur_reference's
+    bits).  A CPU tensor runs the plain version; a contiguous f32 CUDA
+    tensor launches the kernel once over the stack at radius 2 or 7, and
+    any other CUDA tensor or radius raises ValueError."""
+    if img.device.type == "cuda":
+        out = BOX_BLUR.launch(img if img.dim() == 3 else img[None], radius)
+        return out if img.dim() == 3 else out[0]
+    if img.device.type != "cpu":
+        raise ValueError(f"box blur: unsupported device {img.device}")
+    return box_blur_reference(img, radius)
 
 
 def _bilinear(img: torch.Tensor, r: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
