@@ -343,7 +343,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from vslam_tpu_torch.eval.workloads import (  # noqa: E402  (the bench workload)
     KITTI_CAM, ba_closed_config, bench_config, bench_world, closed_loop_config)
-from vslam_tpu_torch.frontend.dense_brief import kernel_counters as counters  # noqa: E402
+import vslam_tpu_torch.frontend.dense_brief  # noqa: E402,F401  (registers K1-K4, box_blur)
+import vslam_tpu_torch.frontend.detect  # noqa: E402,F401  (registers fast_cells)
+from vslam_tpu_torch.ops.cuda_build import counters  # noqa: E402
 
 ATE_LIMIT_M = 0.05
 LOCAL_MAPS = (36, 48)  # phases 7-8: 128 frames, JAX's 42
@@ -1939,7 +1941,7 @@ def phase_build(card) -> dict:
     from vslam_tpu_torch.frontend import detect
     from vslam_tpu_torch.frontend import fast_brief as fb
     from vslam_tpu_torch.frontend import orb
-    from vslam_tpu_torch.frontend.cuda_build import loop_shared_loads
+    from vslam_tpu_torch.ops.cuda_build import loop_shared_loads
     from vslam_tpu_torch.io import image
     from vslam_tpu_torch.ops import control
 
@@ -3365,8 +3367,9 @@ def main():
 
     sources = {"K1": ("fast_brief_frontend_pair", "fast_brief_frontend.cu",
                       "vslam_tpu/frontend/pallas_frontend.py:196")}
-    for name, entry in (("K2", db.K2), ("K3", db.K3), ("K4", db.K4)):
-        sources[name] = (entry.name, "dense_brief.cu", entry.replaces)
+    for name, fn, line in (("K2", "dense_bit_planes_batch", 176), ("K3", "dense_bit_planes", 78),
+                           ("K4", "dense_bit_planes_pattern", 116)):
+        sources[name] = (fn, "dense_brief.cu", f"vslam_tpu/frontend/pallas_brief.py:{line}")
     sources["fast_cells"] = ("fast_cells", "fast_cells.cu",
                              "none: XLA in vslam_tpu/frontend/detect.py (fast_score_map, "
                              "nms3, keypoints_from_score's per-cell argmax)")

@@ -6,14 +6,18 @@ tests/test_torch_cuda.py.)"""
 import os
 import re
 import shutil
+from collections import Counter
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
-from vslam_tpu_torch.frontend import cuda_build
 from vslam_tpu_torch.frontend import dense_brief as db
+from vslam_tpu_torch.frontend import detect  # noqa: F401  (registers fast_cells)
 from vslam_tpu_torch.frontend import fast_brief as fb
+from vslam_tpu_torch.frontend import orb
+from vslam_tpu_torch.ops import cuda_build
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
@@ -97,3 +101,55 @@ def test_loop_shared_loads_counts_the_pixel_loop():
     assert cuda_build.loop_shared_loads(sass, "other") == 0
     with pytest.raises(KeyError):
         cuda_build.loop_shared_loads(sass, "missing")
+
+
+def _c_signatures(source) -> dict:
+    """{function: argument letters} of the `extern "C"` functions of a
+    csrc source: "p" a pointer, "i" an int."""
+    text = (cuda_build.CSRC / source).read_text()
+    out = {}
+    for fn, params in re.findall(r'extern "C" int\s+(\w+)\(([^)]*)\)', text):
+        out[fn] = "".join("p" if "*" in a else "i" for a in params.split(","))
+        assert all("*" in a or a.split()[0] == "int" for a in params.split(",")), (fn, params)
+    return out
+
+
+@pytest.mark.parametrize("name", ["K1", "K2", "K3", "K4", "fast_cells", "box_blur"])
+def test_kernel_signatures_match_their_sources(name):
+    """Each registered kernel's ctypes signatures, declared as data, are
+    its source's C interface: the launch's and the occupancy query's
+    arguments, then the stream (or the blocks pointer) and the device."""
+    kernel = cuda_build.counters()[name]
+    c = _c_signatures(kernel.library.src.name)
+    assert c[f"{kernel.symbol}_launch"] == kernel.launch_args + "pi"
+    assert c[f"{kernel.symbol}_occupancy"] == kernel.occupancy_args + "pi"
+
+
+def test_a_cuda_kernel_counts_its_launches_and_raises_on_a_cuda_error(monkeypatch):
+    """CudaKernel's one launch call passes the arguments, the current
+    stream and the device index; a cudaError raises naming the kernel and
+    counts nothing; a launch that succeeds counts once at its batch size.
+    Kernels of one source share its build, and a name is taken once."""
+    monkeypatch.setattr(cuda_build, "_KERNELS", dict(cuda_build._KERNELS))
+    k = cuda_build.CudaKernel("probe", "box_blur.cu", "box_blur", "piiiip", "i")
+    assert cuda_build.counters()["probe"] is k and k.library is orb.BOX_BLUR.library
+    assert db.K2.library is db.K3.library is db.K4.library
+    with pytest.raises(ValueError, match="probe"):
+        cuda_build.CudaKernel("probe", "fast_cells.cu", "fast_cells", "ppiiiiiipp", "i")
+    calls, err = [], [700]
+    monkeypatch.setattr(k, "build", lambda: None)
+    monkeypatch.setattr(k, "_entries", (lambda *a: calls.append(a) or err[0],
+                                        lambda *a: calls.append(a) or err[0]))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=42))
+    dev = torch.device("cuda", 3)
+    with pytest.raises(RuntimeError, match="probe launch failed: cudaError 700"):
+        k._launch(dev, 2, 11, 2)
+    assert k.launches == 0 and not k.batches
+    err[0] = 0
+    k._launch(dev, 2, 11, 2)
+    assert calls[-1] == (11, 2, 42, 3) and k.launches == 1 and k.batches == Counter({2: 1})
+    err[0] = 2
+    with pytest.raises(RuntimeError, match="probe occupancy query failed: cudaError 2"):
+        k.blocks_per_sm(dev, 7)
+    assert calls[-1][0] == 7 and calls[-1][2] == 3 and k.launches == 1

@@ -29,6 +29,7 @@ from vslam_tpu_torch.eval import trajectory as traj_eval
 from vslam_tpu_torch.io import synthetic
 from vslam_tpu_torch.io.config import ParameterCollection, load_config
 from vslam_tpu_torch.ops import camera as cam_ops
+from vslam_tpu_torch.ops.cuda_build import counters
 from vslam_tpu_torch.system.engine import SlamEngine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -713,19 +714,18 @@ def test_frame_program_equals_the_eager_step_on_the_card(route):
     eager = fused.init_state(cam, params, 8192, 20.0)
     prog = fused.FrameProgram(cam, params, fused.init_state(cam, params, 8192, 20.0),
                                  True, staged.dtype)
-    counters = db.kernel_counters()
     for i, imgs in enumerate(staged):
         eager = fused.step(cam, params, eager, imgs, True)
         if i == 1:
             prog.capture()
-        before = {k: c.launches for k, c in counters.items()}
+        before = {k: c.launches for k, c in counters().items()}
         if i > 0:
             torch.cuda.set_sync_debug_mode("error")
         try:
             prog.run(imgs)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        made = {k: c.launches - before[k] for k, c in counters.items()}
+        made = {k: c.launches - before[k] for k, c in counters().items()}
         if i == 0:
             first = made
         assert made == first and sum(made.values()) >= 1, (i, made, first)
@@ -1272,7 +1272,7 @@ def test_modular_programs_replay_their_eager_runs(mode):
     for buf, v in zip(progs.gates, gates):
         buf.fill_(v)
     eye = np.eye(4, dtype=np.float32)
-    k1 = db.kernel_counters()["K1"]
+    k1 = counters()["K1"]
     n0 = k1.launches
 
     def step(prog, inputs, changed):

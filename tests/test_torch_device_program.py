@@ -38,6 +38,7 @@ plus the launch bookkeeping of replays and assign_state's refusals.
 
 import os
 from collections import Counter
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -50,12 +51,11 @@ from vslam_tpu.ops import camera as jcam
 from vslam_tpu.tracking import fused as jfused
 from vslam_tpu.tracking.tracker import FusedPoseTracker as JTracker
 from vslam_tpu_torch.eval import trajectory as ttraj
-from vslam_tpu_torch.frontend import dense_brief as db
 from vslam_tpu_torch.io import checkpoint
 from vslam_tpu_torch.io import synthetic as tsyn
 from vslam_tpu_torch.io.config import ParameterCollection as TConfig
 from vslam_tpu_torch.ops import camera as tcam
-from vslam_tpu_torch.ops import control, lie
+from vslam_tpu_torch.ops import control, cuda_build, lie, program
 from vslam_tpu_torch.system.engine import SlamEngine
 from vslam_tpu_torch.tracking import fused as tfused
 from vslam_tpu_torch.tracking import tracker as ttracker
@@ -368,7 +368,7 @@ def test_program_equals_the_eager_step():
         freed = max(freed, int(prog.state.free_count))
     assert freed > 0  # a sweep pushed slots on the free stack
     assert all(a is b for a, b in zip(buffers, (t for _, t in tfused.state_tensors(prog.state))))
-    assert int(prog.state.kf_count) >= 2 and prog.frames == 20
+    assert int(prog.state.kf_count) >= 2 and prog.uses == 20
 
 
 def test_run_chunk_matches_jax_make_chunk_step(guided, jax_setup):
@@ -392,7 +392,7 @@ def test_run_chunk_matches_jax_make_chunk_step(guided, jax_setup):
         js = jchunk(jc, js, jnp.asarray(buf), jnp.int32(k), jnp.asarray(True), jnp.asarray(o),
                     jnp.asarray(True))
         prog.run_chunk(torch.from_numpy(buf), k, torch.from_numpy(o))
-    assert int(prog.state.frame_idx) == 6 and prog.frames == 6
+    assert int(prog.state.frame_idx) == 6 and prog.uses == 6
     _jax_ring_matches(prog.state, js, recovered_slack=1)
 
 
@@ -580,8 +580,27 @@ class _FakeGraph:
         self.replays += 1
 
 
-def test_replays_add_the_launches_their_capture_withheld(monkeypatch):
-    counters = db.kernel_counters()
+def _launch_on_the_cpu(monkeypatch, kernel):
+    """kernel._launch, the counting call of every CUDA kernel, with a
+    library and a stream that do nothing (the CPU has neither)."""
+    monkeypatch.setattr(kernel, "build", lambda: None)
+    monkeypatch.setattr(kernel, "_entries", (lambda *args: 0, None))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    return lambda batch: kernel._launch(CPU, batch)
+
+
+@pytest.mark.parametrize("name", ["K3", "made here"])
+def test_replays_add_the_launches_their_capture_withheld(name, monkeypatch):
+    """A capture counts none of its launches and each replay adds them:
+    K1 and a front-end kernel (K3), or a CudaKernel made here, outside
+    the front end, which registers its counter itself."""
+    monkeypatch.setattr(cuda_build, "_KERNELS", dict(cuda_build._KERNELS))
+    if name == "made here":
+        cuda_build.CudaKernel(name, "box_blur.cu", "box_blur", "piiiip", "i")
+    counters = cuda_build.counters()
+    assert name in counters and "K1" in counters
+    launch = _launch_on_the_cpu(monkeypatch, counters[name])
     saved = {k: (c.launches, Counter(c.batches)) for k, c in counters.items()}
     try:
         for c in counters.values():
@@ -589,28 +608,31 @@ def test_replays_add_the_launches_their_capture_withheld(monkeypatch):
             c.batches.clear()
         counters["K1"].launches = 5  # earlier runs' launches stay
         record = {}
-        with tfused.withheld_launches(record):  # what a capture's wrappers count
+        with program.withheld_launches(record):  # what a capture's kernels count
             counters["K1"].launches += 1
             counters["K1"].batches[2] += 1
-            counters["K3"].launches += 2
-            counters["K3"].batches[1] += 2
-        assert counters["K1"].launches == 5 and counters["K3"].launches == 0
-        assert record["K1"] == (1, Counter({2: 1})) and record["K3"] == (2, Counter({1: 2}))
-        assert record["K2"][0] == 0 and record["K4"][0] == 0
+            launch(1)
+            launch(1)
+        assert counters["K1"].launches == 5 and counters[name].launches == 0
+        assert record["K1"] == (1, Counter({2: 1})) and record[name] == (2, Counter({1: 2}))
+        assert all(record[k][0] == 0 for k in counters if k not in ("K1", name))
 
         cam = tcam.make_camera(fx=300, fy=300, cx=64, cy=32, baseline_m=0.4, rows=64,
                                cols=128, device="cpu")
         params = ttracker.params_from_config(cam, TConfig(), CPU)
         prog = tfused.FrameProgram(cam, params, tfused.init_state(cam, params, 256, 20.0),
-                                      True, torch.uint8)
-        prog.graph, prog.replay_launches = _FakeGraph(), record
+                                   True, torch.uint8)
+        assert isinstance(prog, program.StaticProgram)
+        prog.graph, prog.replay_launches, prog.events = _FakeGraph(), record, Counter()
+        prog.device, prog.uses = torch.device("cuda"), 1  # a replay's route, with no card
         n = 7
         for _ in range(n):
-            prog._replay()
-        assert prog.graph.replays == n
+            assert prog.evaluate() is None  # the frame writes its buffers: nothing to clone
+        assert prog.graph.replays == n and prog.events == Counter({"replay": n})
         assert counters["K1"].launches == 5 + n and counters["K1"].batches == Counter({2: n})
-        assert counters["K3"].launches == 2 * n and counters["K3"].batches == Counter({1: 2 * n})
-        assert counters["K2"].launches == counters["K4"].launches == 0
+        assert counters[name].launches == 2 * n
+        assert counters[name].batches == Counter({1: 2 * n})
+        assert all(c.launches == 0 for k, c in counters.items() if k not in ("K1", name))
     finally:
         for k, c in counters.items():
             c.launches = saved[k][0]

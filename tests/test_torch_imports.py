@@ -1,6 +1,8 @@
 """The port's boundaries: no jax import, no silent fallback, and explicit
 configurations an earlier slice refused now run."""
 
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -74,6 +76,30 @@ def test_every_port_module_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env,
                          timeout=120, capture_output=True, text=True)
     assert int(out.stdout.split()[-1]) >= 30
+
+
+def _imported_modules(path) -> set:
+    """Every module an import statement of a file names, at any depth
+    (an `from a import b` names both a and a.b)."""
+    out = set()
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            out.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            out.add(node.module)
+            out.update(f"{node.module}.{a.name}" for a in node.names)
+    return out
+
+
+def test_ops_imports_nothing_of_the_front_end():
+    """ops/ is the bottom layer: it builds, launches, counts and captures
+    device work, and no module of it imports vslam_tpu_torch.frontend."""
+    paths = glob.glob(os.path.join(REPO, "vslam_tpu_torch", "ops", "*.py"))
+    assert any(p.endswith("cuda_build.py") for p in paths)
+    bad = {os.path.basename(p): sorted(m for m in _imported_modules(p)
+                                       if m.startswith("vslam_tpu_torch.frontend"))
+           for p in paths}
+    assert not any(bad.values()), bad
 
 
 def test_cuda_device_without_a_card_raises():

@@ -22,18 +22,14 @@ A CPU tensor runs the plain version; a CUDA tensor launches the kernel
 
 from __future__ import annotations
 
-import ctypes
-from collections import Counter
-from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from vslam_tpu_torch.frontend.cuda_build import CSRC, CudaLibrary
-from vslam_tpu_torch.frontend.detect import FAST_CELLS
-from vslam_tpu_torch.frontend.fast_brief import K1, PATTERN, pack_brief_words
-from vslam_tpu_torch.frontend.orb import BOX_BLUR, PATTERN_RADIUS, _make_pattern
+from vslam_tpu_torch.frontend.fast_brief import PATTERN, pack_brief_words
+from vslam_tpu_torch.frontend.orb import PATTERN_RADIUS, _make_pattern
+from vslam_tpu_torch.ops.cuda_build import CSRC, CudaKernel
 
 N_ROT_BANKS = 16
 BAND = 8  # rows per tile on the main path (the TPU kernels' band); all tables
@@ -157,52 +153,24 @@ def dense_bit_planes_reference(smooth: torch.Tensor, table: int = 0) -> torch.Te
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernel: build at first use, bind through ctypes
+# CUDA kernel (ops/cuda_build.CudaKernel)
 # ---------------------------------------------------------------------------
 
 
-@dataclass
-class EntryPoint:
-    """One wrapper of the kernel: `launches` goes up by one each time the
-    wrapper launches the CUDA kernel, and nowhere else (`batches` counts
-    the same launches by batch size B)."""
-
-    name: str
-    replaces: str
-    launches: int = 0
-    batches: Counter = field(default_factory=Counter)
-
-
-K2 = EntryPoint("dense_bit_planes_batch", "vslam_tpu/frontend/pallas_brief.py:176")
-K3 = EntryPoint("dense_bit_planes", "vslam_tpu/frontend/pallas_brief.py:78")
-K4 = EntryPoint("dense_bit_planes_pattern", "vslam_tpu/frontend/pallas_brief.py:116")
-
-
-class DenseBriefKernel:
-    """The built dense-BRIEF library, shared by K2, K3 and K4.
+class DenseBriefKernel(CudaKernel):
+    """One entry of csrc/dense_brief.cu; K2, K3 and K4 share its build.
 
     Every table is built for the main band BAND in float32; the probe's
     other bands and bfloat16 input are built for table 0 only."""
 
-    def __init__(self):
-        self.library = CudaLibrary("dense_brief.cu")
+    def __init__(self, name: str):
+        super().__init__(name, "dense_brief.cu", "dense_brief", "piiiiiip", "iii")
 
     @staticmethod
     def sass_name(table: int = 0, band: int = BAND, dtype=torch.float32) -> str:
         """A substring of the mangled name of one instantiation's kernel."""
         t = "f" if dtype == torch.float32 else "13__nv_bfloat16"
         return f"dense_brief_kernelILi{band}E{t}Li{table}EE"
-
-    def build(self):
-        """Compile the kernel with nvcc (once per source version) and load it."""
-        lib = self.library.load()
-        lib.dense_brief_launch.restype = ctypes.c_int
-        lib.dense_brief_launch.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 6
-                                           + [ctypes.c_void_p] * 2 + [ctypes.c_int])
-        lib.dense_brief_occupancy.restype = ctypes.c_int
-        lib.dense_brief_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p,
-                                                                   ctypes.c_int]
-        return lib
 
     @staticmethod
     def _check(table: int, band: int, dtype) -> None:
@@ -217,12 +185,7 @@ class DenseBriefKernel:
                       dtype=torch.float32) -> int:
         """Resident blocks of one instantiation on one SM of `device`."""
         self._check(table, band, dtype)
-        n = ctypes.c_int(0)
-        err = self.build().dense_brief_occupancy(int(dtype == torch.bfloat16), band, table,
-                                                 ctypes.byref(n), device.index)
-        if err != 0:
-            raise RuntimeError(f"dense BRIEF occupancy query failed: cudaError {err}")
-        return n.value
+        return super().blocks_per_sm(device, int(dtype == torch.bfloat16), band, table)
 
     def launch(self, smooth: torch.Tensor, table: int, band: int = BAND) -> torch.Tensor:
         """(B, H, W) contiguous f32 (or bf16) CUDA stack -> (B, 8, H, W) int32."""
@@ -230,29 +193,26 @@ class DenseBriefKernel:
             raise ValueError("dense BRIEF: smooth must be a non-empty contiguous "
                              "(B, H, W) float32 or bfloat16 tensor")
         self._check(table, band, smooth.dtype)
-        lib = self.build()
         dev = smooth.device
         B, H, W = smooth.shape
         planes = torch.empty((B, 8, H, W), dtype=torch.int32, device=dev)
-        err = lib.dense_brief_launch(
-            smooth.data_ptr(), int(smooth.dtype == torch.bfloat16), B, H, W, table,
-            band, planes.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-            dev.index,
-        )
-        if err != 0:
-            raise RuntimeError(f"dense BRIEF launch failed: cudaError {err}")
+        self._launch(dev, B, smooth.data_ptr(), int(smooth.dtype == torch.bfloat16), B, H, W,
+                     table, band, planes.data_ptr())
         return planes
 
 
-KERNEL = DenseBriefKernel()
+# The three TPU functions each wrapper stands for (module docstring).
+K2 = DenseBriefKernel("K2")  # vslam_tpu/frontend/pallas_brief.py:176
+K3 = DenseBriefKernel("K3")  # vslam_tpu/frontend/pallas_brief.py:78
+K4 = DenseBriefKernel("K4")  # vslam_tpu/frontend/pallas_brief.py:116
+# The library's handle for a direct launch at any table and band (the
+# probes'); such a launch counts as K2's.
+KERNEL = K2
 
 
-def _planes(entry: EntryPoint, smooth: torch.Tensor, table: int) -> torch.Tensor:
+def _planes(entry: DenseBriefKernel, smooth: torch.Tensor, table: int) -> torch.Tensor:
     if smooth.device.type == "cuda":
-        planes = KERNEL.launch(smooth.to(torch.float32).contiguous(), table)
-        entry.launches += 1
-        entry.batches[smooth.shape[0]] += 1
-        return planes
+        return entry.launch(smooth.to(torch.float32).contiguous(), table)
     if smooth.device.type != "cpu":
         raise ValueError(f"dense BRIEF: unsupported device {smooth.device}")
     return dense_bit_planes_reference(smooth.to(torch.float32), table)
@@ -275,10 +235,3 @@ def dense_bit_planes_pattern(smooth: torch.Tensor, bank: int) -> torch.Tensor:
         raise ValueError(f"rotation bank {bank} outside 0..{N_ROT_BANKS - 1}")
     return _planes(K4, smooth[None], 1 + bank)[0]
 
-
-def kernel_counters() -> dict:
-    """The launch counter of every kernel wrapper of the port, by kernel
-    (fast_cells: the staged FAST detector, detect.fast_cells; box_blur:
-    orb.box_blur)."""
-    return {"K1": K1, "K2": K2, "K3": K3, "K4": K4, "fast_cells": FAST_CELLS,
-            "box_blur": BOX_BLUR}

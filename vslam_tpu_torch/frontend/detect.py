@@ -23,15 +23,12 @@ own algorithm and, by default, TF32).
 
 from __future__ import annotations
 
-import ctypes
-from collections import Counter
-
 import numpy as np
 import torch
 
-from vslam_tpu_torch.frontend.cuda_build import CudaLibrary
 from vslam_tpu_torch.frontend.fast_brief import CIRCLE, Keypoints, _arc
 from vslam_tpu_torch.frontend.orb import box_blur
+from vslam_tpu_torch.ops.cuda_build import CudaKernel
 
 ARC_LEN = 9
 # The FAST family and its arc lengths (AGAST scores as FAST-9).
@@ -394,12 +391,8 @@ def fast_cells_reference(imgs: torch.Tensor, threshold: torch.Tensor, arc_len: i
     return cells_from_score(nms3(fast_score_map(imgs, threshold, arc_len)), bin_size, border)
 
 
-class FastCellsKernel:
-    """The built csrc/fast_cells.cu library plus its launch count.
-
-    `launches` goes up by one each time the CUDA kernel is launched, and
-    nowhere else (`batches` counts the same launches by batch size B);
-    `library` holds the build (log, seconds)."""
+class FastCellsKernel(CudaKernel):
+    """The staged FAST detector, csrc/fast_cells.cu."""
 
     # The kernel's SASS function name (a substring of the mangled name).
     sass_name = "fast_cells_kernel"
@@ -407,28 +400,11 @@ class FastCellsKernel:
     max_bin = 128
 
     def __init__(self):
-        self.launches = 0
-        self.batches = Counter()
-        self.library = CudaLibrary("fast_cells.cu")
-
-    def build(self):
-        """Compile the kernel with nvcc (once per source version) and load it."""
-        lib = self.library.load()
-        fn = lib.fast_cells_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
-                       + [ctypes.c_int])
-        lib.fast_cells_occupancy.restype = ctypes.c_int
-        lib.fast_cells_occupancy.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-        return lib
+        super().__init__("fast_cells", "fast_cells.cu", "fast_cells", "ppiiiiiipp", "i")
 
     def blocks_per_sm(self, device: torch.device, bin_size: int = 16) -> int:
         """Resident blocks of the kernel on one SM of `device` at `bin_size`."""
-        n = ctypes.c_int(0)
-        err = self.build().fast_cells_occupancy(bin_size, ctypes.byref(n), device.index)
-        if err != 0:
-            raise RuntimeError(f"FAST cells occupancy query failed: cudaError {err}")
-        return n.value
+        return super().blocks_per_sm(device, bin_size)
 
     def launch(self, imgs: torch.Tensor, threshold: torch.Tensor, arc_len: int, border: int,
                bin_size: int):
@@ -450,16 +426,8 @@ class FastCellsKernel:
         cell_best = torch.empty((B, cells), dtype=torch.int32, device=dev)
         if B * cells == 0:
             return cell_score, cell_best
-        lib = self.build()
-        err = lib.fast_cells_launch(
-            imgs.data_ptr(), threshold.reshape(1).data_ptr(), B, H, W, arc_len, border,
-            bin_size, cell_score.data_ptr(), cell_best.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream, dev.index,
-        )
-        if err != 0:
-            raise RuntimeError(f"FAST cells launch failed: cudaError {err}")
-        self.launches += 1
-        self.batches[B] += 1
+        self._launch(dev, B, imgs.data_ptr(), threshold.reshape(1).data_ptr(), B, H, W,
+                     arc_len, border, bin_size, cell_score.data_ptr(), cell_best.data_ptr())
         return cell_score, cell_best
 
 

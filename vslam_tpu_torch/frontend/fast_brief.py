@@ -23,15 +23,13 @@ the two.
 
 from __future__ import annotations
 
-import ctypes
-from collections import Counter
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from vslam_tpu_torch.frontend.cuda_build import CudaLibrary
 from vslam_tpu_torch.frontend.orb import PATTERN_RADIUS, _fma, _make_pattern
+from vslam_tpu_torch.ops.cuda_build import CudaKernel
 
 BAND = 16  # output rows per band (= the band tail's bin size)
 LANE = 128  # column tile; the band reduction is Wo = round_up(W, 128) wide
@@ -171,41 +169,18 @@ def fast_brief_frontend_pair_reference(
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernel: build at first use, bind through ctypes
+# CUDA kernel (ops/cuda_build.CudaKernel)
 # ---------------------------------------------------------------------------
 
-class FastBriefKernel:
-    """The built K1 library plus its launch count.
-
-    `launches` goes up by one each time the CUDA kernel is launched, and
-    nowhere else; `library` holds the build (log, seconds)."""
+class FastBriefKernel(CudaKernel):
+    """K1, csrc/fast_brief_frontend.cu."""
 
     # The kernel's SASS function name (a substring of the mangled name).
     sass_name = "fast_brief_tile_kernel"
 
     def __init__(self):
-        self.launches = 0
-        self.batches = Counter()  # the same launches by batch size B
-        self.library = CudaLibrary("fast_brief_frontend.cu")
-
-    def build(self):
-        """Compile the kernel with nvcc (once per source version) and load it."""
-        lib = self.library.load()
-        fn = lib.fast_brief_frontend_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p] * 5 + [ctypes.c_int])
-        lib.fast_brief_frontend_occupancy.restype = ctypes.c_int
-        lib.fast_brief_frontend_occupancy.argtypes = [ctypes.c_void_p, ctypes.c_int]
-        return lib
-
-    def blocks_per_sm(self, device: torch.device) -> int:
-        """Resident blocks of the kernel on one SM of `device`."""
-        n = ctypes.c_int(0)
-        err = self.build().fast_brief_frontend_occupancy(ctypes.byref(n), device.index)
-        if err != 0:
-            raise RuntimeError(f"K1 occupancy query failed: cudaError {err}")
-        return n.value
+        super().__init__("K1", "fast_brief_frontend.cu", "fast_brief_frontend",
+                         "ppiiiiiipppp")
 
     def launch(self, imgs: torch.Tensor, threshold: torch.Tensor, arc_len: int,
                border: int, bin_size: int):
@@ -216,7 +191,6 @@ class FastBriefKernel:
             raise ValueError("K1: threshold must be one float32 on the images' device")
         if arc_len not in (9, 12):
             raise ValueError(f"K1: arc_len {arc_len} (9 or 12)")
-        lib = self.build()
         B, H, W = imgs.shape
         dev = imgs.device
         Wo, n_bands = _round_up(W, LANE), -(-H // BAND)
@@ -225,16 +199,9 @@ class FastBriefKernel:
         rowmax = torch.empty((B, n_bands, Wo), dtype=torch.float32, device=dev)
         rowarg = torch.empty((B, n_bands, Wo), dtype=torch.int32, device=dev)
         thr = threshold.reshape(1).contiguous()
-        err = lib.fast_brief_frontend_launch(
-            imgs.data_ptr(), thr.data_ptr(), B, H, W, arc_len,
-            border, bin_size, planes.data_ptr(), score.data_ptr(),
-            rowmax.data_ptr(), rowarg.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream, dev.index,
-        )
-        if err != 0:
-            raise RuntimeError(f"K1 launch failed: cudaError {err}")
-        self.launches += 1
-        self.batches[B] += 1
+        self._launch(dev, B, imgs.data_ptr(), thr.data_ptr(), B, H, W, arc_len, border,
+                     bin_size, planes.data_ptr(), score.data_ptr(), rowmax.data_ptr(),
+                     rowarg.data_ptr())
         return planes, score, rowmax, rowarg
 
 

@@ -1,16 +1,6 @@
 """Device times of the port's kernels and the bounds they are held to.
 
-chip_smoke.py times every kernel with these helpers.  Run as a module,
-it times an earlier design of K1 and of the dense BRIEF kernel beside
-this checkout's, on the same card, in turns (earlier, this, this,
-earlier), warm and with L2 flushed:
-
-    python -m vslam_tpu_torch.frontend.kernel_timing --earlier DIR [--out FILE]
-
-DIR holds the earlier fast_brief_frontend.cu and dense_brief.cu, with the
-C interface they had before the pattern tables were compiled in (a
-device pattern pointer for K1; dense_brief_set_patterns for the dense
-kernel), e.g. from `git show <commit>:vslam_tpu_torch/csrc/<file>`.
+chip_smoke.py times every kernel with these helpers.
 
 Bounds: the least time the card could take is the larger of the bytes
 the function must move (each input read once, each output written once)
@@ -22,13 +12,8 @@ memory at one 32-lane load per SM and clock.
 
 from __future__ import annotations
 
-import argparse
-import ctypes
-import json
-import os
 import statistics
 import subprocess
-import time
 
 import numpy as np
 import torch
@@ -141,120 +126,3 @@ def smem_floor_ms(pixels: int, taps: int, device=0) -> float:
     and clock on every SM."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return 1e3 * pixels * taps / (sms * 32 * sm_clock_hz())
-
-
-# ---------------------------------------------------------------------------
-# The earlier design beside this one
-# ---------------------------------------------------------------------------
-
-
-def _earlier_kernels(directory: str):
-    """Build the earlier K1 and dense kernel from `directory` (their own
-    C interfaces) and return launch functions matching this checkout's."""
-    from vslam_tpu_torch.frontend import cuda_build, dense_brief, fast_brief
-
-    libs = {}
-    for stem in ("fast_brief_frontend", "dense_brief"):
-        so = os.path.join(str(cuda_build.BUILD_DIR), f"earlier_{stem}.so")
-        os.makedirs(os.path.dirname(so), exist_ok=True)
-        subprocess.run([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", so,
-                        os.path.join(directory, f"{stem}.cu")], check=True,
-                       capture_output=True, text=True)
-        libs[stem] = ctypes.CDLL(so)
-    k1 = libs["fast_brief_frontend"].fast_brief_frontend_launch
-    k1.restype = ctypes.c_int
-    k1.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5 \
-        + [ctypes.c_int]
-    dn = libs["dense_brief"]
-    dn.dense_brief_set_patterns.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-    dn.dense_brief_launch.restype = ctypes.c_int
-    dn.dense_brief_launch.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 \
-        + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-    tables = np.ascontiguousarray(dense_brief.TABLES.reshape(-1, 256, 4).astype(np.int8))
-    if dn.dense_brief_set_patterns(tables.ctypes.data, len(tables), 0) != 0:
-        raise RuntimeError("earlier dense kernel: pattern upload failed")
-    pat = torch.from_numpy(fast_brief.PATTERN.reshape(256, 4).copy()).cuda()
-
-    def k1_launch(imgs, thr):
-        B, H, W = imgs.shape
-        nb, Wo = -(-H // 16), -(-W // 128) * 128
-        out = (torch.empty((B, 8, H, W), dtype=torch.int32, device="cuda"),
-               torch.empty((B, H, W), device="cuda"),
-               torch.empty((B, nb, Wo), device="cuda"),
-               torch.empty((B, nb, Wo), dtype=torch.int32, device="cuda"))
-        err = k1(imgs.data_ptr(), thr.data_ptr(), pat.data_ptr(), B, H, W, 9, 20, 16,
-                 *(o.data_ptr() for o in out), torch.cuda.current_stream().cuda_stream, 0)
-        if err:
-            raise RuntimeError(f"earlier K1 launch failed: cudaError {err}")
-        return out
-
-    def dense_launch(smooth, table):
-        B, H, W = smooth.shape
-        planes = torch.empty((B, 8, H, W), dtype=torch.int32, device="cuda")
-        err = dn.dense_brief_launch(smooth.data_ptr(), 0, B, H, W, table, 8,
-                                    planes.data_ptr(),
-                                    torch.cuda.current_stream().cuda_stream, 0)
-        if err:
-            raise RuntimeError(f"earlier dense launch failed: cudaError {err}")
-        return planes
-
-    return k1_launch, dense_launch
-
-
-def compare_with_earlier(directory: str) -> dict:
-    """Time the earlier and this checkout's kernels at the main-path shapes,
-    in turns; check that both give the same words."""
-    from vslam_tpu_torch.frontend import dense_brief as db
-    from vslam_tpu_torch.frontend import fast_brief as fb
-
-    old_k1, old_dense = _earlier_kernels(directory)
-    rng = np.random.default_rng(0)
-
-    def u8(*shape):
-        return torch.from_numpy(np.round(rng.uniform(0, 255, shape)).astype(np.float32)).cuda()
-
-    imgs, thr = u8(2, 376, 1241), torch.tensor([18.0], device="cuda")
-    cases = {"K1": (lambda: old_k1(imgs, thr), lambda: fb.K1.launch(imgs, thr, 9, 20, 16))}
-    # K2 a pair at 376 x 1241, K3 one 188 x 620 level, K4 one bank (5) at 480 x 752.
-    for name, (sm, table) in {"K2": (u8(2, 376, 1241), 0), "K3": (u8(1, 188, 620), 0),
-                              "K4": (u8(1, 480, 752), 6)}.items():
-        cases[name] = (lambda sm=sm, t=table: (old_dense(sm, t),),
-                       lambda sm=sm, t=table: (db.KERNEL.launch(sm, t),))
-    flush = l2_flush("cuda")
-    out = {}
-    for name, (old, new) in cases.items():
-        for a, b in zip(old(), new()):
-            if not torch.equal(a, b):
-                raise AssertionError(f"{name}: the earlier and this design differ")
-        row = {"earlier_ms": [], "ms": [], "earlier_cold_ms": [], "cold_ms": []}
-        for fn, key in ((old, "earlier"), (new, "this"), (new, "this"), (old, "earlier")):
-            pre = "earlier_" if key == "earlier" else ""
-            row[pre + "ms"].append(cuda_ms(fn))
-            row[pre + "cold_ms"].append(cuda_ms(fn, setup=flush))
-        out[name] = row
-        print(f"[earlier] {name}: " + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f}"
-                                                for k, v in row.items()), flush=True)
-    return out
-
-
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--earlier", required=True, help="directory of the earlier .cu files")
-    ap.add_argument("--out", default="build/kernel_timing.json")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("kernel_timing: CUDA is not available")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip()
-    t0 = time.perf_counter()
-    result = {"card": card, "runs": compare_with_earlier(args.earlier)}
-    result["seconds"] = time.perf_counter() - t0
-    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump(result, f, indent=1)
-    print(json.dumps(result))
-
-
-if __name__ == "__main__":
-    main()

@@ -15,14 +15,11 @@ clamps them.
 
 from __future__ import annotations
 
-import ctypes
-from collections import Counter
-
 import numpy as np
 import torch
 
-from vslam_tpu_torch.frontend.cuda_build import CudaLibrary
 from vslam_tpu_torch.ops import hamming
+from vslam_tpu_torch.ops.cuda_build import CudaKernel
 
 PATCH_RADIUS = 15  # orientation patch radius (ORB standard 31x31 patch)
 PATTERN_RADIUS = 13  # BRIEF pattern extent
@@ -94,37 +91,21 @@ def box_blur_reference(img: torch.Tensor, radius: int = 2) -> torch.Tensor:
     return s if img.dim() == 3 else s[0]
 
 
-class BoxBlurKernel:
-    """The built csrc/box_blur.cu library plus its launch count.
-
-    `launches` goes up by one each time the CUDA kernel is launched, and
-    nowhere else (`batches` counts the same launches by batch size B);
-    `library` holds the build (log, seconds)."""
+class BoxBlurKernel(CudaKernel):
+    """The box blur, csrc/box_blur.cu."""
 
     # Radii the kernel takes, each compiled with the radius fixed: 2
     # (BRIEF, ORB, Harris / GFTT) and 7 (BRIEF256R's orientation map).
     radii = (2, 7)
 
     def __init__(self):
-        self.launches = 0
-        self.batches = Counter()
-        self.library = CudaLibrary("box_blur.cu")
+        super().__init__("box_blur", "box_blur.cu", "box_blur", "piiiip", "i")
 
     @staticmethod
     def sass_name(radius: int = 2) -> str:
         """A substring of the mangled name of the instantiation that takes
         `radius`."""
         return f"box_blur_kernelILi{radius}E"
-
-    def build(self):
-        """Compile the kernel with nvcc (once per source version) and load it."""
-        lib = self.library.load()
-        lib.box_blur_launch.restype = ctypes.c_int
-        lib.box_blur_launch.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4
-                                        + [ctypes.c_void_p] * 2 + [ctypes.c_int])
-        lib.box_blur_occupancy.restype = ctypes.c_int
-        lib.box_blur_occupancy.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-        return lib
 
     def _check_radius(self, radius: int) -> None:
         if radius not in self.radii:
@@ -134,11 +115,7 @@ class BoxBlurKernel:
     def blocks_per_sm(self, device: torch.device, radius: int = 2) -> int:
         """Resident blocks of the kernel on one SM of `device` at `radius`."""
         self._check_radius(radius)
-        n = ctypes.c_int(0)
-        err = self.build().box_blur_occupancy(radius, ctypes.byref(n), device.index)
-        if err != 0:
-            raise RuntimeError(f"box blur occupancy query failed: cudaError {err}")
-        return n.value
+        return super().blocks_per_sm(device, radius)
 
     def launch(self, imgs: torch.Tensor, radius: int) -> torch.Tensor:
         """(B, H, W) contiguous f32 CUDA stack -> its (B, H, W) blurs."""
@@ -153,15 +130,7 @@ class BoxBlurKernel:
         out = torch.empty_like(imgs)
         if out.numel() == 0:
             return out
-        dev = imgs.device
-        err = self.build().box_blur_launch(
-            imgs.data_ptr(), B, H, W, radius, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream, dev.index,
-        )
-        if err != 0:
-            raise RuntimeError(f"box blur launch failed: cudaError {err}")
-        self.launches += 1
-        self.batches[B] += 1
+        self._launch(imgs.device, B, imgs.data_ptr(), B, H, W, radius, out.data_ptr())
         return out
 
 

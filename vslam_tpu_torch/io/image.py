@@ -23,7 +23,7 @@ import zlib
 
 import numpy as np
 
-from vslam_tpu_torch.frontend.cuda_build import HostLibrary
+from vslam_tpu_torch.ops.cuda_build import HostLibrary
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 UNFILTER = HostLibrary("png_unfilter.cpp")

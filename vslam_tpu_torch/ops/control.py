@@ -42,7 +42,7 @@ from dataclasses import dataclass, field
 import torch
 from torch.utils import _pytree as pytree
 
-from vslam_tpu_torch.frontend.cuda_build import CudaLibrary
+from vslam_tpu_torch.ops.cuda_build import CudaLibrary
 
 _IF, _WHILE = 0, 1
 MAX_DEPTH = 4  # nesting depth of conditional bodies (a WHILE in an IF is 2)

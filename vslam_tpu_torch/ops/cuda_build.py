@@ -1,4 +1,5 @@
-"""Build a C/CUDA source of the port at first use and load it with ctypes.
+"""Build a C/CUDA source of the port at first use, load it with ctypes,
+and launch and count its kernels.
 
 Each `csrc/*.cu` file has a plain C interface; it is compiled for sm_90a
 into `build/vslam_tpu_torch/lib<stem>_<hash>.so` (the hash covers the
@@ -10,6 +11,13 @@ same for a host-only `csrc/*.cpp` source with the host compiler (g++).
 A build writes a per-process temporary file and renames it into place,
 so processes that build the same source at once do not collide; `load`
 is thread-safe.
+
+`CudaKernel` is every hand-written kernel's wrapper: a source's
+`<symbol>_launch` and `<symbol>_occupancy` entry points, called on the
+current stream, their errors raised, and each launch counted under the
+kernel's name.  A kernel registers its counter when it is made;
+`counters()` holds them all (ops/program.py withholds a capture's
+launches from them and adds them back at each replay).
 """
 
 from __future__ import annotations
@@ -21,7 +29,10 @@ import re
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vslam_tpu_torch"
@@ -155,3 +166,77 @@ class HostLibrary(CudaLibrary):
         if path is None:
             raise RuntimeError("no host C++ compiler found (g++ or $CXX)")
         return path
+
+
+# Every CudaKernel by name, in the order they were made.
+_KERNELS: dict[str, "CudaKernel"] = {}
+# One CudaLibrary a source, shared by the kernels it holds.
+_LIBRARIES: dict[str, CudaLibrary] = {}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+
+
+def counters() -> dict:
+    """The launch counter of every kernel of the process, by name."""
+    return dict(_KERNELS)
+
+
+class CudaKernel:
+    """One kernel of a csrc/*.cu source with a plain C interface:
+
+        int <symbol>_launch(<launch_args>..., cudaStream_t, int device);
+        int <symbol>_occupancy(<occupancy_args>..., int *blocks, int device);
+
+    both returning a cudaError_t.  The argument types are letters: "p" a
+    pointer, "i" an int.  `launches` goes up by one each time the kernel
+    is launched, and nowhere else (`batches` counts the same launches by
+    batch size); the kernels of one source share one build (`library`).
+    A name is taken once a process."""
+
+    def __init__(self, name: str, source: str, symbol: str, launch_args: str,
+                 occupancy_args: str = ""):
+        if name in _KERNELS:
+            raise ValueError(f"a CUDA kernel named {name!r} exists")
+        self.name, self.symbol = name, symbol
+        self.launch_args, self.occupancy_args = launch_args, occupancy_args
+        self.launches = 0
+        self.batches = Counter()
+        if source not in _LIBRARIES:
+            _LIBRARIES[source] = CudaLibrary(source)
+        self.library = _LIBRARIES[source]
+        self._entries = None  # the bound (launch, occupancy) functions
+        _KERNELS[name] = self
+
+    def build(self) -> ctypes.CDLL:
+        """Compile the source with nvcc (once per source version), load it
+        and declare the entry points' signatures."""
+        lib = self.library.load()
+        if self._entries is None:
+            entries = []
+            for suffix, args in (("launch", self.launch_args),
+                                 ("occupancy", self.occupancy_args)):
+                fn = getattr(lib, f"{self.symbol}_{suffix}")
+                fn.restype = ctypes.c_int
+                fn.argtypes = [_CTYPES[c] for c in args + "pi"]  # + stream or int*, device
+                entries.append(fn)
+            self._entries = tuple(entries)
+        return lib
+
+    def blocks_per_sm(self, device: torch.device, *template_args: int) -> int:
+        """Resident blocks of the instantiation `template_args` selects on
+        one SM of `device`."""
+        self.build()
+        n = ctypes.c_int(0)
+        err = self._entries[1](*template_args, ctypes.byref(n), device.index)
+        if err != 0:
+            raise RuntimeError(f"{self.name} occupancy query failed: cudaError {err}")
+        return n.value
+
+    def _launch(self, device: torch.device, batch: int, *args) -> None:
+        """One launch on `device`'s current stream, counted at `batch`."""
+        self.build()
+        err = self._entries[0](*args, torch.cuda.current_stream(device).cuda_stream,
+                               device.index)
+        if err != 0:
+            raise RuntimeError(f"{self.name} launch failed: cudaError {err}")
+        self.launches += 1
+        self.batches[batch] += 1

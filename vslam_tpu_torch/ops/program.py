@@ -15,13 +15,15 @@ buffers and evaluates `fn(buffers)`:
 
 `fn` may also read and write tensors of its own (a program's state,
 which it updates in place): the graph reads and writes them by address.
+A `fn` that returns nothing has no output to clone: the tracker's frame
+programs (tracking/fused.py) write their state buffers in place.
 
 `events` (a Counter shared by the programs of one kind) counts the
 eager runs, captures and replays on CUDA, under "eager", "capture" and
 "replay", or "<label> eager", ... for a program with a label.  Kernel
-launch counts (dense_brief.kernel_counters) count the wrappers' Python
-calls: a capture counts none, and each replay adds the launches its
-capture made (withheld_launches).  `pool` (a torch.cuda.graph_pool_handle)
+launch counts (cuda_build.counters) count the kernels' Python calls: a
+capture counts none, and each replay adds the launches its capture made
+(withheld_launches).  `pool` (a torch.cuda.graph_pool_handle)
 puts the capture's intermediates in a pool shared with other programs
 that never run concurrently.
 """
@@ -34,8 +36,7 @@ from collections import Counter
 import torch
 from torch.utils import _pytree as pytree
 
-from vslam_tpu_torch.frontend import dense_brief
-from vslam_tpu_torch.ops import control
+from vslam_tpu_torch.ops import control, cuda_build
 
 
 @contextlib.contextmanager
@@ -43,7 +44,7 @@ def withheld_launches(record: dict):
     """Counts the kernel launches the block's wrappers make into record
     (name -> (launches, launches by batch size)) and takes them off the
     counters again: a capture launches nothing, its replays do."""
-    counters = dense_brief.kernel_counters()
+    counters = cuda_build.counters()
     before = {k: (c.launches, Counter(c.batches)) for k, c in counters.items()}
     try:
         yield record
@@ -58,7 +59,7 @@ def withheld_launches(record: dict):
 
 def add_launches(record: dict) -> None:
     """Add a capture's withheld launches to the counters (one replay)."""
-    counters = dense_brief.kernel_counters()
+    counters = cuda_build.counters()
     for k, (n, batches) in record.items():
         counters[k].launches += n
         counters[k].batches.update(batches)
@@ -131,7 +132,7 @@ class StaticProgram:
                 self.capture()
             self.replay()
             self.events[self.prefix + "replay"] += 1
-            out = pytree.tree_map(torch.clone, self.out)
+            out = None if self.out is None else pytree.tree_map(torch.clone, self.out)
         self.uses += 1
         return out
 

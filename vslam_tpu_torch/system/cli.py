@@ -105,9 +105,9 @@ def _trace(trace_dir: str | None, device):
 
 def cmd_run(args):
     from vslam_tpu_torch.eval import trajectory as traj_eval
-    from vslam_tpu_torch.frontend.dense_brief import kernel_counters
     from vslam_tpu_torch.io import datasets
     from vslam_tpu_torch.io.config import ParameterCollection, load_config
+    from vslam_tpu_torch.ops.cuda_build import counters
     from vslam_tpu_torch.system.engine import SlamEngine
 
     cfg = load_config(args.config) if args.config else ParameterCollection()
@@ -158,8 +158,7 @@ def cmd_run(args):
 
     engine = SlamEngine(ds.cam, cfg, device=args.device)
     n = len(ds) if args.max_frames is None else min(len(ds), args.max_frames)
-    counters = kernel_counters()
-    for c in counters.values():
+    for c in counters().values():
         c.launches = 0
     timestamps = []
     wait = 0.0  # time the loop waited for decoded frames
@@ -210,7 +209,7 @@ def cmd_run(args):
         "ms_per_frame": round(1e3 * run_seconds / max(n, 1), 3),
         "frame_wait_seconds": round(wait, 4),
         "first_frame_seconds": round(first, 4),
-        "kernel_launches": {k: c.launches for k, c in counters.items()},
+        "kernel_launches": {k: c.launches for k, c in counters().items()},
     }
     with open(args.timing_output, "w") as f:
         json.dump(report, f, indent=2)

@@ -19,11 +19,12 @@ a while_loop.  The keyframe snapshot rings and the result ring are
 updated in place (they are large and only ever appended to); every
 other field of the state is replaced.
 
-make_frame_step builds a FrameProgram: static buffers for the state and
-the frame's inputs, and on CUDA one captured CUDA graph of the step that
-every later frame replays (the JAX package's make_frame_step), its
-conds IF nodes and its loops WHILE nodes (control.graph_capture);
-FrameProgram.run_chunk replays it k times back to back (make_chunk_step).
+make_frame_step builds a FrameProgram, an ops/program.StaticProgram:
+static buffers for the state and the frame's inputs, and on CUDA one
+captured CUDA graph of the step that every later frame replays (the JAX
+package's make_frame_step), its conds IF nodes and its loops WHILE
+nodes; FrameProgram.run_chunk replays it k times back to back
+(make_chunk_step).
 Like the JAX package's memoized step functions, make_frame_step and
 make_track_step return one program per key for the whole process, so a
 second tracker of the same configuration replays the graph the first
@@ -48,7 +49,7 @@ from vslam_tpu_torch.mapping import frame as frame_mod
 from vslam_tpu_torch.mapping import landmarks as lm_mod
 from vslam_tpu_torch.ops import camera as cam_ops
 from vslam_tpu_torch.ops import control, lie
-from vslam_tpu_torch.ops.program import add_launches, withheld_launches
+from vslam_tpu_torch.ops.program import StaticProgram
 from vslam_tpu_torch.solve import gn
 
 
@@ -666,37 +667,30 @@ def assign_state(dst: TrackerState, src: TrackerState) -> None:
 EVENTS: Counter = Counter()
 
 
-class _Program:
-    """One frame's work as one device program over static buffers: the
-    TrackerState (`state`), the motion flag, T_odom (4, 4) when odometry
-    guesses are on, and each subclass's inputs.  A subclass's run()
-    copies its inputs into its buffers and calls _execute(), whose body
-    copies the new state back into the state buffers.
+class _TrackerProgram(StaticProgram):
+    """One frame's work as a StaticProgram (ops/program.py) over static
+    buffers: the TrackerState (`state`), the motion flag, T_odom (4, 4)
+    when odometry guesses are on, and each subclass's inputs.  `fn`
+    copies the new state back into the state buffers (assign_state) and
+    returns nothing, so a replay clones no output.  A subclass's run()
+    copies its inputs into its buffers and calls _frame().
 
     On CUDA the first frame runs eagerly (it builds the kernels and makes
     every cache, cuBLAS handle and launcher attribute call outside any
     capture; its loops run to their caps and its conds compute both
-    branches); the second captures one frame with control.graph_capture
-    (which executes nothing, so the state does not advance; the conds
-    become IF nodes and the loops WHILE nodes) and replays it, and every
-    later frame is one replay: the host enqueues the graph and reads
-    nothing.  A failed capture or replay raises.  On the CPU the same body
-    runs into the same buffers, so only the replay differs.  `record`
-    holds the capture's control.Record: after a replay, its loops'
-    iterations and its conds' predicates.
-
-    Kernel launch counts (dense_brief.kernel_counters) count Python
-    calls; a replay adds the launches its capture made once each, and
-    the capture itself counts none.  On CUDA, EVENTS counts the frames
-    every program ran eagerly ("eager"), its captures ("capture") and its
-    replays ("replay").
+    branches); the second captures one frame (which executes nothing, so
+    the state does not advance; the conds become IF nodes and the loops
+    WHILE nodes) and replays it, and every later frame is one replay: the
+    host enqueues the graph and reads nothing.  On the CPU the same body
+    runs into the same buffers, so only the replay differs.  EVENTS
+    counts the eager frames, captures and replays of every program.
 
     A program of make_frame_step / make_track_step is shared by the
     trackers of equal keys; `holder` is a weak reference to the tracker
     whose state its buffers hold (None: nobody's)."""
 
-    def __init__(self, cam, params: FusedParams, state: TrackerState, motion_model_on: bool,
-                 odometry: bool):
+    def __init__(self, fn, cam, params: FusedParams, state: TrackerState,
+                 motion_model_on: bool, odometry: bool, inputs):
         buffers = [t.untyped_storage().data_ptr() for _, t in state_tensors(state)]
         if len(set(buffers)) != len(buffers):
             raise ValueError(f"{type(self).__name__}: two state fields share memory (the "
@@ -706,69 +700,31 @@ class _Program:
         self._eye = torch.eye(4, dtype=torch.float32, device=dev)
         self.T_odom = self._eye.clone() if odometry else None
         self.motion = torch.full((), bool(motion_model_on), dtype=torch.bool, device=dev)
-        self.graph = None
-        self.frames = 0  # frames run
-        self.record = None  # control.Record of the capture
-        # Per replay: kernel name -> (launches, launches by batch size).
-        self.replay_launches: dict[str, tuple[int, Counter]] = {}
         self.holder = None
+        super().__init__(fn, (state, inputs, self.motion, self.T_odom), EVENTS)
 
-    @property
-    def device(self) -> torch.device:
-        return self.state.T_world_cam.device
-
-    def _body(self):
-        raise NotImplementedError
-
-    def capture(self):
-        """Capture one frame into the CUDA graph (_execute does it at the
-        second frame; a caller may do it earlier, after one frame)."""
-        if self.device.type != "cuda" or self.frames == 0:
-            raise RuntimeError(f"{type(self).__name__}.capture: needs one eager frame on "
-                               "CUDA first")
-        graph = torch.cuda.CUDAGraph()
-        with withheld_launches(self.replay_launches), \
-                control.graph_capture(graph, self.device) as record:
-            self._body()
-        self.record = record
-        self.graph = graph
-        EVENTS["capture"] += 1
-
-    def _replay(self):
-        self.graph.replay()
-        add_launches(self.replay_launches)
-
-    def _execute(self, T_odom: torch.Tensor | None):
+    def _frame(self, T_odom: torch.Tensor | None) -> None:
         if self.T_odom is not None:
             self.T_odom.copy_(self._eye if T_odom is None else T_odom)
-        if self.device.type != "cuda":
-            self._body()
-        elif self.frames == 0:
-            self._body()
-            EVENTS["eager"] += 1
-        else:
-            if self.graph is None:
-                self.capture()
-            self._replay()
-            EVENTS["replay"] += 1
-        self.frames += 1
+        self.evaluate()
 
 
-class FrameProgram(_Program):
+class FrameProgram(_TrackerProgram):
     """The per-frame step as one device program (the JAX package's
     make_frame_step; run_chunk is its make_chunk_step), with the frame's
     images (2, H, W) as its input buffer."""
 
     def __init__(self, cam, params: FusedParams, state: TrackerState, motion_model_on: bool,
                  frame_dtype: torch.dtype, odometry: bool = False, depth_calib=None):
-        super().__init__(cam, params, state, motion_model_on, odometry)
         self.depth_calib = depth_calib
         self.imgs = torch.zeros((2, cam.rows, cam.cols), dtype=frame_dtype,
-                                device=self.device)
+                                device=state.T_world_cam.device)
+        super().__init__(self._step, cam, params, state, motion_model_on, odometry, self.imgs)
 
-    def _body(self):
-        assign_state(self.state, step(self.cam, self.params, self.state, self.imgs,
-                                      self.motion, self.T_odom, self.depth_calib))
+    def _step(self, buffers) -> None:
+        state, imgs, motion, T_odom = buffers
+        assign_state(state, step(self.cam, self.params, state, imgs, motion, T_odom,
+                                 self.depth_calib))
 
     def run(self, imgs: torch.Tensor, T_odom: torch.Tensor | None = None) -> None:
         """One frame: imgs (2, H, W) as step() takes them (on any device;
@@ -776,7 +732,7 @@ class FrameProgram(_Program):
         frame's motion guess T_cur_prev (identity when None) if the
         program takes odometry guesses."""
         self.imgs.copy_(imgs)
-        self._execute(T_odom)
+        self._frame(T_odom)
 
     def run_chunk(self, chunk: torch.Tensor, k: int, odom_chunk=None) -> None:
         """Frames 0..k-1 of chunk (C, 2, H, W) (a tail chunk has k < C),
@@ -806,7 +762,7 @@ def make_frame_step(cam, params: FusedParams, landmark_capacity: int,
     return _PROGRAMS[key]
 
 
-class TrackProgram(_Program):
+class TrackProgram(_TrackerProgram):
     """The split pipeline's sequential half as one device program a frame
     (the JAX package's make_track_step): the tracking and mapping tail of
     frame idx of a chunk front-end (chunk_front_end).  Its input buffers
@@ -815,14 +771,12 @@ class TrackProgram(_Program):
 
     def __init__(self, cam, params: FusedParams, state: TrackerState, motion_model_on: bool,
                  odometry: bool = False):
-        super().__init__(cam, params, state, motion_model_on, odometry)
-        self.inputs = None  # (cur, n_kp, n_fp, planes or None, imgs)
+        super().__init__(self._tail, cam, params, state, motion_model_on, odometry, None)
 
-    def _body(self):
-        cur, n_kp, n_fp, planes, imgs = self.inputs
-        assign_state(self.state, _step_tail(self.cam, self.params, self.state, cur, n_kp,
-                                            n_fp, planes, imgs[0], imgs[1], self.motion,
-                                            self.T_odom))
+    def _tail(self, buffers) -> None:
+        state, (cur, n_kp, n_fp, planes, imgs), motion, T_odom = buffers
+        assign_state(state, _step_tail(self.cam, self.params, state, cur, n_kp, n_fp, planes,
+                                       imgs[0], imgs[1], motion, T_odom))
 
     def run(self, front, imgs: torch.Tensor, idx: int,
             T_odom: torch.Tensor | None = None) -> None:
@@ -831,13 +785,15 @@ class TrackProgram(_Program):
         frames_b, n_kp_b, n_fp_b, planes_b = front
         values = (frame_mod.FrameState(*(f[idx] for f in frames_b)), n_kp_b[idx],
                   n_fp_b[idx], None if planes_b is None else planes_b[idx], imgs[idx])
-        if self.inputs is None:
-            self.inputs = (frame_mod.FrameState(*map(torch.empty_like, values[0])),
-                           *(None if v is None else torch.empty_like(v) for v in values[1:]))
-        for dst, src in zip((*self.inputs[0], *self.inputs[1:]), (*values[0], *values[1:])):
+        state, inputs, motion, T_odom_buf = self.buffers
+        if inputs is None:
+            inputs = (frame_mod.FrameState(*map(torch.empty_like, values[0])),
+                      *(None if v is None else torch.empty_like(v) for v in values[1:]))
+            self.buffers = (state, inputs, motion, T_odom_buf)
+        for dst, src in zip((*inputs[0], *inputs[1:]), (*values[0], *values[1:])):
             if dst is not None:
                 dst.copy_(src)
-        self._execute(T_odom)
+        self._frame(T_odom)
 
 
 def make_track_step(cam, params: FusedParams, landmark_capacity: int,
@@ -853,7 +809,7 @@ def make_track_step(cam, params: FusedParams, landmark_capacity: int,
 
 
 # The programs of make_frame_step and make_track_step, by _memo_key.
-_PROGRAMS: dict[tuple, _Program] = {}
+_PROGRAMS: dict[tuple, _TrackerProgram] = {}
 
 
 def _values(t) -> tuple:
