@@ -8,9 +8,10 @@ Phases (each raises on failure; the exit code is then non-zero):
   2. build   — compile K1 (csrc/fast_brief_frontend.cu), the dense
                BRIEF kernel behind K2/K3/K4 (csrc/dense_brief.cu), the
                staged FAST detector's kernel (csrc/fast_cells.cu), the
-               box blur kernel (csrc/box_blur.cu) and the
-               conditional graph nodes (csrc/graph_cond.cu: WHILE and IF
-               nodes under capture, ops/control.py) with nvcc, and the PNG
+               box blur kernel (csrc/box_blur.cu), the matching kernel
+               (csrc/hamming_match.cu) and the conditional graph nodes
+               (csrc/graph_cond.cu: WHILE and IF nodes under capture,
+               ops/control.py) with nvcc, and the PNG
                decoder's host unfilter (csrc/png_unfilter.cpp) with g++,
                the builds started together (their wall time);
                registers and spills (ptxas), resident blocks per SM
@@ -46,6 +47,12 @@ Phases (each raises on failure; the exit code is then non-zero):
                3x37x53 stack at radii 2 and 7: every pixel bit-equal; one
                case against the CPU; times at each launch as for K1, and
                summed over a KITTI and a EuRoC frame;
+  4d. hamming-match — the matching kernel (csrc/hamming_match.cu) vs
+               the plain match_stereo / match_projective on the card at
+               the cells' shape (a KITTI pair's 1,024 keypoints an image;
+               stereo, projective at A = 1 and 3): all three outputs of
+               every row equal; one case against the CPU; times warm and
+               L2-cold beside the plain version's and the bound;
   5. K2'     — the band-size / input-type probe: the same kernel at
                (64, 376, 1241) with 8-, 16-, 32- and 64-row bands, f32 and
                bf16 input, each bit-equal to its plain version; times;
@@ -572,13 +579,20 @@ def reset_counts():
         c.batches.clear()
 
 
+# The front end's kernels, whose launches every phase holds to a count a
+# frame.  The matching kernel (phase 4d) launches once a match call: the
+# retry ladder's attempts vary its count, so the phases leave it out.
+FRONT_END_KERNELS = ("K1", "K2", "K3", "K4", "fast_cells", "box_blur")
+
+
 def read_batches() -> dict:
-    """Launches by batch size B, by kernel (since reset_counts)."""
-    return {k: dict(c.batches) for k, c in counters().items() if c.batches}
+    """Launches by batch size B, by front-end kernel (since reset_counts)."""
+    return {k: dict(c.batches) for k, c in counters().items()
+            if c.batches and k in FRONT_END_KERNELS}
 
 
 def read_counts() -> dict:
-    return {k: c.launches for k, c in counters().items()}
+    return {k: c.launches for k, c in counters().items() if k in FRONT_END_KERNELS}
 
 
 def phase_k1(frames, card):
@@ -844,6 +858,94 @@ def phase_box_blur(kitti_frame, card):
     return out
 
 
+def graph_replay(fn):
+    """fn captured in a CUDA graph after a warm run on a side stream: the
+    graph's replay, which enqueues its launches in one call."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def phase_hamming_match(kitti_frame, card):
+    """Phase 4d: the matching kernel (csrc/hamming_match.cu) against the
+    plain version on the card at the cells' shape: the staged front end's
+    1,024 keypoints an image of a KITTI pair (capacity 1,024), the stereo
+    match at KITTI's gates and a projective match of the left image's
+    points, shifted 2 px, into the right one's at A = 1 and A = 3; all
+    three outputs of every row equal on the card and one case against the
+    CPU; the kernel's times warm and L2-cold beside the plain version's
+    (each a replay of a captured call) and the bound
+    (kernel_timing.hamming_match_bound)."""
+    from vslam_tpu_torch.frontend import kernel_timing as kt
+    from vslam_tpu_torch.frontend import matching
+    from vslam_tpu_torch.mapping import frame
+    from vslam_tpu_torch.ops import hamming
+
+    pair = torch.from_numpy(np.stack(kitti_frame).astype(np.uint8).astype(np.float32)).cuda()
+    kps, descs, _ = frame._stereo_detect_describe(pair, torch.tensor(15.0, device="cuda"), 1024,
+                                                  16, 20, "BRIEF256", "FAST", False, 2)
+    kl, kr = kps
+    Q, D = kl.uv.shape[0], kr.uv.shape[0]
+    stereo = (kl.uv, descs[0], kl.valid, kr.uv, descs[1], kr.valid, 60, 1.5, 0.0, 200.0)
+    shift = torch.tensor([2.0, -1.0], device="cuda")
+    radius3 = torch.tensor([8.0, 16.0, 1e6], device="cuda")
+    gate3 = torch.tensor([50, 60, 90], dtype=torch.int32, device="cuda")
+    cases = {
+        "stereo": (matching.match_stereo, matching.match_stereo_reference, stereo, 1),
+        "projective": (matching.match_projective, matching.match_projective_reference,
+                       ((kl.uv + shift)[None].contiguous(), descs[0], kl.valid[None], kr.uv,
+                        descs[1], kr.valid, radius3[:1], gate3[:1]), 1),
+        "projective A=3": (matching.match_projective, matching.match_projective_reference,
+                           (torch.stack([kl.uv + shift] * 3), descs[0],
+                            kl.valid.expand(3, Q).contiguous(), kr.uv, descs[1], kr.valid,
+                            radius3, gate3), 3),
+    }
+    k = hamming.HAMMING_MATCH
+    n0 = k.launches
+    for label, (fn, plain, args, _) in cases.items():
+        got, want = fn(*args), plain(*args)
+        for name, a, b in zip(want._fields, got, want):
+            _require_equal(f"hamming_match {label} {name}", a, b)
+        print(f"[hamming-match] {label} at {Q} x {D}: idx, distance and valid equal to the "
+              f"plain version in every row ({int(got.valid.sum())} valid)")
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in stereo]
+    for name, a, b in zip(matching.StereoMatches._fields, matching.match_stereo(*stereo),
+                          matching.match_stereo_reference(*cpu)):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"hamming_match stereo {name} differs from the CPU's")
+    torch.cuda.synchronize()
+    if k.launches - n0 != len(cases) + 1:
+        raise AssertionError(f"hamming_match: {k.launches - n0} launches, expected "
+                             f"{len(cases) + 1}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = kt.sm_clock_hz()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    print(f"[hamming-match] {k.blocks_per_sm(dev, k.STEREO)} blocks a SM "
+          f"(256 threads); {sms} SMs at {clock / 1e9:.3f} GHz")
+    out = {}
+    for label, (fn, plain, args, A) in cases.items():
+        # Timed as the frame programs run them, replays of a captured graph:
+        # the wrapper's Python (~0.1 ms a call) would outlast cuda_ms's spin.
+        kernel, ref = graph_replay(lambda: fn(*args)), graph_replay(lambda: plain(*args))
+        rec = {"ms": kt.cuda_ms(kernel),
+               "ms_l2_cold": kt.cuda_ms(kernel, setup=kt.l2_flush("cuda")),
+               "plain_ms": kt.cuda_ms(ref)}
+        rec["bound_ms"], rec["bound_by"] = kt.hamming_match_bound(Q, D, A, sms, clock)
+        rec["roofline_share"] = rec["bound_ms"] / rec["ms_l2_cold"]
+        print(f"[hamming-match] {label} median over 20 runs at {Q} x {D}, A = {A}: kernel "
+              f"{rec['ms']:.4f} ms warm, {rec['ms_l2_cold']:.4f} ms with L2 flushed; plain "
+              f"version {rec['plain_ms']:.4f} ms; bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}), {100 * rec['roofline_share']:.1f}% of it ({card})")
+        out[f"hamming_match {label}"] = {"shape": f"{Q}x{D}", "A": A, **rec}
+    return out
+
+
 def phase_k2_probe(card):
     """K2's band-size / input-type probe at (64, 376, 1241)."""
     from vslam_tpu_torch.frontend import dense_brief as db
@@ -975,7 +1077,7 @@ def config_slice(label, name, cam_args, n_frames, circle_frames, radius, per_fra
     cfg.command_line.option_disable_relocalization = True
     cam = cam_ops.make_camera(**cam_args)
     gt, frames = circle_slice(cam, circle_frames, radius, n_frames)
-    expect = {k: per_frame.get(k, 0) * n_frames for k in counters()}
+    expect = {k: per_frame.get(k, 0) * n_frames for k in FRONT_END_KERNELS}
     return drive_slice(label, cam, cfg, gt, frames, expect, local_maps, cpu_frames, card)
 
 
@@ -1943,11 +2045,12 @@ def phase_build(card) -> dict:
     from vslam_tpu_torch.frontend import orb
     from vslam_tpu_torch.ops.cuda_build import loop_shared_loads
     from vslam_tpu_torch.io import image
-    from vslam_tpu_torch.ops import control
+    from vslam_tpu_torch.ops import control, hamming
 
     t0 = time.perf_counter()
     libraries = {"K1": fb.K1.library, "K2/K3/K4": db.KERNEL.library,
                  "fast_cells": detect.FAST_CELLS.library, "box_blur": orb.BOX_BLUR.library,
+                 "hamming_match": hamming.HAMMING_MATCH.library,
                  "conditional nodes": control._library, "PNG unfilter (host)": image.UNFILTER}
     for lib in libraries.values():
         lib.start()  # one compiler per source, all at once
@@ -1956,8 +2059,9 @@ def phase_build(card) -> dict:
     db.KERNEL.build()
     detect.FAST_CELLS.build()
     orb.BOX_BLUR.build()
+    hamming.HAMMING_MATCH.build()
     control.library()
-    print(f"[build] the six libraries built in {time.perf_counter() - t0:.2f} s of wall time")
+    print(f"[build] the seven libraries built in {time.perf_counter() - t0:.2f} s of wall time")
     for name, lib in libraries.items():
         print(f"[build] {name} ({lib.src.name})")
         for line in lib.build_log.splitlines():
@@ -2031,7 +2135,7 @@ def cli(args, label, timeout=600):
 def check_run(label, rep, ate, local_maps, expect):
     """The checks of a disk phase: 0 breaks, ATE, local maps, launches."""
     run = rep["run"]
-    got = run["kernel_launches"]
+    got = {k: v for k, v in run["kernel_launches"].items() if k in FRONT_END_KERNELS}
     n = run["frames"]
     after_first = 1e3 * (run["seconds"] - run["first_frame_seconds"]) / (n - 1)
     print(f"[{label}] {n} frames: ATE {ate:.4f} m, "
@@ -2284,7 +2388,7 @@ def phase_disk(card):
     tmp = tempfile.mkdtemp(prefix="vslam_disk_")
     try:
         counts, est, decoded, cam, gt, ckpt, save_s = phase_kitti_disk(tmp, card)
-        launches = dict(counts)
+        launches = {k: counts[k] for k in FRONT_END_KERNELS}
         for more in (phase_checkpoint(est, decoded, cam, gt, ckpt, save_s, card),
                      phase_tum_disk(tmp, card)):
             launches = {k: launches[k] + more[k] for k in launches}
@@ -3307,6 +3411,7 @@ def main():
     stats.update(phase_dense(frames[0], card))
     stats.update(phase_fast_cells(frames[0], card))
     stats.update(phase_box_blur(frames[0], card))
+    stats.update(phase_hamming_match(frames[0], card))
     phase_k2_probe(card)
     mark(t_start, "device-program")
     program_launches = phase_device_program(cam, cfg, frames, card)

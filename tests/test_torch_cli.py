@@ -98,7 +98,8 @@ def test_cli_run_matches_jax(runs):
     assert port["n_track_breaks"] == ref["n_track_breaks"] == 0
     assert port["run"]["frames"] == N_FRAMES and port["run"]["device"] == "cpu"
     assert port["run"]["kernel_launches"] == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
-                                              "fast_cells": 0, "box_blur": 0}
+                                              "fast_cells": 0, "box_blur": 0,
+                                              "hamming_match": 0}
     assert 0 < port["run"]["first_frame_seconds"] <= port["run"]["seconds"]
     ts, tum = ttraj.read_tum(str(base / "port" / "est_tum.txt"))
     np.testing.assert_allclose(ts, np.arange(N_FRAMES) * 0.1)

@@ -18,6 +18,7 @@ from vslam_tpu_torch.frontend import detect  # noqa: F401  (registers fast_cells
 from vslam_tpu_torch.frontend import fast_brief as fb
 from vslam_tpu_torch.frontend import orb
 from vslam_tpu_torch.ops import cuda_build
+from vslam_tpu_torch.ops import hamming
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
@@ -105,16 +106,18 @@ def test_loop_shared_loads_counts_the_pixel_loop():
 
 def _c_signatures(source) -> dict:
     """{function: argument letters} of the `extern "C"` functions of a
-    csrc source: "p" a pointer, "i" an int."""
+    csrc source: "p" a pointer, "i" an int, "f" a float."""
     text = (cuda_build.CSRC / source).read_text()
     out = {}
     for fn, params in re.findall(r'extern "C" int\s+(\w+)\(([^)]*)\)', text):
-        out[fn] = "".join("p" if "*" in a else "i" for a in params.split(","))
-        assert all("*" in a or a.split()[0] == "int" for a in params.split(",")), (fn, params)
+        out[fn] = "".join("p" if "*" in a else a.split()[0][0] for a in params.split(","))
+        assert all("*" in a or a.split()[0] in ("int", "float") for a in params.split(",")), \
+            (fn, params)
     return out
 
 
-@pytest.mark.parametrize("name", ["K1", "K2", "K3", "K4", "fast_cells", "box_blur"])
+@pytest.mark.parametrize("name", ["K1", "K2", "K3", "K4", "fast_cells", "box_blur",
+                                  "hamming_match"])
 def test_kernel_signatures_match_their_sources(name):
     """Each registered kernel's ctypes signatures, declared as data, are
     its source's C interface: the launch's and the occupancy query's
@@ -153,3 +156,102 @@ def test_a_cuda_kernel_counts_its_launches_and_raises_on_a_cuda_error(monkeypatc
     with pytest.raises(RuntimeError, match="probe occupancy query failed: cudaError 2"):
         k.blocks_per_sm(dev, 7)
     assert calls[-1][0] == 7 and calls[-1][2] == 3 and k.launches == 1
+
+
+def _match_inputs(Q=70, D=90, A=None):
+    g = torch.Generator().manual_seed(Q * D)
+    q_uv = torch.rand((Q, 2) if A is None else (A, Q, 2), generator=g) * 100
+    d_uv4 = torch.rand(D, 4, generator=g) * 100
+    desc = torch.randint(-2**31, 2**31 - 1, (Q + D, 8), dtype=torch.int32, generator=g)
+    q_mask = torch.rand(q_uv.shape[:-1], generator=g) < 0.9
+    return (q_uv, desc[:Q], q_mask, d_uv4[:, :2], desc[Q:], torch.rand(D, generator=g) < 0.9)
+
+
+def test_hamming_match_refuses_cpu_inputs_and_cpu_matching_never_launches(monkeypatch):
+    """The kernel takes CUDA tensors only and raises before any build on a
+    CPU input; match_stereo / match_projective on CPU tensors run the
+    plain version and never reach the kernel."""
+    from vslam_tpu_torch.frontend import matching
+
+    k = hamming.HAMMING_MATCH
+    q_uv, q_desc, q_mask, d_uv, d_desc, d_mask = _match_inputs()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the matching kernel ran on CPU tensors")
+
+    monkeypatch.setattr(k, "build", refuse)
+    with pytest.raises(ValueError, match="CUDA"):
+        k.match(k.STEREO, q_uv[None], q_desc, q_mask, d_uv, d_desc, d_mask, (1.5, 0.0, 200.0),
+                60)
+    monkeypatch.setattr(k, "match", refuse)
+    n0 = k.launches
+    s = matching.match_stereo(q_uv, q_desc, q_mask, d_uv, d_desc, d_mask, 256, 99.0, -99.0,
+                              99.0)
+    p = matching.match_projective(q_uv, q_desc, q_mask, d_uv, d_desc, d_mask, 30.0, 256)
+    assert k.launches == n0 and s.valid.any() and p.valid.any()
+
+
+@pytest.mark.parametrize("x, dtype, want", [
+    (60, torch.int32, 60.0), (2**40, torch.int32, 0.0), (2**31 + 5, torch.int32, -(2**31 - 5)),
+    (59.999999999, torch.int32, 60.0), (1.50000001, torch.float32, 1.5),
+    (1e40, torch.float32, float("inf")), (-3, torch.float32, -3.0),
+])
+def test_hamming_match_number_gates_compare_as_torch_does(x, dtype, want):
+    """A number gate is passed as the value torch compares with: rounded
+    to f32, an int distance gate first wrapped to int32."""
+    got = hamming.HAMMING_MATCH._gate(x, 1, torch.device("cpu"), dtype, "g")
+    assert got[:2] == (0, 0) and (got[2] == want or (got[2] - want) / want < 1e-6)
+    ref = torch.tensor([60], dtype=torch.int32) <= x if dtype == torch.int32 \
+        else torch.tensor([1.5], dtype=torch.float32) <= x
+    assert bool(ref) == (60.0 <= got[2] if dtype == torch.int32 else 1.5 <= got[2])
+
+
+def test_hamming_match_launch_arguments(monkeypatch):
+    """What the wrapper hands the kernel past its device check: the
+    descriptors' strides (row-major, or word-major as BRIEF256R's banks
+    give them), strided uv rows, a mask shared by the problems, tensor
+    gates by pointer with one value a problem, the partial buffer's size;
+    and what it refuses."""
+    k = hamming.HAMMING_MATCH
+    calls = []
+    monkeypatch.setattr(k, "_launch", lambda dev, batch, *args: calls.append((batch, args)))
+    q_uv, q_desc, q_mask, d_uv, d_desc, d_mask = _match_inputs(A=3)
+    radius = torch.tensor([5.0, 6.0, 7.0])
+    gate = torch.tensor([40, 50, 60], dtype=torch.int32)
+    idx, valid, best = k._match(k.PROJECTIVE, q_uv, q_desc, q_mask[0], d_uv, d_desc, d_mask,
+                                (radius, 0.0, 0.0), gate)
+    assert idx.shape == valid.shape == best.shape == (3, 70)
+    assert (idx.dtype, valid.dtype, best.dtype) == (torch.int32, torch.bool, torch.int32)
+    batch, a = calls[-1]
+    assert batch == 3 and a[:4] == (k.PROJECTIVE, 3, 70, 90)
+    assert a[5:7] == (8, 1) and a[13:15] == (8, 1)  # descriptor strides
+    assert a[8:10] == (140, 2) and a[11] == 0 and a[16] == 4  # uv strides, shared mask
+    assert a[18:21] == (radius.data_ptr(), 1, 0.0) and a[21:27] == (0, 0, 0.0, 0, 0, 0.0)
+    assert a[27:30] == (gate.data_ptr(), 1, 0.0)
+    assert a[31] == 3 * (2 * 70 + 2 * 90)  # ceil(90 / 64) x 70 + ceil(70 / 64) x 90, a problem
+    word_major = q_desc.t().contiguous().t()
+    k._match(k.STEREO, q_uv[:1], word_major, q_mask[:1], d_uv, d_desc, d_mask,
+             (torch.tensor(1.5), 0.0, 2**40), torch.tensor(60, dtype=torch.int32))
+    a = calls[-1][1]
+    assert a[5:7] == (1, 70) and a[11] == 70 and a[19] == 0
+    assert a[26] == float(np.float32(2**40))
+    bad = [
+        (q_uv.double(), q_desc, q_mask, d_uv, d_desc, d_mask),
+        (q_uv, q_desc[:, :4], q_mask, d_uv, d_desc, d_mask),
+        (q_uv, q_desc.long(), q_mask, d_uv, d_desc, d_mask),
+        (q_uv, q_desc, q_mask.int(), d_uv, d_desc, d_mask),
+        (q_uv, q_desc, q_mask, d_uv.t().contiguous().t(), d_desc, d_mask),
+        (q_uv, q_desc, q_mask, d_uv, d_desc, d_mask[:-1]),
+        (q_uv[..., :1], q_desc, q_mask, d_uv, d_desc, d_mask),
+        (q_uv, q_desc, q_mask[:, ::2].repeat(1, 2)[:, :70].t().contiguous().t(), d_uv, d_desc,
+         d_mask),
+    ]
+    n = len(calls)
+    for args in bad:
+        with pytest.raises(ValueError):
+            k._match(k.PROJECTIVE, *args, (radius, 0.0, 0.0), gate)
+    for g0, h in ((radius.double(), gate), (radius[:2], gate), (radius, gate.float()),
+                  (radius, True), (radius, "60")):
+        with pytest.raises(ValueError):
+            k._match(k.PROJECTIVE, q_uv, q_desc, q_mask, d_uv, d_desc, d_mask, (g0, 0.0, 0.0), h)
+    assert len(calls) == n

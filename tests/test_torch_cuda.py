@@ -313,6 +313,266 @@ def test_box_blur_launches_a_staged_frame(descriptor, shape, batches):
         assert torch.equal(da.cpu(), db_)
 
 
+# Matching shapes: the cells' 1,024 x 1,024, ragged ones off the 64 x 64
+# tile, a single pair, and Q != D both ways.
+MATCH_SHAPES = [(1024, 1024), (1000, 777), (1, 1), (63, 130), (200, 65), (130, 1)]
+
+
+def _match_sets(Q, D, seed, bits=0xFFFFFFFF):
+    """(uv_q, desc_q, mask_q, uv_d, desc_d, mask_d) as CPU tensors: each
+    database row a query row's descriptor with ~1/8 of its bits flipped
+    and its uv 0-3 px off; a quarter of each side repeats earlier rows
+    (ties resolve to the first index); the first 5 query rows and a band
+    of columns masked off; some uv NaN."""
+    rng = np.random.default_rng(seed)
+    uv_q = rng.uniform(0, 300, (Q, 2)).astype(np.float32)
+    src = rng.integers(0, Q, D)
+    uv_d = (uv_q[src] + rng.uniform(-3, 3, (D, 2))).astype(np.float32)
+    desc_q = rng.integers(0, 2**32, (Q, 8), dtype=np.uint32)
+    flips = (rng.integers(0, 2**32, (D, 8), dtype=np.uint32)
+             & rng.integers(0, 2**32, (D, 8), dtype=np.uint32)
+             & rng.integers(0, 2**32, (D, 8), dtype=np.uint32))
+    desc_d = desc_q[src] ^ flips
+    desc_q, desc_d = desc_q & np.uint32(bits), desc_d & np.uint32(bits)
+    for x in (desc_q, uv_q):
+        x[3 * Q // 4:] = x[:Q - 3 * Q // 4]
+    for x in (desc_d, uv_d):
+        x[3 * D // 4:] = x[:D - 3 * D // 4]
+    mask_q, mask_d = rng.uniform(size=Q) < 0.9, rng.uniform(size=D) < 0.9
+    mask_q[:5] = False
+    mask_d[D // 3:D // 3 + 20] = False
+    uv_q[rng.uniform(size=Q) < 0.03, 0] = np.nan
+    uv_d[rng.uniform(size=D) < 0.03, 1] = np.nan
+    t = torch.from_numpy
+    return (t(uv_q), t(desc_q.view(np.int32)), t(mask_q), t(uv_d), t(desc_d.view(np.int32)),
+            t(mask_d))
+
+
+def _equal_matches(got, want, label):
+    for name, a, b in zip(want._fields, got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, (label, name)
+        assert torch.equal(a.cpu(), b.cpu()), (label, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MATCH_SHAPES)
+@pytest.mark.parametrize("bits", [0xFFFFFFFF, 0x0000F00F])
+def test_hamming_match_kernel_matches_plain_version(shape, bits):
+    """match_stereo and match_projective on the card, one kernel call each:
+    all three outputs of every row (valid or not) equal to the plain
+    version's on the card and on the CPU, at A = 1 (with and without a
+    leading dim) and A = 3, with gates as numbers and as device tensors,
+    tight and wide enough that masked pairs (distance 512) pass; and on
+    word-major descriptors and strided uv rows."""
+    _need_card()
+    from vslam_tpu_torch.frontend import matching
+    from vslam_tpu_torch.ops import hamming
+
+    Q, D = shape
+    cpu = _match_sets(Q, D, Q * 7 + D, bits)
+    cuda = tuple(x.cuda() for x in cpu)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    k, n0, calls = hamming.HAMMING_MATCH, hamming.HAMMING_MATCH.launches, 0
+    stereo_gates = [(60, 1.5, 0.0, 200.0), (600, 1e9, -1e9, 1e9), (0, 0.0, 0.0, 0.0),
+                    (torch.tensor(60, **i32), torch.tensor(1.5, device="cuda"), 0.0,
+                     torch.tensor(150.0, device="cuda"))]
+    for gates in stereo_gates:
+        got = matching.match_stereo(*cuda, *gates)
+        _equal_matches(got, matching.match_stereo_reference(*cuda, *gates), ("stereo", gates))
+        calls += 1
+    gates = stereo_gates[0]
+    _equal_matches(matching.match_stereo(*cuda, *gates),
+                   matching.match_stereo_reference(*cpu, *gates), "stereo, CPU")
+    # Word-major descriptors (BRIEF256R's banks give them so) and strided uv
+    # rows (a frame's uv4[:, :2]).
+    uv_q, desc_q, mask_q, uv_d, desc_d, mask_d = cuda
+    strided = (torch.cat([uv_q, uv_q], 1)[:, :2], desc_q.t().contiguous().t(), mask_q,
+               torch.cat([uv_d, uv_d], 1)[:, 2:],
+               torch.stack([desc_d, desc_d], 2).reshape(D, 16)[:, ::2], mask_d)
+    assert all(torch.equal(a.contiguous().view(torch.uint8), b.view(torch.uint8))
+               for a, b in zip(strided, cuda))  # bit for bit: the uv hold NaNs
+    _equal_matches(matching.match_stereo(*strided, *gates),
+                   matching.match_stereo_reference(*cpu, *gates), "stereo, strided")
+    calls += 2
+    rng = np.random.default_rng(Q + D)
+    for A in (None, 1, 3):
+        if A is None:
+            proj, mask = uv_q, mask_q
+            cases = [(12.0, 70), (1e6, 600), (torch.tensor(12.0, device="cuda"),
+                                              torch.tensor(70, **i32))]
+        else:
+            proj = (uv_q[None] + torch.from_numpy(
+                rng.normal(0, 2, (A, Q, 2)).astype(np.float32)).cuda()).contiguous()
+            mask = torch.from_numpy(rng.uniform(size=(A, Q)) < 0.8).cuda() & mask_q
+            cases = [(torch.from_numpy(rng.uniform(2, 30, A).astype(np.float32)).cuda(),
+                      torch.from_numpy(rng.integers(20, 90, A).astype(np.int32)).cuda()),
+                     (8.0, 50), (torch.full((A,), 1e6, device="cuda"), 600)]
+        for radius, gate in cases:
+            args = (proj, desc_q, mask, uv_d, desc_d, mask_d, radius, gate)
+            _equal_matches(matching.match_projective(*args),
+                           matching.match_projective_reference(*args), ("projective", A))
+            calls += 1
+        cpu_args = [x.cpu() if isinstance(x, torch.Tensor) else x for x in args]
+        _equal_matches(matching.match_projective(*args),
+                       matching.match_projective_reference(*cpu_args), ("projective, CPU", A))
+        calls += 1
+    torch.cuda.synchronize()
+    assert k.launches - n0 == calls
+
+
+@pytest.mark.cuda
+def test_hamming_match_replay_reads_the_gates_at_each_replay():
+    """A stereo and a projective match (A = 3) with every gate a device
+    tensor, captured in a StaticProgram: after the gates change between
+    replays, each replay equals the eager call at the new gates."""
+    _need_card()
+    from collections import Counter
+
+    from vslam_tpu_torch.frontend import matching
+    from vslam_tpu_torch.ops import hamming, program
+
+    uv_q, desc_q, mask_q, uv_d, desc_d, mask_d = (x.cuda() for x in _match_sets(1024, 1024, 3))
+    proj = torch.stack([uv_q, uv_q + 1.0, uv_q - 2.0])
+
+    def fn(bufs):
+        max_h, tol, max_d, radius, gate = bufs
+        s = matching.match_stereo(uv_q, desc_q, mask_q, uv_d, desc_d, mask_d, max_h, tol, 0.0,
+                                  max_d)
+        p = matching.match_projective(proj, desc_q, mask_q, uv_d, desc_d, mask_d, radius, gate)
+        return (*s, *p)
+
+    f32, i32 = dict(device="cuda"), dict(dtype=torch.int32, device="cuda")
+    settings = [(60, 1.5, 200.0, [4.0, 8.0, 16.0], [40, 60, 80]),
+                (30, 0.5, 20.0, [30.0, 2.0, 1e6], [90, 20, 600]),
+                (256, 3.0, 300.0, [1.0, 1.0, 1.0], [10, 10, 10])]
+
+    def tensors(s):
+        return (torch.tensor(s[0], **i32), torch.tensor(s[1], **f32), torch.tensor(s[2], **f32),
+                torch.tensor(s[3], **f32), torch.tensor(s[4], **i32))
+
+    prog = program.StaticProgram(fn, tensors(settings[0]), Counter(), label="match")
+    k = hamming.HAMMING_MATCH
+    for s in settings + settings[::-1]:
+        prog.load(tensors(s))
+        n0 = k.launches
+        out = prog.evaluate()
+        torch.cuda.synchronize()
+        assert k.launches - n0 == 2
+        want = fn(tensors(s))
+        for a, b in zip(out, want):
+            assert torch.equal(a, b), s
+    assert prog.events["match replay"] == 5 and prog.graph is not None
+
+
+@pytest.mark.cuda
+def test_hamming_match_launches_twice_a_staged_stereo_frame():
+    """The staged front end (FAST at 2 octaves + BRIEF256, KITTI's 376 x
+    1241 at capacity 1,024) and one tracking attempt: one kernel call for
+    the stereo match and one for the projective match, 2 a frame by the
+    counter; the frames equal the CPU's, and the projective call's
+    outputs the plain version's on its own card inputs."""
+    _need_card()
+    from vslam_tpu_torch.frontend import matching
+    from vslam_tpu_torch.mapping import frame
+    from vslam_tpu_torch.ops import hamming
+
+    shape = (376, 1241)
+    cam_args = dict(fx=718.856, fy=718.856, cx=607.19, cy=185.22, baseline_m=0.537,
+                    rows=shape[0], cols=shape[1])
+    world = synthetic.make_world(cam_ops.make_camera(**cam_args, device="cpu"), n_frames=2,
+                                 n_points=6000, seed=9, step=0.5)
+    pairs = [synthetic.render_frame(world, t)[:2] for t in (0, 1)]
+    k = hamming.HAMMING_MATCH
+    seen = []
+    real = matching.match_projective
+
+    def recorded(*args):
+        out = real(*args)
+        seen.append((args, out))
+        return out
+
+    def run(device):
+        cam = cam_ops.make_camera(**cam_args, device=device)
+        frames, counts = [], []
+        for img_l, img_r in pairs:
+            imgs = [torch.from_numpy(np.asarray(a, np.uint8).astype(np.float32)).to(device)
+                    for a in (img_l, img_r)]
+            n0 = k.launches
+            f, _, _ = frame.process_stereo_pair(cam, *imgs, torch.tensor(15.0, device=device),
+                                                60, 1.5, 1.0, 200.0, capacity=1024,
+                                                bin_size=16, border=20, octaves=2)
+            frames.append(f)
+            counts.append(k.launches - n0)
+        guess = torch.from_numpy((np.linalg.inv(world.poses[1]) @ world.poses[0])
+                                 .astype(np.float32)).to(device)
+        n0 = k.launches
+        res = frame.track_and_align(cam, frames[0], frames[1], guess,
+                                    torch.tensor(8.0, device=device),
+                                    torch.tensor(50, dtype=torch.int32, device=device),
+                                    torch.ones(1024, device=device))
+        counts.append(k.launches - n0)
+        return frames, counts, res
+
+    import unittest.mock as mock
+
+    with mock.patch.object(matching, "match_projective", recorded):
+        frames, counts, res = run("cuda")
+        torch.cuda.synchronize()
+        assert counts == [1, 1, 1]  # a frame: its stereo match and one attempt's match
+        assert int(res.n_matches) > 100
+        cpu_frames, cpu_counts, _ = run("cpu")
+    assert cpu_counts == [0, 0, 0]
+    for a, b in zip(frames, cpu_frames):
+        for name in ("uv4", "desc", "valid", "reliable"):
+            assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), name
+    args, out = seen[0]
+    assert args[0].is_cuda
+    _equal_matches(out, matching.match_projective_reference(*args), "the attempt's match")
+    assert int(out.valid.sum()) > 100
+
+
+@pytest.mark.cuda
+def test_hamming_match_refuses_what_it_does_not_take():
+    """CPU/CUDA mixes, other dtypes and shapes, non-contiguous masks and
+    uv pairs, and gates of another dtype, device or size raise before any launch;
+    the plain versions are not called instead."""
+    _need_card()
+    from vslam_tpu_torch.frontend import matching
+    from vslam_tpu_torch.ops import hamming
+
+    cuda = tuple(x.cuda() for x in _match_sets(100, 90, 1))
+    uv_q, desc_q, mask_q, uv_d, desc_d, mask_d = cuda
+    k = hamming.HAMMING_MATCH
+    n0 = k.launches
+    bad = []
+    for i in range(6):  # one input left on the CPU
+        bad.append(tuple(x.cpu() if j == i else x for j, x in enumerate(cuda)))
+    bad += [(uv_q.double(), desc_q, mask_q, uv_d, desc_d, mask_d),
+            (uv_q, desc_q.long(), mask_q, uv_d, desc_d, mask_d),
+            (uv_q, desc_q, mask_q.to(torch.uint8), uv_d, desc_d, mask_d),
+            (uv_q, desc_q[:, :4], mask_q, uv_d, desc_d, mask_d),
+            (uv_q, desc_q, mask_q, uv_d.t().contiguous().t(), desc_d, mask_d),
+            (uv_q, desc_q, mask_q.repeat(2)[::2], uv_d, desc_d, mask_d),
+            (uv_q.half(), desc_q, mask_q, uv_d, desc_d, mask_d)]
+    for args in bad:
+        with pytest.raises(ValueError):
+            matching.match_stereo(*args, 60, 1.5, 0.0, 200.0)
+        with pytest.raises(ValueError):
+            matching.match_projective(*args, 8.0, 50)
+    for gates in ((torch.tensor(60), 1.5, 0.0, 200.0),  # int64
+                  (torch.tensor(60, dtype=torch.int32), 1.5, 0.0, 200.0),  # on the CPU
+                  (60, torch.tensor(1.5, device="cuda").double(), 0.0, 200.0),
+                  (60, 1.5, 0.0, torch.tensor([200.0, 100.0], device="cuda")),
+                  (60, "1.5", 0.0, 200.0)):
+        with pytest.raises(ValueError):
+            matching.match_stereo(*cuda, *gates)
+    with pytest.raises(ValueError):  # A = 3 problems, one radius too few
+        matching.match_projective(torch.stack([uv_q] * 3), *cuda[1:],
+                                  torch.ones(2, device="cuda"), 50)
+    torch.cuda.synchronize()
+    assert k.launches == n0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["kitti", "euroc", "kitti_fast"])
 def test_shipped_configurations_run_on_the_card(name):
@@ -606,10 +866,15 @@ def test_cli_run_on_a_kitti_directory_on_the_card(tmp_path):
         rep = json.loads((out / "timing.json").read_text())
         est[device] = traj_eval.read_kitti(str(out / "est.txt"))
         assert rep["run"]["device"].startswith(device)
+        # A frame on the card: K1, and the matching kernel for its stereo
+        # match and each of the 3 ladder attempts the frame program holds
+        # (a replay counts the IF nodes' launches whether they run or not).
         assert rep["run"]["kernel_launches"] == (
-            {"K1": 4, "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0, "box_blur": 0}
+            {"K1": 4, "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0, "box_blur": 0,
+             "hamming_match": 16}
             if device == "cuda"
-            else {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0, "box_blur": 0})
+            else {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "fast_cells": 0, "box_blur": 0,
+                  "hamming_match": 0})
     assert est["cuda"].shape == (4, 4, 4) and np.isfinite(est["cuda"]).all()
     assert np.abs(est["cuda"][:, :3, 3] - est["cpu"][:, :3, 3]).max() <= 1e-3
 

@@ -50,6 +50,31 @@ def box_blur_taps(radius: int) -> float:
     return k * (128 + 2 * radius) / 128 + k
 
 
+# Integer popcounts (__popc) an SM issues a clock on sm_90 (the CUDA C++
+# Programming Guide's arithmetic instruction throughput).
+POPC_PER_SM_CLOCK = 16
+
+
+def hamming_match_work(Q: int, D: int, A: int = 1) -> tuple[int, int]:
+    """(bytes, popcounts) one call of the matching kernel
+    (csrc/hamming_match.cu) needs for Q query rows against D database
+    columns, A problems: both descriptor sets (32 bytes a row), uv (8) and
+    masks (1) read once, each problem's query uv and mask too, and the
+    three outputs (9 bytes a row a problem) written once; 8 popcounts a
+    pair, computed once for every problem."""
+    return 41 * (Q + D) + 9 * (A - 1) * Q + 9 * A * Q, 8 * Q * D
+
+
+def hamming_match_bound(Q: int, D: int, A: int = 1, sms: int = 132,
+                        clock_hz: float = 1.98e9) -> tuple[float, str]:
+    """(least time in ms, "bytes" or "popcounts": which sets it) of one
+    matching call: its bytes over the memory rate, or its popcounts at
+    POPC_PER_SM_CLOCK on each of `sms` SMs at `clock_hz`."""
+    nbytes, popc = hamming_match_work(Q, D, A)
+    t_bytes, t_popc = nbytes / HBM_BYTES_PER_S, popc / (POPC_PER_SM_CLOCK * sms * clock_hz)
+    return 1e3 * max(t_bytes, t_popc), "bytes" if t_bytes >= t_popc else "popcounts"
+
+
 def cuda_ms(fn, runs: int = 20, setup=None) -> float:
     """Median device time of fn() in ms, after a warm-up: CUDA events
     around fn alone.  Before each timed call the card spins for ~0.1 ms,

@@ -172,7 +172,7 @@ class HostLibrary(CudaLibrary):
 _KERNELS: dict[str, "CudaKernel"] = {}
 # One CudaLibrary a source, shared by the kernels it holds.
 _LIBRARIES: dict[str, CudaLibrary] = {}
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 
 def counters() -> dict:
@@ -187,9 +187,10 @@ class CudaKernel:
         int <symbol>_occupancy(<occupancy_args>..., int *blocks, int device);
 
     both returning a cudaError_t.  The argument types are letters: "p" a
-    pointer, "i" an int.  `launches` goes up by one each time the kernel
-    is launched, and nowhere else (`batches` counts the same launches by
-    batch size); the kernels of one source share one build (`library`).
+    pointer, "i" an int, "f" a float.  `launches` goes up by one each time
+    the kernel is launched, and nowhere else (`batches` counts the same
+    launches by batch size); the kernels of one source share one build
+    (`library`).
     A name is taken once a process."""
 
     def __init__(self, name: str, source: str, symbol: str, launch_args: str,

@@ -4,11 +4,23 @@ Descriptors are 256-bit strings packed as 8 int32 words (the same bits as
 the JAX package's uint32 words).  torch has no popcount, so distances use
 a SWAR popcount on int32: every mask clears the bits an arithmetic right
 shift smears in, so the signed shifts give the unsigned result.
+
+`HAMMING_MATCH` is the matching kernel (csrc/hamming_match.cu) that
+frontend/matching.py's match_stereo and match_projective launch on CUDA
+tensors: popcount distances, the geometric gate, both first-argmins and
+the mutual check in two launches a call, bit-equal to hamming_matrix +
+mutual_best_match, which CPU tensors run.
 """
 
 from __future__ import annotations
 
+import math
+import numbers
+
+import numpy as np
 import torch
+
+from vslam_tpu_torch.ops.cuda_build import CudaKernel
 
 DESC_BITS = 256
 DESC_WORDS = DESC_BITS // 32
@@ -118,3 +130,100 @@ def mutual_best_match(dist: torch.Tensor, mask: torch.Tensor, max_distance):
     mutual = torch.gather(best_i, -1, best_j.long()) == q_ids
     valid = mutual & (best <= max_distance)
     return best_j, valid, best
+
+
+def _f32(x) -> float:
+    """A Python number as torch compares it with an f32 tensor: rounded to
+    f32 (inf past its range)."""
+    with np.errstate(over="ignore"):
+        return float(np.float32(x))
+
+
+class HammingMatchKernel(CudaKernel):
+    """match_stereo / match_projective on the card, csrc/hamming_match.cu:
+    a tiles launch and a resolve launch a call.  Gates given as tensors
+    (f32; the distance gate int32) hold one value or one a problem and
+    are read on the device at each launch, so a captured graph reads them
+    at replay; gates given as Python numbers are passed by value."""
+
+    STEREO, PROJECTIVE = 0, 1
+    TILE_Q = TILE_D = 64  # csrc/hamming_match.cu's TQ, TD
+    MAX_SIDE = 1 << 21  # the index bits of a packed key
+
+    def __init__(self):
+        super().__init__("hamming_match", "hamming_match.cu", "hamming_match",
+                         "iiiipiipiipipiipip" + "pif" * 4 + "pippp", "i")
+
+    @staticmethod
+    def _gate(x, A: int, dev, dtype, name: str):
+        """(pointer, stride, value) of a gate: a tensor of `dtype` on `dev`
+        with one value, or one for each of the A problems; or a number."""
+        if isinstance(x, torch.Tensor):
+            if x.device != dev or x.dtype != dtype or x.numel() != A \
+                    or (A > 1 and not x.is_contiguous()):
+                raise ValueError(f"hamming match: gate {name} must be a number or a "
+                                 f"contiguous {dtype} tensor of {A} value(s) on {dev}")
+            return x.data_ptr(), 0 if A == 1 else 1, 0.0
+        if isinstance(x, bool) or not isinstance(x, numbers.Real):
+            raise ValueError(f"hamming match: gate {name} must be a number or a tensor")
+        if dtype == torch.int32 and isinstance(x, numbers.Integral):
+            x = (int(x) + (1 << 31)) % (1 << 32) - (1 << 31)  # torch's int32 wrap
+        return 0, 0, _f32(x)
+
+    def match(self, form: int, q_uv, q_desc, q_mask, d_uv, d_desc, d_mask, gates,
+              max_distance):
+        """(idx, valid, best) of mutual_best_match over the gated distances
+        of q_desc (Q, 8) against d_desc (D, 8) for each of the leading
+        problems of q_uv (..., Q, 2); q_mask is (..., Q) or (Q,).  gates:
+        (g0, g1, g2), the kernel's float gates for `form`."""
+        tensors = (q_uv, q_desc, q_mask, d_uv, d_desc, d_mask)
+        dev = q_desc.device
+        if dev.type != "cuda" or any(t.device != dev for t in tensors):
+            raise ValueError(f"hamming match: every input on one CUDA device, got "
+                             f"{[str(t.device) for t in tensors]}")
+        return self._match(form, *tensors, gates, max_distance)
+
+    def _match(self, form, q_uv, q_desc, q_mask, d_uv, d_desc, d_mask, gates, max_distance):
+        """match() past its device check: the shape, dtype and layout
+        checks, the outputs and the launch."""
+        lead = tuple(q_uv.shape[:-2])
+        A = math.prod(lead)
+        Q, D = q_desc.shape[0], d_desc.shape[0]
+        dev = q_desc.device
+        for desc in (q_desc, d_desc):
+            if desc.dtype != torch.int32 or desc.dim() != 2 or desc.shape[1] != DESC_WORDS:
+                raise ValueError("hamming match: descriptors must be (N, 8) int32")
+        if q_uv.dtype != torch.float32 or d_uv.dtype != torch.float32 \
+                or q_uv.shape[-2:] != (Q, 2) or tuple(d_uv.shape) != (D, 2) \
+                or q_uv.stride(-1) != 1 or d_uv.stride(-1) != 1:
+            raise ValueError("hamming match: uv must be float32 (..., Q, 2) and (D, 2) "
+                             "with contiguous (u, v) pairs")
+        q_uv = q_uv.reshape((A, Q, 2))  # a view where the leading dims allow one
+        if q_mask.shape not in ((Q,), lead + (Q,)) or tuple(d_mask.shape) != (D,):
+            raise ValueError("hamming match: masks must be (..., Q) or (Q,), and (D,)")
+        for mask in (q_mask, d_mask):
+            if mask.dtype != torch.bool or not mask.is_contiguous():
+                raise ValueError("hamming match: masks must be contiguous bool")
+        if not (1 <= Q <= self.MAX_SIDE and 1 <= D <= self.MAX_SIDE):
+            raise ValueError(f"hamming match: {Q} x {D} outside 1 .. {self.MAX_SIDE} a side")
+        n_q, n_d = -(-Q // self.TILE_Q), -(-D // self.TILE_D)
+        words = A * (n_d * Q + n_q * D)
+        if words >= 1 << 31:
+            raise ValueError(f"hamming match: {A} x {Q} x {D} over the partial buffer's size")
+        g = [self._gate(x, A, dev, torch.float32, f"g{i}") for i, x in enumerate(gates)]
+        h = self._gate(max_distance, A, dev, torch.int32, "max_distance")
+        partial = torch.empty(words, dtype=torch.int32, device=dev)
+        idx = torch.empty(lead + (Q,), dtype=torch.int32, device=dev)
+        valid = torch.empty(lead + (Q,), dtype=torch.bool, device=dev)
+        best = torch.empty(lead + (Q,), dtype=torch.int32, device=dev)
+        self._launch(dev, A, form, A, Q, D, q_desc.data_ptr(), *q_desc.stride(),
+                     q_uv.data_ptr(), q_uv.stride(0), q_uv.stride(1), q_mask.data_ptr(),
+                     Q if q_mask.dim() > 1 else 0, d_desc.data_ptr(), *d_desc.stride(),
+                     d_uv.data_ptr(), d_uv.stride(0), d_mask.data_ptr(),
+                     *(v for gate in g for v in gate), *h,
+                     partial.data_ptr(), words, idx.data_ptr(), valid.data_ptr(),
+                     best.data_ptr())
+        return idx, valid, best
+
+
+HAMMING_MATCH = HammingMatchKernel()
