@@ -310,6 +310,29 @@ Phases (each raises on failure; the exit code is then non-zero):
                EUROC_BANK_MARGIN of a boundary, and where the banks agree
                every bit but the exact ties is equal.  Alone:
                `python3 chip_smoke.py --euroc-closed`.
+ 27. tum-closed — the benchmark's TUM cell (perfbench's
+               proslam-tum.room1024: configuration_tum.yaml, RGB-D)
+               closed loop on the card: its 1,024 (intensity, depth)
+               frames from one seed, prestaged, through
+               SlamEngine.process_prestaged in 32-frame handles; launches
+               K3, the staged detector and the box blur 1 a frame (and
+               K3 1, the detector 2 and the blur 1 a check), K1, K2 and
+               K4 0; 0 breaks, every pose finite, >= 1 closure; the
+               correctness numbers of perfbench/reference.py and the
+               three depth counters against the tracker's statistics;
+               and at the first frame of TUM_CHECK_HANDLES handles (that
+               frame handed over alone, the rest of its handle after it,
+               so the drains stay where they were), at 640x480 and
+               capacity 1,024, on the program's own keypoints and depth:
+               its framepoints against perfbench/rgbd_plain.py's
+               (validity and depth exact, points within
+               TUM_POINT_TOL_M), and the pose the frame program solved
+               against rgbd_plain.uvd_solve from the inputs of that
+               solve (attempt 1's, recorded from the same step run
+               eagerly on the state before the frame; within
+               TUM_POSE_TOL_M and TUM_POSE_TOL_DEG); the same references
+               in bfloat16 must fail both tolerances.  Alone:
+               `python3 chip_smoke.py --tum-closed`.
 Every drive_slice run (phases 6, 9-11, 15-16) and phases 7-8 start from
 an empty program cache (fresh_programs), so the engine's first frame
 runs eagerly there, as before the programs were shared.
@@ -322,13 +345,13 @@ way, as its JAX counterpart runs jitted programs, and its host reads
 Phases 7, 8 and 20 are also held to the events and ATE this script
 printed before their programs existed (CARD_CLOSED, CARD_BA_CLOSED,
 CARD_MODULAR_CLOSED).
-The phases run in the order 1-5, 21, 6a, 6b, 15, 16, 18, 6c, 26, 7, 8,
+The phases run in the order 1-5, 21, 6a, 6b, 15, 16, 18, 6c, 26, 27, 7, 8,
 20, 25, 9-14, 17, 19, 24, 22-23: phases 15-16 next to the runs they are
 compared with, phase 25 after phase 7, whose query batches it replays.
 The JAX counts printed beside phases 6-11, 15-16 and 20 come from
 chip_smoke_jax_reference.py.  The script then prints its wall time, the
 kernel record (one JSON line: launches summed over the runs of phases
-6-10, 12-16, 20-23, 25 and 26, bit-equality, times, bound, share of the bound,
+6-10, 12-16, 20-23 and 25-27, bit-equality, times, bound, share of the bound,
 shared-load floor, blocks per SM, loads a pixel; K3's times at 480x640;
 K1 and K2 at the split chunk's B = 64 as entries of their own), the card's name
 and power limit (nvidia-smi), and last {"ok": true, "device": {...}}.
@@ -387,6 +410,22 @@ EUROC_CELL = "proslam-euroc.mh1024"
 EUROC_SEED = 3_000_000_019
 EUROC_CHECK_HANDLES = 8
 EUROC_BANK_MARGIN = 1e-3
+# Phase 27: the benchmark's TUM cell, its seed, and the handles whose
+# first frame is held to perfbench/rgbd_plain.py.  Tolerances against the
+# float64 reference: a framepoint's depth and validity exactly (the same
+# float32 pixel), its point within TUM_POINT_TOL_M (the program's float32
+# back-projection lay within 1.2e-7 m of it on the cell's frames, an H100;
+# the same in bfloat16 2.7e-2 m away); the frame's UVD pose within
+# TUM_POSE_TOL_M and TUM_POSE_TOL_DEG (the frame program's float32 solve
+# lay within 2.6e-7 m and 5e-6 deg of the converged float64 one there,
+# and within 1.5e-7 m and 8e-7 deg on tests/test_perfbench_tum.py's
+# problems; bfloat16's 2.4e-2 m and 0.53 deg away).
+TUM_CELL = "proslam-tum.room1024"
+TUM_SEED = 3_000_000_023
+TUM_CHECK_HANDLES = 8
+TUM_POINT_TOL_M = 1e-5
+TUM_POSE_TOL_M = 1e-4
+TUM_POSE_TOL_DEG = 1e-3
 
 
 def card_line() -> str:
@@ -3117,48 +3156,101 @@ def phase_backend_programs(closed, ba_closed, card):
                              f"points {dX:.2e} m, chi2 {dc:.2e}")
 
 
-def phase_euroc_closed(card):
-    """Phase 26: the benchmark's EuRoC cell closed loop, with the frame
-    program's rotated descriptors held to the plain reference.  Returns
-    the launch counts."""
-    from perfbench import brief256r_plain, generator, reference, spec, window
-    from perfbench.handoffs import prestaged_rolled
-    from vslam_tpu_torch.eval import trajectory as traj_eval
-    from vslam_tpu_torch.frontend import brief
-    from vslam_tpu_torch.frontend.fast_brief import gather_descriptors
-    from vslam_tpu_torch.frontend.orb import box_blur
+def cell_episode(cell_name, seed, render, check_handles):
+    """A benchmark cell's episode for the closed-loop phases: the cell's
+    configuration, traffic and world at `seed`, its frames rendered on the
+    card by `render(world, n, "cuda")`, `check_handles` handles spread
+    over the episode to check, every program forgotten, the launch counts
+    and the peak reset, and a fresh engine."""
+    from types import SimpleNamespace
+
+    from perfbench import generator, spec, window
     from vslam_tpu_torch.ops import camera as cam_ops
     from vslam_tpu_torch.system.engine import SlamEngine
-    from vslam_tpu_torch.tracking import fused
 
     bench = spec.load()
-    cell = spec.cell(bench, EUROC_CELL)
+    cell = spec.cell(bench, cell_name)
     config = window.load_config(spec.config_path(bench, cell["config"]))
     traffic = generator.load_traffic(spec.traffic_path(cell["traffic"]))
     cfg = window.parameter_collection(config)
     c = config.camera
     cam = cam_ops.make_camera(fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy, baseline_m=c.baseline_m,
                               rows=c.rows, cols=c.cols, device="cpu")
-    world = generator.make_world(traffic, c, EUROC_SEED)
+    world = generator.make_world(traffic, c, seed)
     n = traffic.episode_frames
-    gt = world.poses[:n].astype(np.float64)
     t0 = time.perf_counter()
-    frames = prestaged_rolled.render_frames(world, n, "cuda")
+    frames = render(world, n, "cuda")
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
     C = int(cfg.parallelism.frames_per_chunk)
     handles = n // C
-    checks = set(np.linspace(1, handles - 1, EUROC_CHECK_HANDLES).round().astype(int).tolist())
+    checks = set(np.linspace(1, handles - 1, check_handles).round().astype(int).tolist())
     fresh_programs()
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    rotated0 = fused.EVENTS["rotated keypoints"]
     eng = SlamEngine(cam, cfg, landmark_capacity=config.landmark_capacity, device="cuda")
+    return SimpleNamespace(config=config, cfg=cfg, cam=c, n=n, C=C, handles=handles,
+                           checks=checks, seed=seed, gt=world.poses[:n].astype(np.float64),
+                           frames=frames, render_s=render_s, eng=eng)
+
+
+def finish_episode(label, what, ep, run_s, card):
+    """Flush the episode's engine and print its summary and correctness
+    numbers; returns (launch counts, the engine's report, the numbers,
+    run_s with the flush)."""
+    from perfbench import reference, window
+    from vslam_tpu_torch.eval import trajectory as traj_eval
+
+    eng, n = ep.eng, ep.n
+    t1 = time.perf_counter()
+    traj = eng.trajectory
+    torch.cuda.synchronize()
+    run_s += time.perf_counter() - t1
+    counts = read_counts()
+    rep_ = eng.report()
+    episode = window.Episode(
+        frames=n, trajectory=np.asarray(traj, np.float64), kf_frames=list(eng.kf_frame_indices),
+        closures=[(cl.query_id, cl.reference_id, np.asarray(cl.T_ref_query, np.float64))
+                  for cl in eng.world_map.closures],
+        breaks=int(eng.tracker.stats.n_breaks))
+    numbers = reference.compare([episode], ep.gt)
+    rmse, _, _ = traj_eval.ate_rmse(np.asarray(traj), ep.gt)
+    print(f"[{label}] {n} {what} (seed {ep.seed}, rendered in {ep.render_s:.1f} s): "
+          f"ATE {rmse:.4f} m, {rep_['n_local_maps']} local maps, {rep_['n_closures']} closures, "
+          f"{rep_['n_optimizations']} optimizations, {rep_['n_merged_landmarks']} merged, "
+          f"{rep_['n_track_breaks']} breaks, {rep_['n_recovered_landmarks']} recovered; "
+          f"launches {counts}; {1e3 * run_s / n:.2f} ms/frame (first engine, eager frames "
+          f"and captures included), peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+          f"({card})")
+    print(f"[{label}] correctness numbers {json.dumps(numbers)}")
+    if rep_["n_track_breaks"] != 0 or numbers["frames_missing"] != 0:
+        raise AssertionError(f"[{label}] {rep_['n_track_breaks']} breaks, "
+                             f"{numbers['frames_missing']} frames without a pose")
+    if rep_["n_closures"] < 1:
+        raise AssertionError(f"[{label}] no closure")
+    return counts, rep_, numbers, run_s
+
+
+def phase_euroc_closed(card):
+    """Phase 26: the benchmark's EuRoC cell closed loop, with the frame
+    program's rotated descriptors held to the plain reference.  Returns
+    the launch counts."""
+    from perfbench import brief256r_plain
+    from perfbench.handoffs import prestaged_rolled
+    from vslam_tpu_torch.frontend import brief
+    from vslam_tpu_torch.frontend.fast_brief import gather_descriptors
+    from vslam_tpu_torch.frontend.orb import box_blur
+    from vslam_tpu_torch.tracking import fused
+
+    rotated0 = fused.EVENTS["rotated keypoints"]
+    ep = cell_episode(EUROC_CELL, EUROC_SEED, prestaged_rolled.render_frames,
+                      EUROC_CHECK_HANDLES)
+    eng, frames, C, n, checks = ep.eng, ep.frames, ep.C, ep.n, ep.checks
     seen = {"keypoints": 0, "bank_differs": 0, "bank_differs_far_from_boundary": 0,
             "tie_bits": 0, "descriptors_differ": 0}
     ring_size = eng.tracker.params.ring_size
     run_s, ref_s = 0.0, 0.0
-    for h in range(handles):
+    for h in range(ep.handles):
         t1 = time.perf_counter()
         eng.process_prestaged(frames[h * C:(h + 1) * C])
         run_s += time.perf_counter() - t1
@@ -3187,28 +3279,8 @@ def phase_euroc_closed(card):
         if not ok:
             raise AssertionError(f"[euroc-closed] frame {f}: descriptors off the plain "
                                  f"reference: {counts}")
-    t1 = time.perf_counter()
-    traj = eng.trajectory
-    torch.cuda.synchronize()
-    run_s += time.perf_counter() - t1
-    counts = read_counts()
+    counts, _, _, run_s = finish_episode("euroc-closed", "rolled frames", ep, run_s, card)
     rotated = fused.EVENTS["rotated keypoints"] - rotated0
-    rep_ = eng.report()
-    episode = window.Episode(
-        frames=n, trajectory=np.asarray(traj, np.float64), kf_frames=list(eng.kf_frame_indices),
-        closures=[(cl.query_id, cl.reference_id, np.asarray(cl.T_ref_query, np.float64))
-                  for cl in eng.world_map.closures],
-        breaks=int(eng.tracker.stats.n_breaks))
-    numbers = reference.compare([episode], gt)
-    rmse, _, _ = traj_eval.ate_rmse(np.asarray(traj), gt)
-    print(f"[euroc-closed] {n} rolled frames (seed {EUROC_SEED}, rendered in {render_s:.1f} s): "
-          f"ATE {rmse:.4f} m, {rep_['n_local_maps']} local maps, {rep_['n_closures']} closures, "
-          f"{rep_['n_optimizations']} optimizations, {rep_['n_merged_landmarks']} merged, "
-          f"{rep_['n_track_breaks']} breaks, {rep_['n_recovered_landmarks']} recovered; "
-          f"launches {counts}; {1e3 * run_s / n:.2f} ms/frame (first engine, eager frames "
-          f"and captures included), peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
-          f"({card})")
-    print(f"[euroc-closed] correctness numbers {json.dumps(numbers)}")
     print(f"[euroc-closed] rotated keypoints {rotated} ({rotated / n:.1f} a frame; left "
           f"images' keypoints {eng.tracker.stats.n_keypoints}); descriptors after "
           f"{len(checks)} handles against the plain reference: {seen} ({ref_s:.1f} s)")
@@ -3218,16 +3290,160 @@ def phase_euroc_closed(card):
               "box_blur": 5 * n + 2 * len(checks)}
     if counts != expect:
         raise AssertionError(f"[euroc-closed] launches {counts}, expected {expect}")
-    if rep_["n_track_breaks"] != 0 or numbers["frames_missing"] != 0:
-        raise AssertionError(f"[euroc-closed] {rep_['n_track_breaks']} breaks, "
-                             f"{numbers['frames_missing']} frames without a pose")
-    if rep_["n_closures"] < 1:
-        raise AssertionError("[euroc-closed] no closure")
-    if not eng.tracker.stats.n_keypoints < rotated <= 2 * n * int(cfg.framepoint_generation.capacity):
+    if not eng.tracker.stats.n_keypoints < rotated <= 2 * n * int(
+            ep.cfg.framepoint_generation.capacity):
         raise AssertionError(f"[euroc-closed] rotated keypoints {rotated}")
     if seen["keypoints"] < 100 * len(checks):
         raise AssertionError(f"[euroc-closed] only {seen['keypoints']} keypoints checked")
-    del eng, frames
+    del eng, frames, ep
+    return counts
+
+
+def phase_tum_closed(card):
+    """Phase 27: the benchmark's TUM cell closed loop, with the frame
+    program's depth framepoints and UVD poses held to the plain reference.
+    Returns the launch counts."""
+    from unittest import mock
+
+    from perfbench import reference, rgbd_plain
+    from perfbench.handoffs import prestaged_depth
+    from vslam_tpu_torch.frontend import detect
+    from vslam_tpu_torch.mapping import frame as frame_mod
+    from vslam_tpu_torch.mapping import landmarks as lm_mod
+    from vslam_tpu_torch.solve import aligners
+    from vslam_tpu_torch.tracking import fused
+
+    keys = ("depth keypoints", "depth framepoints", "depth recovered")
+    before = {k: fused.EVENTS[k] for k in keys}
+    ep = cell_episode(TUM_CELL, TUM_SEED, prestaged_depth.render_frames, TUM_CHECK_HANDLES)
+    eng, frames, C, n, checks, c = ep.eng, ep.frames, ep.C, ep.n, ep.checks, ep.cam
+    fp = ep.cfg.framepoint_generation
+    K = torch.tensor([[c.fx, 0.0, c.cx], [0.0, c.fy, c.cy], [0.0, 0.0, 1.0]])
+    tr = eng.tracker
+    params, R = tr.params, tr.params.ring_size
+    gn_cfg = params.gn_config
+    seen = {"frames": 0, "keypoints": 0, "framepoints": 0, "point_gap_m": 0.0,
+            "bf16_point_gap_m": 0.0, "poses": 0, "poses_skipped": 0, "pose_gap_m": 0.0,
+            "pose_gap_deg": 0.0, "eager_gap_m": 0.0, "bf16_pose_gap_m": None,
+            "bf16_pose_gap_deg": None, "thresholds": []}
+
+    def gap(A, B):
+        t, r = reference.relative_gap(*(x.cpu().double().numpy() for x in (A, B)))
+        return float(t), float(r)
+
+    run_s, ref_s = 0.0, 0.0
+    for h in range(ep.handles):
+        a, b = h * C, (h + 1) * C
+        if h not in checks:
+            t1 = time.perf_counter()
+            eng.process_prestaged(frames[a:b])
+            run_s += time.perf_counter() - t1
+            continue
+        # Frame a's inputs as the program's buffers hold them, then frame a
+        # alone (no drain falls inside a handle, so the drains stay where
+        # they were), then the rest of the handle.
+        st = fused.clone_state(tr.state)
+        seen["thresholds"].append(float(st.threshold))
+        t1 = time.perf_counter()
+        eng.process_prestaged(frames[a:a + 1])
+        run_s += time.perf_counter() - t1
+        t1 = time.perf_counter()
+        prog = fused.clone_state(tr.state)
+        ring = prog.ring[a % R].cpu()
+        img, depth = frames[a, 0], frames[a, 1]
+        # The program's framepoints against the plain reference on the
+        # keypoints its front end detected (detection is deterministic).
+        kp = detect.detect_pyramid(detect.pyramid(img[None], params.octaves), st.threshold,
+                                   params.bin_size, params.capacity, params.border,
+                                   params.detector)
+        uv = kp.uv[0][kp.valid[0]]
+        z, valid, p = rgbd_plain.framepoints(depth, uv, K, fp.minimum_depth_meters,
+                                             fp.maximum_depth_meters)
+        nf = int(valid.sum())
+        if (int(ring[fused._R_NKP]) != len(uv) or int(ring[fused._R_NFP]) != nf
+                or not bool(prog.prev.valid[:nf].all())):
+            raise AssertionError(f"[tum-closed] frame {a}: the program's {int(ring[fused._R_NKP])} "
+                                 f"keypoints / {int(ring[fused._R_NFP])} framepoints against "
+                                 f"{len(uv)} / {nf} on its own detection")
+        rows = prog.prev.uv4[:nf].cpu()
+        if not (torch.equal(rows[:, :2], uv.cpu()[valid])
+                and torch.equal(rows[:, 2].double(), z[valid])):
+            raise AssertionError(f"[tum-closed] frame {a}: framepoints or depths off the plain "
+                                 "reference")
+        pg = float((prog.prev.p_cam[:nf].cpu().double() - p[valid]).abs().max())
+        bz, bv, bp = rgbd_plain.framepoints(depth, uv, K, fp.minimum_depth_meters,
+                                            fp.maximum_depth_meters, dtype=torch.bfloat16)
+        bg = float((bp[valid].double() - p[valid]).abs().max())
+        seen["frames"] += 1
+        seen["keypoints"] += len(uv)
+        seen["framepoints"] += nf
+        seen["point_gap_m"] = max(seen["point_gap_m"], pg)
+        seen["bf16_point_gap_m"] = max(seen["bf16_point_gap_m"], bg)
+        if pg > TUM_POINT_TOL_M or bg <= TUM_POINT_TOL_M:
+            raise AssertionError(f"[tum-closed] frame {a}: points {pg:.2e} m from the plain "
+                                 f"reference (bfloat16 {bg:.2e} m), tolerance {TUM_POINT_TOL_M}")
+        # Attempt 1's pose solve on the same inputs: the front end and the
+        # match again eagerly from the state before frame a, the solver's
+        # arguments recorded.
+        cur = frame_mod.process_depth_frame(
+            tr.cam, img, depth, st.threshold, params.min_depth, params.max_depth,
+            capacity=params.capacity, bin_size=params.bin_size, border=params.border,
+            descriptor=params.descriptor, detector=params.detector, octaves=params.octaves)[0]
+        radius, gate, guess = fused._ladder_inputs(params, st, st.last_motion)[0]
+        weights = lm_mod.landmark_weights(st.table, st.prev.landmark_slot)
+        with mock.patch.object(aligners, "uvd_align", wraps=aligners.uvd_align) as solve:
+            res = frame_mod._one_attempt(tr.cam, st.prev, cur, guess, radius,
+                                         gate.to(torch.int32), weights, gn_cfg, depth=True)
+        T_prog = torch.linalg.inv(ring[:16].reshape(4, 4).double()) @ st.T_world_cam.cpu().double()
+        if not bool(fused._accept(params, res)) or not bool(st.has_prev):
+            seen["poses_skipped"] += 1  # another attempt decided the pose
+            ref_s += time.perf_counter() - t1
+            t1 = time.perf_counter()
+            eng.process_prestaged(frames[a + 1:b])
+            run_s += time.perf_counter() - t1
+            continue
+        _, data, mask, T0, _ = solve.call_args.args
+        args = (K, data.p_prev, data.meas[0], data.weight, data.depth_reliable[0], mask[0], T0[0])
+        kw = dict(kernel=gn_cfg.kernel_max_error, min_inliers=gn_cfg.min_num_inliers)
+        T_plain = rgbd_plain.uvd_solve(*args, **kw)[0]
+        dt, dr = gap(T_prog, T_plain)
+        seen["eager_gap_m"] = max(seen["eager_gap_m"], gap(T_prog, res.T_cur_prev.cpu())[0])
+        seen["poses"] += 1
+        seen["pose_gap_m"] = max(seen["pose_gap_m"], dt)
+        seen["pose_gap_deg"] = max(seen["pose_gap_deg"], dr)
+        if seen["bf16_pose_gap_m"] is None:
+            bt, br = gap(rgbd_plain.uvd_solve(*args, **kw, dtype=torch.bfloat16)[0], T_plain)
+            seen["bf16_pose_gap_m"], seen["bf16_pose_gap_deg"] = bt, br
+            if bt <= TUM_POSE_TOL_M or br <= TUM_POSE_TOL_DEG:
+                raise AssertionError(f"[tum-closed] frame {a}: the bfloat16 solve lies within "
+                                     f"the tolerance ({bt:.2e} m, {br:.2e} deg)")
+        ref_s += time.perf_counter() - t1
+        if dt > TUM_POSE_TOL_M or dr > TUM_POSE_TOL_DEG:
+            raise AssertionError(f"[tum-closed] frame {a}: the program's pose {dt:.2e} m, "
+                                 f"{dr:.2e} deg from the plain solve's: {seen}")
+        t1 = time.perf_counter()
+        eng.process_prestaged(frames[a + 1:b])
+        run_s += time.perf_counter() - t1
+    counts, _, _, run_s = finish_episode("tum-closed", "RGB-D frames", ep, run_s, card)
+    got = {k: fused.EVENTS[k] - before[k] for k in keys}
+    print(f"[tum-closed] depth counters {got} ({got['depth keypoints'] / n:.1f} keypoints, "
+          f"{got['depth framepoints'] / n:.1f} framepoints, {got['depth recovered'] / n:.2f} "
+          f"recovered a frame); against the plain reference at {len(checks)} frames: "
+          f"{json.dumps(seen)} ({ref_s:.1f} s)")
+    # Every check detects once more and runs the front end once more
+    # eagerly: two FAST cells, one box blur and one K3 launch.
+    k = len(checks)
+    expect = {"K1": 0, "K2": 0, "K3": n + k, "K4": 0, "fast_cells": n + 2 * k,
+              "box_blur": n + k}
+    if counts != expect:
+        raise AssertionError(f"[tum-closed] launches {counts}, expected {expect}")
+    stats = eng.tracker.stats
+    if got != {"depth keypoints": stats.n_keypoints, "depth framepoints": stats.n_framepoints,
+               "depth recovered": stats.n_recovered}:
+        raise AssertionError(f"[tum-closed] depth counters {got} against the tracker's stats")
+    if seen["poses"] < k // 2 or seen["framepoints"] < 100 * k:
+        raise AssertionError(f"[tum-closed] too little checked: {seen}")
+    del eng, frames, ep
     return counts
 
 
@@ -3390,11 +3606,13 @@ def main():
         rank, world, port, src, out = sys.argv[2:7]
         shard_worker(int(rank), int(world), int(port), src, out)
         return
-    if sys.argv[1:2] == ["--euroc-closed"]:  # phase 26 alone
+    alone = {"--euroc-closed": phase_euroc_closed,  # phase 26 alone
+             "--tum-closed": phase_tum_closed}  # phase 27 alone
+    if sys.argv[1:2] and sys.argv[1] in alone:
         card = card_line()
         print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
               f"{torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
-        phase_euroc_closed(card)
+        alone[sys.argv[1]](card)
         print(json.dumps({"ok": True, "device": {"name": torch.cuda.get_device_name(0),
                                                  "card": card}}))
         return
@@ -3438,13 +3656,14 @@ def main():
     mark(t_start, "chain-pg")
     phase_chain(card)
     closed, ba_closed = {}, {}
-    mark(t_start, "euroc-config, euroc-closed, closed, ba-closed, modular-closed, "
-                  "modular configs")
+    mark(t_start, "euroc-config, euroc-closed, tum-closed, closed, ba-closed, "
+                  "modular-closed, modular configs")
     for counts in (
         config_slice("euroc-config", "euroc", EUROC_CAM, EUROC_FRAMES, EUROC_CIRCLE_FRAMES,
                      4.0, {"K2": 1, "K4": 2 * db.N_ROT_BANKS, "fast_cells": 2, "box_blur": 5},
                      within_15_percent(JAX_CPU_EUROC["n_local_maps"]), 2, card),
         phase_euroc_closed(card),
+        phase_tum_closed(card),
         phase_closed_loop("closed", cam, closed_loop_config(cfg), world, frames,
                           JAX_CPU_CLOSED_LOOP, CARD_CLOSED, card, record=closed),
         phase_closed_loop("ba-closed", cam, ba_closed_config(cfg), world, frames,

@@ -1459,6 +1459,52 @@ def test_capture_without_conditional_nodes_keeps_its_slots():
     assert torch.equal(y, x * 2)
 
 
+@pytest.mark.cuda
+def test_capture_outlives_dead_graphs_collected_meanwhile():
+    """Dead reference cycles that hold captured graphs are not collected
+    inside a later capture (a graph destroyed mid-capture invalidates
+    it), however low the collector's thresholds fall there; they are
+    collected after it."""
+    _need_card()
+    import gc
+    import weakref
+
+    from vslam_tpu_torch.ops import control
+
+    class Marker:
+        pass
+
+    x = torch.arange(16, dtype=torch.float32, device="cuda")
+    threshold = gc.get_threshold()
+    gc.set_threshold(1_000_000)  # no automatic collection before the capture
+    try:
+        markers = []
+        for _ in range(4):
+            dead = torch.cuda.CUDAGraph()
+            with control.graph_capture(dead, "cuda"):
+                x * 3
+            marker = Marker()
+            cycle = [dead, marker]
+            cycle.append(cycle)
+            markers.append(weakref.ref(marker))
+            del dead, marker, cycle
+        graph = torch.cuda.CUDAGraph()
+        with control.graph_capture(graph, "cuda"):
+            alive = all(m() is not None for m in markers)
+            gc.set_threshold(1, 1, 1)
+            y = x * 2
+            [[] for _ in range(1000)]  # past the thresholds many times over
+        gc.set_threshold(*threshold)
+        assert alive and gc.isenabled()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, x * 2)
+        gc.collect()
+        assert all(m() is None for m in markers)
+    finally:
+        gc.set_threshold(*threshold)
+
+
 def _modular_state(progs):
     return [*progs.table, *progs.prev, *progs.cur, progs.T_cur_prev, progs.prev_to_cur]
 

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import threading
 from dataclasses import dataclass, field
 
@@ -294,6 +295,12 @@ def graph_capture(graph: torch.cuda.CUDAGraph, device=None, pool=None):
     ctx = _Capture(device)
     ctx.pool = torch.cuda.graph_pool_handle() if pool is None else pool
     _local.capture = ctx
+    # No automatic collection inside a capture: a dead cycle that holds a
+    # CUDAGraph, freed there, destroys that graph while the stream is
+    # capturing, which invalidates the capture (torch.cuda.graph no longer
+    # collects before it begins).  Such cycles are freed after the capture.
+    collecting = gc.isenabled()
+    gc.disable()
     try:
         with torch.cuda.graph(graph, pool=ctx.pool):
             capturing = torch.cuda.current_stream(device).cuda_stream
@@ -303,6 +310,8 @@ def graph_capture(graph: torch.cuda.CUDAGraph, device=None, pool=None):
             yield ctx.record
     finally:
         _local.capture = None
+        if collecting:
+            gc.enable()
 
 
 # ---------------------------------------------------------------------------

@@ -663,7 +663,10 @@ def assign_state(dst: TrackerState, src: TrackerState) -> None:
 # Frames run eagerly, captures and replays of every program (CUDA only);
 # "rotated keypoints": the keypoints of both images that BRIEF256R's
 # rotated banks described, added by the tracker at each drain from the
-# frames' ring rows (every device).
+# frames' ring rows (every device); "depth keypoints", "depth
+# framepoints" and "depth recovered": the RGB-D front end's keypoints,
+# those with a depth in the window, and the landmarks depth recovery
+# re-acquired, added the same way in depth mode.
 EVENTS: Counter = Counter()
 
 

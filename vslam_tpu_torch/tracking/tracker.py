@@ -761,7 +761,10 @@ class FusedPoseTracker:
         """One device->host copy of the result ring: per-frame poses and
         statistics of every unharvested frame, then any new keyframes.
         On BRIEF256R the frames' keypoints, both images', go to
-        fused.EVENTS["rotated keypoints"]."""
+        fused.EVENTS["rotated keypoints"]; in depth mode their keypoints,
+        framepoints (keypoints with a depth in the window) and recovered
+        landmarks to fused.EVENTS["depth keypoints"], ["depth
+        framepoints"] and ["depth recovered"]."""
         self._drained = True
         upto = self._dispatched
         if upto == self._harvested:
@@ -773,6 +776,7 @@ class FusedPoseTracker:
         s = self.stats
         kf_total = self._kf_harvested
         rotated = 0
+        depth0 = (s.n_keypoints, s.n_framepoints, s.n_recovered)
         for fi in range(self._harvested, upto):
             row = ring[fi % self.params.ring_size]
             T = self._corrected(row[:16].reshape(4, 4), fi)
@@ -796,6 +800,10 @@ class FusedPoseTracker:
             kf_total = int(row[fused._R_KFCOUNT])
         if self.params.descriptor == "BRIEF256R":
             fused.EVENTS["rotated keypoints"] += rotated
+        if self.mode == "depth":
+            for key, n, n0 in zip(("depth keypoints", "depth framepoints", "depth recovered"),
+                                  (s.n_keypoints, s.n_framepoints, s.n_recovered), depth0):
+                fused.EVENTS[key] += n - n0
         if kf_total > self._kf_harvested:
             self._harvest_keyframes(kf_total)
         self._harvested = upto
